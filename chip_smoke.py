@@ -7,14 +7,23 @@ Phases, each printing its own lines:
   1. environment: the card's name and power limit, torch and CUDA versions,
      and the build of every CUDA kernel from `paths_tpu_torch/csrc`;
   2. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the serving path gives it and at one long bag, with errors,
-     times, a PyTorch library call's time as a yardstick, and the least time
-     the card could take for the same work;
+     the shapes the serving and training paths give it and at one long bag,
+     with errors, times, a PyTorch library call's time as a yardstick, and
+     the least time the card could take for the same work; the backward
+     kernels are also held to autograd through the plain forward;
   3. slice: a synthetic feature store and a randomly initialised model of the
      flagship `brca_paths_0` width are served through `ServingSession`; the
-     launch counters show the serving path went through the kernels, the
-     hazards are checked, and a session on the plain attention path must
-     agree.
+     launch counters show the serving path went through the forward kernel,
+     the hazards are checked, and a session on the plain attention path must
+     agree;
+  4. train: a 64-slide synthetic signal store, and `brca_paths_0` at full
+     width with attention dropout 0, trained for 2 epochs through
+     `paths_tpu_torch.cli.train` on the kernel route and again on the plain
+     route from the same weights; the launch counters show the training path
+     went through all three kernels exactly as often as the code says, the
+     two runs and one batch's gradients must agree, one step at the
+     published dropout 0.05 must launch no kernel (as in the JAX package),
+     and one step's time, memory and profile are printed.
 The line before the last is a JSON object of per-kernel numbers, and the
 last line is `{"ok": true, "device": {...}}`. Any failed check raises, so
 the script exits non-zero and prints no result; without a CUDA device it
@@ -22,7 +31,9 @@ exits with code 2.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -40,10 +51,36 @@ PEAK_BYTES = 3.35e12
 # Kernel vs plain on the card: both f32, summed in different orders over up
 # to 4096 keys.
 KERNEL_ATOL = 2e-5
+# Backward kernels vs plain and vs autograd through the plain forward, all
+# f32, held relative to the largest gradient: max |kernel - ref| <= BWD_RTOL
+# * max(1, max |ref|). A gradient sums up to N (4096) terms, and the flash
+# formulation (P rebuilt from lse, dS = P (dP - rowsum(dO O))) cancels: on
+# the CPU against an f64 reference its f32 error is 7e-7 of the largest
+# gradient at N = 257 and 2.3e-5 at N = 4096 (autograd through the softmax:
+# 4e-7), so 1e-4 leaves room for a second summation order.
+BWD_RTOL = 1e-4
 # Hazards through the kernel vs the plain attention path: the per-layer
 # differences above pass through 2 decoder layers at each of 5 levels and
 # the residual slide context between levels.
 PRED_ATOL = 1e-4
+# One batch's gradients through the kernels vs the plain route, from the
+# same weights: each tensor is held to its own largest gradient, max |kernel
+# - plain| <= GRAD_RTOL * max |plain|, as the backward kernels are above.
+# Key-projection biases are the exception: softmax ignores a shift of a
+# row's scores, so their gradient is 0 in exact arithmetic and what either
+# route computes there is rounding noise; they are held to the largest
+# gradient of the model instead. Planted faults in the backward kernels'
+# results (dq scaled by 1 + 1e-3, dk zeroed) must fail this check.
+GRAD_RTOL = 1e-4
+# Two training runs through the kernels vs the plain route, from the same
+# weights on the same batches: losses relative, c-indices absolute. The
+# runs differ by summation order only (3e-8 relative on the H100). The loss
+# check holds the forward kernel through training; it cannot see a wrong
+# backward, since 4 AdamW steps at lr 2e-5 move each weight by about lr
+# whatever the gradient's size: the gradient check above holds the
+# backward. A c-index moves only when two predictions swap order.
+LOSS_RTOL = 1e-5
+CINDEX_ATOL = 0.02
 
 
 def card() -> str:
@@ -85,8 +122,12 @@ def device_ms(fn, iters: int) -> float:
 
 
 def kernel_us(prof) -> float:
+    """Summed device time of the kernels in a trace. User annotations (such
+    as the optimizer's step range) also appear on the device's timeline and
+    overlap the kernels they enclose; they are left out, as the profiler's
+    own total leaves them out."""
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA")
+               if e.device_type.name == "CUDA" and not e.is_user_annotation)
 
 
 def flash_bound(b, h, nq, d, lengths):
@@ -142,6 +183,102 @@ def kernel_phase(torch, tfa, gpu):
     return cases
 
 
+def flash_bwd_bound(b, h, nq, nk, d, lengths):
+    """{"dq": (flop-limited ms, byte-limited ms), "dkv": (...)} of the two
+    backward passes on these inputs. Products over the valid keys only, 2
+    flops per multiply-add: dq = 3 (S, dP, dS K), dk/dv = 4 (S, dP, P^T dO,
+    dS^T Q), so 14 H Nq D sum(len) in all. Bytes (f32): the dq pass reads
+    q, O and dO over every row, k and v over the valid rows, lse, and
+    writes dq and delta; the dk/dv pass reads q and dO over every row, k
+    and v over the valid rows, lse and delta, and writes dk and dv over
+    every row."""
+    valid = sum(lengths)
+    rows_q, rows_k, vec = b * h * nq * d, b * h * nk * d, b * h * nq
+    kv = 2 * h * valid * d
+    out = {}
+    for name, mults, nbytes in (
+            ("dq", 3, 4.0 * (4 * rows_q + kv + 2 * vec + b)),
+            ("dkv", 4, 4.0 * (2 * rows_q + kv + 2 * vec + 2 * rows_k + b))):
+        flops = 2.0 * mults * h * nq * d * valid
+        out[name] = (flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+    return out
+
+
+def backward_kernel_phase(torch, tfa, gpu):
+    """Kernels #2 (dq) and #3 (dk/dv) against their plain versions and
+    against autograd through the plain forward, at the training shapes and
+    one long bag; device times of each kernel, its plain version and the
+    backward of SDPA with a boolean mask."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(1)
+    cases = {}
+    for name, b, n in (("level0", 32, 257), ("deeper", 32, 81), ("long", 2, 4096)):
+        lengths = torch.randint(1, n + 1, (b,), generator=gen, dtype=torch.int32)
+        lengths[0], lengths[-1] = 1, n
+        q, k, v, dout = (torch.randn(b, 4, n, 32, generator=gen).cuda()
+                         for _ in range(4))
+        ln = lengths.cuda()
+        out, lse = tfa.masked_flash_attention_fwd(q, k, v, ln)
+        dq, delta = tfa.masked_flash_attention_bwd_dq(q, k, v, ln, out, lse, dout)
+        dk, dv = tfa.masked_flash_attention_bwd_dkv(q, k, v, ln, lse, dout, delta)
+        plain_dq, plain_delta = tfa.flash_bwd_dq_reference(q, k, v, ln, out, lse,
+                                                           dout)
+        plain_dk, plain_dv = tfa.flash_bwd_dkv_reference(q, k, v, ln, lse, dout,
+                                                         plain_delta)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        auto = torch.autograd.grad(
+            tfa.flash_attention_reference(*leaves, ln)[0], leaves, dout)
+        torch.cuda.synchronize()
+        errs = {}
+        for key, got, plain, ag in (("dq", dq, plain_dq, auto[0]),
+                                    ("dk", dk, plain_dk, auto[1]),
+                                    ("dv", dv, plain_dv, auto[2])):
+            for ref_name, ref in (("plain", plain), ("autograd", ag)):
+                err = (got - ref).abs().max().item()
+                tol = BWD_RTOL * max(1.0, ref.abs().max().item())
+                if not err <= tol:
+                    raise AssertionError(f"flash backward {name} {key} vs "
+                                         f"{ref_name}: err {err:.3g} > {tol:.3g}")
+            errs[key] = (got - plain).abs().max().item()
+            masked = (torch.arange(n, device="cuda")[None, :] >= ln[:, None])
+            if key != "dq" and got.permute(0, 2, 1, 3)[masked].abs().max() != 0:
+                raise AssertionError(f"flash backward {name}: masked-key {key} "
+                                     "is not exactly 0")
+        mask = (torch.arange(n, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+        sq, sk, sv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+        iters = 3 if n > 1024 else 30
+        calls = {
+            "dq_ms": lambda: tfa.masked_flash_attention_bwd_dq(
+                q, k, v, ln, out, lse, dout),
+            "dkv_ms": lambda: tfa.masked_flash_attention_bwd_dkv(
+                q, k, v, ln, lse, dout, delta),
+            "plain_dq_ms": lambda: tfa.flash_bwd_dq_reference(
+                q, k, v, ln, out, lse, dout),
+            "plain_dkv_ms": lambda: tfa.flash_bwd_dkv_reference(
+                q, k, v, ln, lse, dout, plain_delta),
+            "library_ms": lambda: torch.autograd.grad(
+                sdpa_out, (sq, sk, sv), dout, retain_graph=True),
+        }
+        dev = {key: device_ms(fn, iters) for key, fn in calls.items()}
+        bound = flash_bwd_bound(b, 4, n, n, 32, lengths.tolist())
+        cases[name] = dict(err_dq=errs["dq"], err_dkv=max(errs["dk"], errs["dv"]),
+                           bound=bound, **dev)
+        print(f"[kernel] flash_attention_bwd {name}: B={b} H=4 N={n} D=32 f32 "
+              f"lengths 1..{n}: max_abs_err dq={errs['dq']:.3g} "
+              f"dk={errs['dk']:.3g} dv={errs['dv']:.3g} (vs plain and vs "
+              f"autograd, rtol {BWD_RTOL} of the largest gradient); device ms: "
+              f"dq kernel {dev['dq_ms']:.4f}, dk/dv kernel {dev['dkv_ms']:.4f}, "
+              f"plain dq {dev['plain_dq_ms']:.4f}, plain dk/dv "
+              f"{dev['plain_dkv_ms']:.4f}, sdpa backward {dev['library_ms']:.4f}; "
+              f"bound dq {max(bound['dq']):.4f} (flops {bound['dq'][0]:.4f}, "
+              f"bytes {bound['dq'][1]:.4f}), dk/dv {max(bound['dkv']):.4f} "
+              f"(flops {bound['dkv'][0]:.4f}, bytes {bound['dkv'][1]:.4f}) "
+              f"| {gpu}", flush=True)
+    return cases
+
+
 def serving_phase(torch, tfa, gpu):
     from paths_tpu_torch.config import Config
     from paths_tpu_torch.data.synthetic import make_synthetic_store
@@ -173,13 +310,17 @@ def serving_phase(torch, tfa, gpu):
           f"pads n0={sess._pads['n0']}", flush=True)
     requests = [ids[:1], ids[8:16], ids]
 
-    tfa.masked_flash_attention_fwd.launches = 0
+    reset_counts(tfa)
     rows, walls = [], []
     for req in requests + requests:     # a cold and a warm pass
         t0 = time.perf_counter()
         rows.append(sess.predict(req))
         walls.append((time.perf_counter() - t0) * 1e3)
     launches = tfa.masked_flash_attention_fwd.launches
+    if tfa.masked_flash_attention_bwd_dq.launches or \
+            tfa.masked_flash_attention_bwd_dkv.launches:
+        raise AssertionError(f"serving launched backward kernels: "
+                             f"{launch_counts(tfa)}")
     batches = 2 * len(requests)
     # one self-attention per decoder layer per level
     per_forward = cfg.model_config.trans_layers * cfg.num_levels
@@ -252,6 +393,278 @@ def forward_breakdown(torch, sess, gpu):
         print(f"[profile] {line}", flush=True)
 
 
+def launch_counts(tfa):
+    return {f.__name__: f.launches for f in (
+        tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd_dq,
+        tfa.masked_flash_attention_bwd_dkv)}
+
+
+def reset_counts(tfa):
+    for f in (tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd_dq,
+              tfa.masked_flash_attention_bwd_dkv):
+        f.launches = 0
+
+
+def expected_train_launches(cfg, splits):
+    """Kernel launches of one `cli.train` run on the kernel route, from the
+    code: every batch is padded to the batch width; each forward launches
+    the forward kernel once per decoder layer per level (cross-attention
+    runs over an empty memory and launches nothing), each train step the two
+    backward kernels as often; val runs every `eval_epochs`, test once."""
+    bs = cfg.batch_size[0]
+    n_train, n_val, n_test = (len(d) if d is not None else 0 for d in splits)
+    steps = math.ceil(n_train / bs) * cfg.num_epochs
+    val_passes = cfg.num_epochs // cfg.eval_epochs if n_val else 0
+    forwards = steps + val_passes * math.ceil(n_val / bs) + math.ceil(n_test / bs)
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    return {"masked_flash_attention_fwd": per * forwards,
+            "masked_flash_attention_bwd_dq": per * steps,
+            "masked_flash_attention_bwd_dkv": per * steps}
+
+
+def training_phase(torch, tfa, gpu):
+    from paths_tpu_torch.cli.train import main as train_main
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.dataset import load_splits
+    from paths_tpu_torch.data.synthetic import (
+        make_signal_metadata,
+        make_signal_store,
+    )
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train.state import save_state
+
+    cfg = Config.load(os.path.join(ROOT, "models", "brca_paths_0"), test_mode=True)
+    published_dropout = cfg.model_config.dropout
+    cfg.preprocess_dir = os.path.join(WORK, "train_store")
+    cfg.csv_path = os.path.join(WORK, "train_meta.csv")
+    cfg.hipt_splits = False
+    cfg.num_epochs = 2
+    cfg.model_config.dropout = 0.0
+    t0 = time.perf_counter()
+    ids, z = make_signal_store(cfg.preprocess_dir, cfg, num_slides=64,
+                               base_hw=(6, 8), seed=0)
+    make_signal_metadata(cfg.csv_path, ids, z, seed=0)
+    print(f"[train] signal store: {len(ids)} slides, {cfg.num_levels} levels, "
+          f"{cfg.model_config.patch_embed_dim}-d, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    model = RecursiveModel(cfg, generator=torch.Generator().manual_seed(0))
+    dirs = {}
+    for impl in ("pallas", "xla"):
+        cfg.attention_impl = impl
+        dirs[impl] = os.path.join(WORK, f"train_{impl}")
+        cfg.save(dirs[impl])
+        save_state(dirs[impl], model)
+    cfg.attention_impl = "pallas"
+    splits = load_splits([0.7, 0.15, 0.15], cfg.seed, cfg)
+    want = expected_train_launches(cfg, splits)
+
+    runs, counts = {}, {}
+    for impl in ("pallas", "xla"):
+        reset_counts(tfa)
+        t0 = time.perf_counter()
+        runs[impl] = train_main(["-m", dirs[impl], "--no-wandb"])
+        torch.cuda.synchronize()
+        counts[impl] = launch_counts(tfa)
+        print(f"[train] cli.train attention_impl={impl}: {cfg.num_epochs} "
+              f"epochs over {len(splits[0])}/{len(splits[1])}/"
+              f"{len(splits[2])} train/val/test slides in "
+              f"{time.perf_counter() - t0:.1f} s; train_loss "
+              f"{runs[impl]['train_loss']}; kernel launches {counts[impl]} "
+              f"| {gpu}", flush=True)
+    if counts["pallas"] != want:
+        raise AssertionError(f"kernel route launched {counts['pallas']}, the "
+                             f"code says {want}")
+    if any(counts["xla"].values()):
+        raise AssertionError(f"plain route launched kernels: {counts['xla']}")
+
+    finals = {}
+    for impl, d in dirs.items():
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            finals[impl] = json.loads(f.read().splitlines()[-1])
+    worst = {"loss": 0.0, "c-index": 0.0}
+    for e in range(1, cfg.num_epochs + 1):
+        pairs = [(runs["pallas"]["train_loss"][e], runs["xla"]["train_loss"][e],
+                  runs["pallas"]["train_c-index"][e],
+                  runs["xla"]["train_c-index"][e])]
+        if e in runs["pallas"].get("val_loss", {}):
+            pairs.append((runs["pallas"]["val_loss"][e], runs["xla"]["val_loss"][e],
+                          runs["pallas"]["val_c-index"][e],
+                          runs["xla"]["val_c-index"][e]))
+        for lp, lx, cp, cx in pairs:
+            worst["loss"] = max(worst["loss"], abs(lp - lx) / abs(lx))
+            worst["c-index"] = max(worst["c-index"], abs(cp - cx))
+    worst["loss"] = max(worst["loss"], abs(finals["pallas"]["test_loss"]
+                                           - finals["xla"]["test_loss"])
+                        / abs(finals["xla"]["test_loss"]))
+    worst["c-index"] = max(worst["c-index"], abs(finals["pallas"]["test_c-index"]
+                                                 - finals["xla"]["test_c-index"]))
+    if not (worst["loss"] <= LOSS_RTOL and worst["c-index"] <= CINDEX_ATOL):
+        raise AssertionError(f"kernel vs plain training runs differ: {worst}")
+    for name, value in finals["pallas"].items():
+        if name != "epoch" and not math.isfinite(value):
+            raise AssertionError(f"non-finite final metric {name}: {value}")
+    print(f"[train] kernel route vs plain route: worst relative loss diff "
+          f"{worst['loss']:.3g} (rtol {LOSS_RTOL}), worst c-index diff "
+          f"{worst['c-index']:.3g} (atol {CINDEX_ATOL}); final test metrics "
+          f"kernel {finals['pallas']}, plain {finals['xla']}", flush=True)
+
+    step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout)
+    return counts["pallas"]
+
+
+@contextlib.contextmanager
+def planted_fault(tfa, fault):
+    """While inside, the backward kernels' (dq, dk, dv) pass through
+    `fault` on their way to autograd."""
+    bwd = tfa.masked_flash_attention_bwd
+    tfa.masked_flash_attention_bwd = lambda *args: fault(*bwd(*args))
+    try:
+        yield
+    finally:
+        tfa.masked_flash_attention_bwd = bwd
+
+
+def grad_mismatch(got, want):
+    """(worst ratio, tensor): over the tensors of `want`, max |got - want|
+    over its limit (GRAD_RTOL of the tensor's own largest gradient, or of
+    the model's for key-projection biases); above 1 fails."""
+    if sorted(got) != sorted(want):
+        raise AssertionError("the routes give gradients to different tensors")
+    scale = max(g.abs().max().item() for g in want.values())
+    worst = (-1.0, "")
+    for name, w in want.items():
+        err = (got[name] - w).abs().max().item()
+        ref = scale if name.endswith(".k.bias") else w.abs().max().item()
+        tol = GRAD_RTOL * ref
+        ratio = err / tol if tol > 0 else (0.0 if err == 0 else math.inf)
+        worst = max(worst, (ratio, name))
+    return worst
+
+
+def step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout):
+    """On one training batch, from the same saved weights: the gradients of
+    the kernel route and the plain route, and planted faults that the
+    comparison must catch; a step at the published dropout (no kernel may
+    launch, as in the JAX package); then time, memory and a profile of one
+    warm step on the kernel route."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from paths_tpu_torch.data.dataset import collate_batch, labels_on, union_pads
+    from paths_tpu_torch.engine.hierarchy import end2end_loss
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train.loop import make_optimizer, make_step_fns
+    from paths_tpu_torch.train.state import load_model
+
+    train = splits[0]
+    idx = list(range(cfg.batch_size[0]))
+    pads = union_pads(*(d.global_pads() for d in splits if d is not None))
+    bag, tables = collate_batch(train, idx, level0_bucket=cfg.level0_bucket,
+                                pads=pads, device="cuda")
+    labels = labels_on(train, idx, "cuda")
+    init_dir = os.path.join(WORK, "train_init")
+    shutil.copytree(dirs["xla"], init_dir)   # trained weights: a mid-run state
+
+    def grads(impl):
+        c = copy.deepcopy(cfg)
+        c.attention_impl = impl
+        model = load_model(init_dir, RecursiveModel(c)).cuda()
+        loss, _ = end2end_loss(model, c, bag, tables, labels)
+        loss.backward()
+        return {n: p.grad for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    plain = grads("xla")
+    ratio, name = grad_mismatch(grads("pallas"), plain)
+    if not ratio <= 1.0:
+        raise AssertionError(f"one batch's gradients differ between routes: "
+                             f"{name} at {ratio:.3g} x its limit")
+    print(f"[train] one batch, kernel route vs plain route over {len(plain)} "
+          f"tensors: worst |grad diff| {ratio:.3g} x its limit (rtol "
+          f"{GRAD_RTOL} of each tensor's largest gradient), at {name}",
+          flush=True)
+    faults = {"dq scaled by 1.001": lambda dq, dk, dv: (dq * 1.001, dk, dv),
+              "dk zeroed": lambda dq, dk, dv: (dq, torch.zeros_like(dk), dv)}
+    for label, fault in faults.items():
+        with planted_fault(tfa, fault):
+            ratio, name = grad_mismatch(grads("pallas"), plain)
+        if not ratio > 1.0:
+            raise AssertionError(f"the gradient check passes a planted fault "
+                                 f"({label}): {ratio:.3g} x its limit")
+        print(f"[train] planted fault, {label}: the gradient check fails, "
+              f"worst {ratio:.3g} x its limit at {name}", flush=True)
+
+    c = copy.deepcopy(cfg)
+    c.model_config.dropout = published_dropout
+    model = load_model(init_dir, RecursiveModel(c)).cuda()
+    update, _ = make_step_fns(c, make_optimizer(c, model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    reset_counts(tfa)
+    loss, _ = update(model, bag, tables, labels, gen, epoch=1)
+    torch.cuda.synchronize()
+    if any(launch_counts(tfa).values()) or not math.isfinite(loss.item()):
+        raise AssertionError(f"dropout {published_dropout} step: launches "
+                             f"{launch_counts(tfa)}, loss {loss.item()}")
+    print(f"[train] one step at the published dropout {published_dropout} "
+          f"with attention_impl=pallas: loss {loss.item():.4f}, kernel "
+          f"launches {launch_counts(tfa)} (the plain route, as in JAX)",
+          flush=True)
+
+    model = load_model(init_dir, RecursiveModel(cfg)).cuda()
+    update, _ = make_step_fns(cfg, make_optimizer(cfg, model.parameters()))
+
+    def step():
+        return update(model, bag, tables, labels, None, epoch=1)
+
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    collate_ms = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        collate_batch(train, idx, level0_bucket=cfg.level0_bucket, pads=pads,
+                      device=device)
+        torch.cuda.synchronize()
+        collate_ms[device] = (time.perf_counter() - t0) * 1e3
+    step_ms = cuda_ms(step, iters=5, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy_us = kernel_us(prof)
+    flash_us = {name: sum(e.self_device_time_total for e in prof.key_averages()
+                          if e.device_type.name == "CUDA" and name in e.key)
+                for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                             "flash_bwd_dkv_kernel")}
+    print(f"[train] warm step of {len(idx)} slides (forward + backward + "
+          f"AdamW): {min(walls):.1f} ms wall (of {', '.join(f'{w:.1f}' for w in walls)}) "
+          f"| {gpu}", flush=True)
+    print(f"[train] collate one batch on the host {collate_ms['cpu']:.1f} ms, "
+          f"collate + copy to the card {collate_ms['cuda']:.1f} ms | {gpu}",
+          flush=True)
+    print(f"[train] forward + backward + optimizer {step_ms:.2f} ms between "
+          f"CUDA events | {gpu}", flush=True)
+    print(f"[train] kernel time of one profiled step {busy_us / 1e3:.2f} ms "
+          f"(busy share {busy_us / 1e3 / step_ms:.3f}); flash kernels "
+          + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in flash_us.items())
+          + f" | {gpu}", flush=True)
+    print(f"[train] torch.cuda.max_memory_allocated over one step "
+          f"{peak_mib:.0f} MiB | {gpu}", flush=True)
+    table = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
+    for line in table.splitlines():
+        print(f"[train-profile] {line}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -279,30 +692,50 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         cases = kernel_phase(torch, tfa, gpu)
-        launches = serving_phase(torch, tfa, gpu)
+        bwd = backward_kernel_phase(torch, tfa, gpu)
+        serving_phase(torch, tfa, gpu)
+        launches = training_phase(torch, tfa, gpu)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    # one serving forward of 32 slides: 2 launches at level 0, 8 deeper
+    # one flagship forward (or train step) of 32 slides launches each kernel
+    # twice at level 0 and 8 times deeper
     weights = {"level0": 2, "deeper": 8}
 
-    def per_forward(key):
-        return sum(w * cases[c][key] for c, w in weights.items())
+    def per_step(table, key):
+        return sum(w * table[c][key] for c, w in weights.items())
 
-    flop_ms, byte_ms = per_forward("flop_ms"), per_forward("byte_ms")
-    kernels = [{
-        "name": "masked_flash_attention_fwd",
-        "route": "cuda",
-        "source": "paths_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "paths_tpu/kernels/flash_attention.py:219",
-        "launches": launches,
-        "max_abs_err": max(cases[c]["err"] for c in cases),
-        "ms": per_forward("ms"),
-        "plain_ms": per_forward("plain_ms"),
-        "bound_ms": max(flop_ms, byte_ms),
-        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "library_ms": per_forward("library_ms"),
-    }]
+    def row(name, source, replaces, err, ms, plain_ms, library_ms, flop_ms,
+            byte_ms):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(flop_ms, byte_ms),
+                "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+                "library_ms": library_ms}
+
+    bwd_src = "paths_tpu_torch/csrc/flash_attention_bwd.cu"
+    bound = {k: [sum(w * bwd[c]["bound"][k][i] for c, w in weights.items())
+                 for i in (0, 1)] for k in ("dq", "dkv")}
+    # library_ms of both backward rows is the one SDPA backward that computes
+    # dq, dk and dv together: no PyTorch call computes either pass alone
+    kernels = [
+        row("masked_flash_attention_fwd", "paths_tpu_torch/csrc/flash_attention.cu",
+            "paths_tpu/kernels/flash_attention.py:219",
+            max(cases[c]["err"] for c in cases), per_step(cases, "ms"),
+            per_step(cases, "plain_ms"), per_step(cases, "library_ms"),
+            per_step(cases, "flop_ms"), per_step(cases, "byte_ms")),
+        row("masked_flash_attention_bwd_dq", bwd_src,
+            "paths_tpu/kernels/flash_attention.py:283",
+            max(bwd[c]["err_dq"] for c in bwd), per_step(bwd, "dq_ms"),
+            per_step(bwd, "plain_dq_ms"), per_step(bwd, "library_ms"),
+            *bound["dq"]),
+        row("masked_flash_attention_bwd_dkv", bwd_src,
+            "paths_tpu/kernels/flash_attention.py:305",
+            max(bwd[c]["err_dkv"] for c in bwd), per_step(bwd, "dkv_ms"),
+            per_step(bwd, "plain_dkv_ms"), per_step(bwd, "library_ms"),
+            *bound["dkv"]),
+    ]
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,47 @@
+"""Training entry point (counterpart of `paths_tpu.cli.train`).
+
+    python -m paths_tpu_torch.cli.train -m models/my_experiment [--no-wandb] [--device cuda]
+
+The model directory must contain a `config.json`; checkpoints, metrics and
+train stats are written back into it in the JAX package's layout, and an
+interrupted run resumes from the last saved epoch. Training runs on the card
+unless `--device cpu` is given.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from paths_tpu_torch.config import Config
+from paths_tpu_torch.data.dataset import load_splits
+from paths_tpu_torch.train.logging import MetricsLogger
+from paths_tpu_torch.train.loop import train_loop
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-m", "--model-dir", required=True,
+                        help="Path to model directory containing config.json")
+    parser.add_argument("--wandb-project-name", type=str, default="PATHS")
+    parser.add_argument("--no-wandb", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (default: cuda)")
+    args = parser.parse_args(argv)
+
+    config = Config.load(args.model_dir)
+    np.random.seed(config.seed)
+
+    train, val, test = load_splits([0.7, 0.15, 0.15], config.seed, config)
+    if config.early_stopping and not (val is not None and len(val)):
+        raise ValueError("early stopping needs a validation set")
+
+    logger = MetricsLogger(args.model_dir, config.to_dict(),
+                           project=args.wandb_project_name,
+                           use_wandb="no" if args.no_wandb else "auto")
+    return train_loop(config, args.model_dir, train, val, test, logger=logger,
+                      device=args.device)
+
+
+if __name__ == "__main__":
+    main()

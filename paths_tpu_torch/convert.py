@@ -45,21 +45,33 @@ def from_jax_flat(flat: Dict[str, np.ndarray], config: Config) -> RecursiveModel
     return load_jax_flat(RecursiveModel(config), flat)
 
 
-def to_jax_flat(model: RecursiveModel) -> Dict[str, np.ndarray]:
-    """The inverse of `from_jax_flat`: the model's weights as the JAX
-    package's flat params dict."""
+def jax_keys(model: torch.nn.Module) -> Dict[str, str]:
+    """Each parameter's name in `model` -> its key in the JAX package's flat
+    params dict (a key ending in `/w` is a Linear weight, stored (in, out)
+    on the JAX side)."""
     # a LayerNorm's weight and bias are `scale` and `bias` on the JAX side
     norms = {name for name, m in model.named_modules()
              if isinstance(m, torch.nn.LayerNorm)}
-    flat = {}
-    for name, p in model.state_dict().items():
+    keys = {}
+    for name, _ in model.named_parameters():
         *path, leaf = name.split(".")
-        arr = p.detach().cpu().numpy()
         if ".".join(path) in norms:
             leaf = {"weight": "scale"}.get(leaf, leaf)
-        elif leaf == "weight":
-            leaf, arr = "w", arr.T
-        elif leaf == "bias":
-            leaf = "b"
-        flat["/".join(path + [leaf])] = np.ascontiguousarray(arr)
-    return flat
+        else:
+            leaf = {"weight": "w", "bias": "b"}.get(leaf, leaf)
+        keys[name] = "/".join(path + [leaf])
+    return keys
+
+
+def to_jax_layout(key: str, arr: np.ndarray) -> np.ndarray:
+    """A parameter-shaped array (a weight, or its optimizer moments) in the
+    JAX layout of flat key `key`."""
+    return np.ascontiguousarray(arr.T if key.endswith("/w") else arr)
+
+
+def to_jax_flat(model: RecursiveModel) -> Dict[str, np.ndarray]:
+    """The inverse of `from_jax_flat`: the model's weights as the JAX
+    package's flat params dict."""
+    keys = jax_keys(model)
+    return {keys[name]: to_jax_layout(keys[name], p.detach().cpu().numpy())
+            for name, p in model.named_parameters()}

@@ -1,14 +1,26 @@
-"""Slides -> device-ready batches (counterpart of the serving part of
-`paths_tpu.data.dataset`).
+"""Dataset assembly: metadata CSV -> splits -> device-ready batches
+(counterpart of `paths_tpu.data.dataset`, without pandas).
 
-Only what serving needs is here: a label-free `SlideDataset`, its
-`global_pads`, `collate_batch` and `collate_bag0`. Padded widths and buckets
-are the JAX package's, so both packages collate a batch to the same shapes.
-Labels, splits and metadata CSVs come with the training slice.
+  * metadata rows lacking a preprocessed file are dropped; one slide per
+    patient (the first row of each case_id); survival months are
+    quantile-binned over the whole frame before splitting (the bins of
+    `pd.qcut`), then labelled per split (the bins of `pd.cut(...,
+    include_lowest=True)`)
+  * HIPT cross-validation split files, or random proportional splits that
+    draw exactly what `frame.sample(n, random_state=seed)` draws
+  * a `SlideDataset` serves its slides by index, with labels when built
+    from metadata and without them for serving
+  * `collate_batch` / `collate_bag0` pad to the JAX package's widths and
+    buckets, so both packages collate a batch to the same shapes
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import csv
+import io
+import os
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,22 +31,188 @@ from paths_tpu_torch.data.slide import SlidePyramid
 from paths_tpu_torch.engine.tables import bag_widths, stack_dtype, stack_tables
 from paths_tpu_torch.models.batch import PatchBag
 
+MAX_WORKERS = 8
+
 
 def _round_up(n: int, m: int) -> int:
     return m * ((n + m - 1) // m)
 
 
+def _strip_ext(slide_id: str) -> str:
+    """`TCGA-....svs` -> `TCGA-...` (everything before the last dot)."""
+    return ".".join(str(slide_id).split(".")[:-1])
+
+
+def _read_csv_rows(path: str) -> List[dict]:
+    """Rows of a metadata CSV, plain or the single member of a zip."""
+    if path.endswith(".zip"):
+        with zipfile.ZipFile(path) as z:
+            names = [n for n in z.namelist() if not n.endswith("/")]
+            if len(names) != 1:
+                raise ValueError(f"{path}: want one file in the zip, got {names}")
+            text = z.read(names[0]).decode("utf-8")
+    else:
+        with open(path, newline="", encoding="utf-8") as f:
+            text = f.read()
+    return list(csv.DictReader(io.StringIO(text)))
+
+
+def qcut_bins(values: np.ndarray, nbins: int) -> np.ndarray:
+    """The bin edges of `pd.qcut(values, nbins, retbins=True)`: linear
+    quantiles at 0, 1/nbins, ..., 1, computed as pandas does (percentiles
+    of 100 * q). Edges must be unique."""
+    bins = np.percentile(np.asarray(values, np.float64),
+                         np.linspace(0, 1, nbins + 1) * 100.0)
+    if len(np.unique(bins)) < len(bins):
+        raise ValueError(f"Bin edges must be unique: {bins!r}")
+    return bins
+
+
+def cut_labels(values: np.ndarray, bins: np.ndarray) -> np.ndarray:
+    """`pd.cut(values, bins, labels=False, include_lowest=True)`: right-
+    closed bins, the lowest edge included. Values outside the edges raise
+    (pandas would return NaN)."""
+    x = np.asarray(values, np.float64)
+    ids = np.searchsorted(bins, x, side="left")
+    ids[x == bins[0]] = 1
+    if np.any((ids == 0) | (ids == len(bins))):
+        raise ValueError("values outside the survival bins")
+    return ids - 1
+
+
+def load_metadata(config: Config, store: FeatureStore) -> Tuple[List[dict], np.ndarray]:
+    """Read and prune the metadata CSV; returns (rows, survival bin edges).
+    Each row is a dict of case_id, slide_id, survival_months (float),
+    censorship (int) and oncotree_code."""
+    rows = []
+    for r in _read_csv_rows(config.csv_path):
+        rows.append({"case_id": r["case_id"], "slide_id": r["slide_id"],
+                     "survival_months": float(r["survival_months"]),
+                     "censorship": int(float(r["censorship"])),
+                     "oncotree_code": r["oncotree_code"]})
+    kept = [r for r in rows if store.path(_strip_ext(r["slide_id"]),
+                                          config.base_power) is not None]
+    if len(kept) < len(rows):
+        print(f"Ignoring {len(rows) - len(kept)} rows without files.")
+    seen, unique = set(), []
+    for r in kept:
+        if r["case_id"] not in seen:
+            seen.add(r["case_id"])
+            unique.append(r)
+    bins = qcut_bins([r["survival_months"] for r in unique], config.nbins)
+    return unique, bins
+
+
+def _read_hipt_split(path: str, task: str):
+    with open(path, "r") as f:
+        r = csv.reader(f)
+        next(r)
+        data = [row[1:] for row in r]
+    if task == "subtype_classification":
+        train = [a + ".svs" for a, b, c in data]
+        val = [b + ".svs" for a, b, c in data if len(b) > 0]
+        test = [c + ".svs" for a, b, c in data if len(c) > 0]
+        return train, val, test, "slide_id"
+    train = [a for a, b in data]
+    test = [b for a, b in data if len(b) > 0]
+    return train, None, test, "case_id"
+
+
+def _sample(rows: List[dict], n: int, seed: int):
+    """`frame.sample(n, random_state=seed)` over `rows` in their order, and
+    the rows it left, in their order."""
+    picks = np.random.RandomState(seed).choice(len(rows), size=n, replace=False)
+    chosen = set(picks.tolist())
+    return ([rows[i] for i in picks],
+            [r for i, r in enumerate(rows) if i not in chosen])
+
+
+def load_splits(props: Sequence[float], seed: int, config: Config,
+                store: Optional[FeatureStore] = None, preload: bool = True):
+    """Train/val/test SlideDatasets (`paths_tpu.data.dataset.load_splits`).
+    `props` is the random-split proportion triple, unused when
+    `config.hipt_splits`; val is None where a HIPT split has none."""
+    train_prop, val_prop, test_prop = props
+    if abs(train_prop + val_prop + test_prop - 1) >= 1e-4:
+        raise ValueError(f"split proportions {props} do not sum to 1")
+
+    store = store or FeatureStore(config.preprocess_dir)
+    rows, bins = load_metadata(config, store)
+
+    def dataset(split_rows):
+        return labelled_dataset(split_rows, bins, config, store, preload)
+
+    if config.filter_to_subtypes is not None:
+        rows = [r for r in rows if r["oncotree_code"] in config.filter_to_subtypes]
+
+    if config.hipt_splits:
+        ds_name = os.path.split(config.wsi_dir)[-1].lower()
+        sub = ("survival" if config.task == "survival"
+               else "subtype_classification")
+        splits_dir = config.splits_dir or "data/splits"
+        path = os.path.join(splits_dir, sub, f"tcga_{ds_name}",
+                            f"splits_{seed}.csv")
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"HIPT split file not found: {path}")
+        train_p, val_p, test_p, match_on = _read_hipt_split(path, config.task)
+
+        if config.task == "survival" and config.hipt_val_proportion > 0:
+            val_size = int(len(train_p) * config.hipt_val_proportion)
+            val_p, train_p = train_p[:val_size], train_p[val_size:]
+
+        def pick(names):
+            names = set(names)
+            return [r for r in rows if r[match_on] in names]
+
+        train = pick(train_p)
+        val = pick(val_p) if val_p else None
+        test = pick(test_p)
+    else:
+        train, rest = _sample(rows, int(train_prop * len(rows)), seed)
+        val, test = _sample(rest, int(val_prop * len(rows)), seed)
+
+    return [None if split is None else dataset(split)
+            for split in (train, val, test)]
+
+
+def labelled_dataset(rows: Sequence[dict], bins: np.ndarray, config: Config,
+                     store: FeatureStore, preload: bool = True) -> "SlideDataset":
+    """A SlideDataset of metadata `rows` with their labels: the survival bin
+    (`cut_labels` over `bins`), survival months, censorship and, for
+    subtype classification, the class index."""
+    months = np.asarray([r["survival_months"] for r in rows], np.float64)
+    labels = {
+        "survival_bin": cut_labels(months, bins).astype(np.int32),
+        "survival": months.astype(np.float32),
+        "censored": np.asarray([r["censorship"] for r in rows], np.int32),
+    }
+    if config.task == "subtype_classification":
+        labels["subtype"] = np.asarray(
+            [config.filter_to_subtypes.index(r["oncotree_code"]) for r in rows],
+            np.int32)
+    return SlideDataset([_strip_ext(r["slide_id"]) for r in rows], config,
+                        store, cache_slides=preload, labels=labels,
+                        preload=preload)
+
+
 class SlideDataset:
-    """The slides of a feature store, by id, without labels.
+    """The slides of a feature store, by id, with or without labels.
 
     :param cache_slides: keep materialized tables after a batch is
-        collated (trade host RAM for repeat-request latency)."""
+        collated (trade host RAM for repeat-request latency)
+    :param labels: per-slide label columns (name -> array aligned with
+        `slide_ids`), or None for a label-free (serving) dataset
+    :param preload: build every slide's tables up front, on a thread pool
+    """
 
     def __init__(self, slide_ids: Sequence[str], config: Config,
-                 store: FeatureStore, cache_slides: bool = True):
+                 store: FeatureStore, cache_slides: bool = True, *,
+                 labels: Optional[Dict[str, np.ndarray]] = None,
+                 preload: bool = False):
         self.config = config
         self.slide_ids = list(slide_ids)
         self.cache_slides = cache_slides
+        self.label_columns = labels
         mc = config.model_config
         # table row bounds for levels >= 1 do not depend on n0 when K != -1
         widths = bag_widths(config.top_k_patches, config.num_levels, 10**9)
@@ -45,6 +223,9 @@ class SlideDataset:
             magnification_factor=config.magnification_factor)
             for sid in self.slide_ids]
         self._global_pads: Optional[dict] = None
+        if preload:
+            with ThreadPoolExecutor(min(MAX_WORKERS, os.cpu_count() or 1)) as ex:
+                list(ex.map(lambda s: s.materialize(), self.slides))
 
     def __len__(self) -> int:
         return len(self.slides)
@@ -68,6 +249,49 @@ class SlideDataset:
                 s.unload()
         self._global_pads = {"n0": n0, "rows": rows, "grid_hw": grid_hw}
         return self._global_pads
+
+    def labels(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        """The label columns at `indices` (survival_bin, survival, censored
+        and, for subtype classification, subtype)."""
+        if self.label_columns is None:
+            raise ValueError("this dataset has no labels")
+        idx = np.asarray(indices, np.int64)
+        return {k: v[idx] for k, v in self.label_columns.items()}
+
+
+def union_pads(*pads: Optional[dict]) -> Optional[dict]:
+    """Elementwise max of `global_pads` dicts (so train/val/test batches
+    share one shape)."""
+    pads = [p for p in pads if p is not None]
+    if not pads:
+        return None
+    return {"n0": max(p["n0"] for p in pads),
+            "rows": [max(p["rows"][i] for p in pads)
+                     for i in range(len(pads[0]["rows"]))],
+            "grid_hw": [tuple(max(p["grid_hw"][i][j] for p in pads)
+                              for j in range(2))
+                        for i in range(len(pads[0]["grid_hw"]))]}
+
+
+def pad_batch_indices(indices: Sequence[int], multiple: int):
+    """Pad an index list to a multiple of `multiple` by repeating the last
+    element; returns (padded_indices, weights) where the weights zero out
+    the padded duplicates in the loss and evaluators."""
+    idx = list(indices)
+    n = len(idx)
+    pad = (-n) % multiple
+    idx = idx + [idx[-1]] * pad
+    w = np.ones(len(idx), np.float32)
+    if pad:
+        w[n:] = 0.0
+    return idx, w
+
+
+def labels_on(dataset: "SlideDataset", indices: Sequence[int],
+              device) -> Dict[str, torch.Tensor]:
+    """`dataset.labels(indices)` as tensors on `device`."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in dataset.labels(indices).items()}
 
 
 def collate_batch(dataset: SlideDataset, indices: Sequence[int],
@@ -144,3 +368,4 @@ def collate_bag0(dataset: SlideDataset, indices: Sequence[int],
         parent_inds=torch.arange(n0, device=device).expand(b, n0),
         ctx_slide=torch.zeros((b, 0, ds_dim), dtype=dtype, device=device),
         ctx_patch=torch.zeros((b, n0, 0, dp_dim), dtype=dtype, device=device))
+

@@ -12,7 +12,7 @@ Exact importance ties select the LOWEST bag index.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -143,14 +143,16 @@ def hierarchy_step(bag: PatchBag, out: dict, table: LevelTable, k: int,
 
 
 def end2end_forward(model: RecursiveModel, config: Config, bag0: PatchBag,
-                    tables: List[LevelTable]) -> List[dict]:
+                    tables: List[LevelTable], *, training: bool = False,
+                    generator: Optional[torch.Generator] = None) -> List[dict]:
     """Run all levels, returning each level's processor output plus the bag
     it was computed on (`"bag"` key). `tables[i]` feeds the transition from
-    level i to i+1."""
+    level i to i+1. In training, dropout masks come from `generator`."""
     outs = []
     bag = bag0
     for i in range(config.num_levels):
-        out = recursive_apply(model, config, i, bag)
+        out = recursive_apply(model, config, i, bag, training=training,
+                              generator=generator)
         outs.append({**out, "bag": bag})
         if i != config.num_levels - 1:
             bag = hierarchy_step(bag, out, tables[i], config.top_k_patches[i],
@@ -172,3 +174,19 @@ def task_loss(config: Config, logits: torch.Tensor, labels: dict):
     else:
         raise ValueError(config.task)
     return loss, pred
+
+
+def end2end_loss(model: RecursiveModel, config: Config, bag0: PatchBag,
+                 tables: List[LevelTable], labels: dict, *,
+                 training: bool = False,
+                 generator: Optional[torch.Generator] = None):
+    """Forward through all levels and the final-level loss. Returns (loss,
+    aux) with aux = {"pred": hazards or logits, "logits", "importances":
+    per-level (B, N) importances}."""
+    outs = end2end_forward(model, config, bag0, tables, training=training,
+                           generator=generator)
+    logits = outs[-1]["logits"]
+    loss, pred = task_loss(config, logits, labels)
+    aux = {"pred": pred, "logits": logits,
+           "importances": [o["importance"] for o in outs]}
+    return loss, aux

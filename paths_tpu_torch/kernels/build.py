@@ -5,11 +5,13 @@ arch=compute_90a,code=sm_90a` into its own shared library with a plain C
 interface, loaded through ctypes. Libraries go to `paths_tpu_torch/_build/`
 (listed in `.gitignore`) under a name that carries a hash of the source and
 the flags, so an edited source rebuilds and an unchanged one loads at once.
-A failed build raises; nothing falls back.
+The hash also covers the shared headers (`csrc/*.cuh`). A failed build
+raises; nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -20,7 +22,8 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> source under the package
-SOURCES = {"flash_attention": "csrc/flash_attention.cu"}
+SOURCES = {"flash_attention": "csrc/flash_attention.cu",
+           "flash_attention_bwd": "csrc/flash_attention_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,9 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(_PKG, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
+    for path in [os.path.join(_PKG, SOURCES[name])] + headers:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,20 +1,35 @@
-"""Masked flash-attention forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Masked flash attention: the hand-written CUDA kernels of both directions
+and their plain PyTorch versions.
 
-Replaces the TPU kernel `paths_tpu/kernels/flash_attention.py::_flash_forward`
-(body `_flash_kernel`). The CUDA source is `paths_tpu_torch/csrc/
-flash_attention.cu`, built for sm_90a by `kernels.build` and called through
-ctypes. What bounds it on the card and how its design answers that is noted
-at the top of the source.
+Replaces the TPU kernels of `paths_tpu/kernels/flash_attention.py`:
+`_flash_forward` (body `_flash_kernel`) and the two passes of
+`_flash_backward` (dq: `_flash_bwd_dq_kernel`, dk/dv:
+`_flash_bwd_dkv_kernel`). The CUDA sources are `paths_tpu_torch/csrc/
+flash_attention.cu` (forward) and `csrc/flash_attention_bwd.cu` (the two
+backward kernels), built for sm_90a by `kernels.build` and called through
+ctypes. What bounds each on the card and how its design answers that is
+noted at the top of its source.
 
-`masked_flash_attention_fwd(q, k, v, lengths) -> (out, lse)`:
+`masked_flash_attention_fwd(q, k, v, lengths) -> (out, lse)`, the inference
+entry:
   q (B, H, Nq, D), k/v (B, H, Nk, D) of one type (f32 or bf16; the kernel
   computes in f32), D 32 or 64, lengths (B,) int32; keys at index
   >= lengths[b] are masked for every query. out has q's shape and type, lse
   is (B, H, Nq) f32. Query rows at or past the length still produce outputs
-  normalised over the valid keys. A CUDA tensor goes to the kernel or the
-  call raises; a CPU tensor goes to the plain version. The kernel is forward
-  only, so inputs that require grad raise on the CUDA path.
+  normalised over the valid keys. The raw kernel entries take no inputs that
+  require grad; `masked_flash_attention` is the differentiable entry.
+
+`masked_flash_attention_bwd(q, k, v, lengths, out, lse, dout) -> (dq, dk,
+dv)` launches the dq kernel (which also writes delta = rowsum(dO o O)) and
+then the dk/dv kernel. Keys at or past the length get exactly zero dk/dv.
+
+`masked_flash_attention(q, k, v, lengths) -> out` is a
+`torch.autograd.Function` (the counterpart of the JAX `custom_vjp` of the
+same name): forward through the forward kernel, backward through the two
+backward kernels; `lengths` gets no gradient, and double backward raises.
+
+A CUDA tensor goes to the kernels or the call raises; a CPU tensor goes to
+the plain versions.
 """
 from __future__ import annotations
 
@@ -23,6 +38,7 @@ import functools
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from paths_tpu_torch.kernels import build
 
@@ -33,21 +49,71 @@ HEAD_DIMS = (32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _valid_keys(q: torch.Tensor, nk: int, lengths: torch.Tensor):
+    """(B, 1, 1, Nk) bool: key index < lengths[b]."""
+    return (torch.arange(nk, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])[:, None, None, :]
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, lengths: torch.Tensor):
-    """Plain PyTorch version of the kernel: the same masking, NEG_INF and
-    l floor, computed with whole score matrices. Returns (out, lse)."""
-    nk = k.shape[2]
+    """Plain PyTorch version of the forward kernel: the same masking, NEG_INF
+    and l floor, computed with whole score matrices. Returns (out, lse)."""
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    valid = (torch.arange(nk, device=q.device)[None, :]
-             < lengths.to(q.device)[:, None])[:, None, None, :]
+    valid = _valid_keys(q, k.shape[2], lengths)
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * valid
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(L_FLOOR)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
     return out.to(q.dtype), (m + torch.log(l_safe))[..., 0]
+
+
+def _probs(q, k, lengths, lse):
+    """P = exp(scale * q k^T - lse) in f32, rebuilt from the forward's lse
+    as the TPU kernels do, and exactly 0 on masked keys (with length 0 the
+    lse is about NEG_INF, so the exponent alone would not give 0)."""
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    valid = _valid_keys(q, k.shape[2], lengths)
+    s = s.masked_fill(~valid, NEG_INF)
+    return torch.exp(s - lse[..., None]) * valid
+
+
+def flash_bwd_dq_reference(q, k, v, lengths, out, lse, dout):
+    """Plain version of the dq kernel: (dq, delta) with delta =
+    rowsum(dO o O) (B, H, Nq) f32 and dq = scale * (P o (dO v^T - delta)) k."""
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _probs(q, k, lengths, lse)
+    do = dout.float()
+    delta = (do * out.float()).sum(dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * sm_scale
+    return dq.to(q.dtype), delta
+
+
+def flash_bwd_dkv_reference(q, k, v, lengths, lse, dout, delta):
+    """Plain version of the dk/dv kernel: dv = P^T dO, dk = scale *
+    (P o (dO v^T - delta))^T q; rows of keys past the length are 0."""
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _probs(q, k, lengths, lse)
+    do = dout.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v.float())
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_reference(q, k, v, lengths, out, lse, dout):
+    """Plain version of both backward kernels, step by step as the TPU
+    kernels compute it: P from lse, delta = rowsum(dO o O), dS = P o (dP -
+    delta), then dq, dk and dv. Returns (dq, dk, dv) in the input types."""
+    dq, delta = flash_bwd_dq_reference(q, k, v, lengths, out, lse, dout)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, lengths, lse, dout, delta)
+    return dq, dk, dv
 
 
 def _check(q, k, v, lengths) -> None:
@@ -62,8 +128,10 @@ def _check(q, k, v, lengths) -> None:
                             f"of {tuple(DTYPES)}")
         if t.requires_grad:
             raise RuntimeError(
-                "the CUDA flash-attention kernel is forward only; call it "
-                "under torch.no_grad() or torch.inference_mode()")
+                "the raw CUDA flash-attention kernels take no inputs that "
+                "require grad; call masked_flash_attention for a gradient")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if lengths.dtype != torch.int32:
         raise TypeError(f"lengths must be int32, got {lengths.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
@@ -81,17 +149,61 @@ def _check(q, k, v, lengths) -> None:
         raise ValueError("batch and heads must each be <= 65535 (grid limits)")
 
 
+def _check_like(q, dtype, shape, **tensors) -> None:
+    """The backward's extra operands: on q's device, contiguous and 16-byte
+    aligned, of `dtype` and `shape`, and not requiring grad."""
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise TypeError(f"{name} is {t.dtype} {tuple(t.shape)}, want "
+                            f"{dtype} {tuple(shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and start on a "
+                             "16-byte boundary")
+        if t.requires_grad:
+            raise RuntimeError(f"{name} requires grad; the raw kernels take "
+                               "detached tensors")
+
+
+# library -> C entry -> (pointer arguments, int arguments); every entry then
+# takes the softmax scale (float) and the stream, and returns a cudaError_t
+_ENTRIES = {
+    "flash_attention": {"paths_flash_attention_fwd": (6, 6)},
+    "flash_attention_bwd": {"paths_flash_attention_bwd_dq": (9, 6),
+                            "paths_flash_attention_bwd_dkv": (9, 6)},
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built on first use, with its C signatures."""
-    lib = build.load("flash_attention")
-    fn = lib.paths_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+def _library(name: str) -> ctypes.CDLL:
+    """Kernel library `name`, built on first use, with its C signatures."""
+    lib = build.load(name)
+    for entry, (n_ptr, n_int) in _ENTRIES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.paths_cuda_error_string.argtypes = [ctypes.c_int]
     lib.paths_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry `entry` of library `name` on `device`'s current stream;
+    raise if the launch was refused."""
+    lib = _library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           + lib.paths_cuda_error_string(rc).decode())
+
+
+def _require_cuda(q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
 
 
 def masked_flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
@@ -100,8 +212,7 @@ def masked_flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     `masked_flash_attention_fwd.launches`."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    _require_cuda(q)
     _check(q, k, v, lengths)
     b, h, nq, d = q.shape
     nk = k.shape[2]
@@ -109,18 +220,98 @@ def masked_flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     if nq == 0:
         return out, lse
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paths_flash_attention_fwd(
+    _launch("flash_attention", "paths_flash_attention_fwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, h, nq, nk, d, DTYPES[q.dtype],
-            1.0 / math.sqrt(d), stream)
-    if rc != 0:
-        raise RuntimeError("flash-attention launch failed: "
-                           + lib.paths_cuda_error_string(rc).decode())
+            1.0 / math.sqrt(d))
     masked_flash_attention_fwd.launches += 1
     return out, lse
 
 
+def masked_flash_attention_bwd_dq(q, k, v, lengths, out, lse, dout):
+    """(dq, delta) through the dq kernel (kernel #2); delta = rowsum(dO o O)
+    (B, H, Nq) f32 feeds the dk/dv kernel. Each launch adds one to
+    `masked_flash_attention_bwd_dq.launches`."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, lengths, out, lse, dout)
+    _require_cuda(q)
+    _check(q, k, v, lengths)
+    b, h, nq, d = q.shape
+    _check_like(q, q.dtype, q.shape, out=out, dout=dout)
+    _check_like(q, torch.float32, (b, h, nq), lse=lse)
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return dq, delta
+    _launch("flash_attention_bwd", "paths_flash_attention_bwd_dq", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), lengths.data_ptr(), dq.data_ptr(),
+            delta.data_ptr(), b, h, nq, k.shape[2], d, DTYPES[q.dtype],
+            1.0 / math.sqrt(d))
+    masked_flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+def masked_flash_attention_bwd_dkv(q, k, v, lengths, lse, dout, delta):
+    """(dk, dv) through the dk/dv kernel (kernel #3), from the delta of the
+    dq kernel; rows of keys at or past the length are exactly 0. Each launch
+    adds one to `masked_flash_attention_bwd_dkv.launches`."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, lengths, lse, dout, delta)
+    _require_cuda(q)
+    _check(q, k, v, lengths)
+    b, h, nq, d = q.shape
+    _check_like(q, q.dtype, q.shape, dout=dout)
+    _check_like(q, torch.float32, (b, h, nq), lse=lse, delta=delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if k.numel() == 0:
+        return dk, dv
+    _launch("flash_attention_bwd", "paths_flash_attention_bwd_dkv", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, nq, k.shape[2], d,
+            DTYPES[q.dtype], 1.0 / math.sqrt(d))
+    masked_flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def masked_flash_attention_bwd(q, k, v, lengths, out, lse, dout):
+    """(dq, dk, dv): the dq kernel, then the dk/dv kernel on the same
+    stream. A CPU tensor goes to the plain versions."""
+    dq, delta = masked_flash_attention_bwd_dq(q, k, v, lengths, out, lse, dout)
+    dk, dv = masked_flash_attention_bwd_dkv(q, k, v, lengths, lse, dout, delta)
+    return dq, dk, dv
+
+
+class _MaskedFlashAttention(torch.autograd.Function):
+    """Forward and backward through the kernels (or, on the CPU, their plain
+    versions); the raw entries get detached tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths):
+        out, lse = masked_flash_attention_fwd(q.detach(), k.detach(),
+                                              v.detach(), lengths)
+        ctx.save_for_backward(q, k, v, lengths, out, lse)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, lengths, out, lse = ctx.saved_tensors
+        dq, dk, dv = masked_flash_attention_bwd(
+            q.detach(), k.detach(), v.detach(), lengths, out.detach(), lse,
+            dout.contiguous())
+        return dq, dk, dv, None
+
+
+def masked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Differentiable masked flash attention (the JAX `custom_vjp` of the
+    same name): out with q's shape and type; gradients for q, k and v, none
+    for `lengths`; double backward raises."""
+    return _MaskedFlashAttention.apply(q, k, v, lengths)
+
+
 masked_flash_attention_fwd.launches = 0
+masked_flash_attention_bwd_dq.launches = 0
+masked_flash_attention_bwd_dkv.launches = 0

@@ -47,6 +47,7 @@ class Aggregator(nn.Module):
         return xs + pe.to(xs.dtype)
 
     def forward(self, cond_seq, xs, cond_valid, xs_valid, *,
+                dropout_rate=0.0, generator=None, training=False,
                 compute_dtype=None, impl="xla"):
         """`aggregator_apply`: aggregate `xs` (already projected and
         encoded, (B, N, dm)) into (B, dm). `cond_seq` may be (B, 0, dm)."""
@@ -59,6 +60,7 @@ class Aggregator(nn.Module):
                 [torch.ones((b, 1), dtype=torch.bool, device=xs.device),
                  xs_valid.bool()], dim=1)
         out = self.transformer(cond_seq, seq, src_valid=cond_valid,
-                               tgt_valid=tgt_valid,
+                               tgt_valid=tgt_valid, rate=dropout_rate,
+                               generator=generator, training=training,
                                compute_dtype=compute_dtype, impl=impl)
         return out[:, 0]

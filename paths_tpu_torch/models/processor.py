@@ -43,9 +43,12 @@ class Processor(nn.Module):
 
 def processor_apply(proc: Processor, config: PATHSProcessorConfig,
                     train_config: Config, depth: int, bag: PatchBag, *,
-                    lstm: Optional[LSTMCell] = None) -> dict:
+                    lstm: Optional[LSTMCell] = None, training: bool = False,
+                    generator: Optional[torch.Generator] = None) -> dict:
     """Process one level's bag -> {"logits": (B, C), "ctx_slide": (B, Ds),
-    "ctx_patch": (B, N, Dp), "importance": (B, N)}."""
+    "ctx_patch": (B, N, Dp), "importance": (B, N)}. In training,
+    `config.dropout` applies inside the aggregator only (as in the JAX
+    package), with masks drawn from `generator`."""
     cd = getattr(torch, train_config.compute_dtype)
     fts = bag.fts
     b, n, d = fts.shape
@@ -90,7 +93,10 @@ def processor_apply(proc: Processor, config: PATHSProcessorConfig,
 
     # ---- aggregate over an empty conditional sequence
     cond = xs.new_zeros((b, 0, config.trans_dim))
-    slide_features = proc.agg(cond, xs, None, mask, compute_dtype=cd,
+    slide_features = proc.agg(cond, xs, None, mask,
+                              dropout_rate=config.dropout,
+                              generator=generator, training=training,
+                              compute_dtype=cd,
                               impl=train_config.attention_impl)
 
     # ---- residual slide context

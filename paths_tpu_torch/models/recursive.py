@@ -30,7 +30,9 @@ class RecursiveModel(nn.Module):
 
 
 def recursive_apply(model: RecursiveModel, config: Config, depth: int,
-                    bag: PatchBag) -> dict:
+                    bag: PatchBag, *, training: bool = False,
+                    generator: Optional[torch.Generator] = None) -> dict:
     """Dispatch to the depth-th processor."""
     return processor_apply(model.procs[depth], config.model_config, config,
-                           depth, bag, lstm=getattr(model, "lstm", None))
+                           depth, bag, lstm=getattr(model, "lstm", None),
+                           training=training, generator=generator)

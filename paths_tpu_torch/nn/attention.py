@@ -13,8 +13,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from paths_tpu_torch.kernels.flash_attention import masked_flash_attention_fwd
-from paths_tpu_torch.nn.core import make_linear
+from paths_tpu_torch.kernels.flash_attention import (
+    masked_flash_attention,
+    masked_flash_attention_fwd,
+)
+from paths_tpu_torch.nn.core import dropout, make_linear
 from paths_tpu_torch.ops.masking import NEG_INF
 
 # "auto" engages the flash kernel at and above this many keys, on CUDA only.
@@ -39,17 +42,23 @@ class MultiheadAttention(nn.Module):
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor, *,
                 key_valid: Optional[torch.Tensor] = None,
+                dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None,
+                training: bool = False,
                 compute_dtype: Optional[torch.dtype] = None,
                 impl: str = "xla") -> torch.Tensor:
         """`mha_apply`: query (B, Nq, D), key/value (B, Nk, D), key_valid
         (B, Nk) bool (True = attendable) -> (B, Nq, D).
 
         impl "pallas" runs self-attention (Nq == Nk) through the hand-written
-        flash kernel; "auto" does so at >= AUTO_PALLAS_MIN_LEN keys on CUDA.
-        The kernel takes a PREFIX mask (valid keys first, as compacted bags
-        are), so lengths are `key_valid.sum(-1)`. The port has no dropout at
-        inference; training with attention dropout will take the plain path,
-        as the JAX package does.
+        flash kernels; "auto" does so at >= AUTO_PALLAS_MIN_LEN keys on CUDA.
+        The kernels take a PREFIX mask (valid keys first, as compacted bags
+        are), so lengths are `key_valid.sum(-1)`. When a gradient is wanted
+        the route is the differentiable `masked_flash_attention`; otherwise
+        the forward kernel alone, which saves nothing. Attention-weight
+        dropout (in training, at rate > 0) exists on the plain route only,
+        so a call with active dropout takes the plain route even under
+        "pallas", as the JAX package does.
 
         With an empty memory (Nk == 0) the context is zero and the result is
         the broadcast out-projection bias, torch's behaviour for a
@@ -70,21 +79,29 @@ class MultiheadAttention(nn.Module):
 
         q, k, v = heads(self.q, query), heads(self.k, key), heads(self.v, value)
 
-        use_kernel = nq == nk and (impl == "pallas" or (
-            impl == "auto" and nk >= AUTO_PALLAS_MIN_LEN and query.is_cuda))
+        want_kernel = impl == "pallas" or (
+            impl == "auto" and nk >= AUTO_PALLAS_MIN_LEN and query.is_cuda)
+        use_kernel = (want_kernel and (not training or dropout_rate == 0.0)
+                      and nq == nk)
         if use_kernel:
             lengths = (key_valid.sum(dim=-1, dtype=torch.int32)
                        if key_valid is not None
                        else torch.full((b,), nk, dtype=torch.int32,
                                        device=query.device))
-            ctx, _ = masked_flash_attention_fwd(
-                q.contiguous(), k.contiguous(), v.contiguous(), lengths)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (q, k, v)):
+                ctx = masked_flash_attention(q, k, v, lengths)
+            else:
+                ctx, _ = masked_flash_attention_fwd(q, k, v, lengths)
         else:
             scale = 1.0 / math.sqrt(d // h)
             logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
             if key_valid is not None:
                 logits = logits.masked_fill(~key_valid[:, None, None, :], NEG_INF)
             weights = torch.softmax(logits, dim=-1)
+            weights = dropout(weights, dropout_rate, generator=generator,
+                              training=training)
             ctx = torch.einsum("bhqk,bhkd->bhqd", weights.to(cd), v).to(cd)
         ctx = ctx.transpose(1, 2).reshape(b, nq, d)
         return torch.nn.functional.linear(

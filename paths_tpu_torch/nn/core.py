@@ -5,7 +5,8 @@ Weights live in `nn.Linear`'s (out, in) layout. The JAX package stores
 
 Initialisation mirrors torch defaults (uniform in ±1/sqrt(fan_in) for
 weight and bias) and, for transformer blocks, Xavier-uniform weights with
-zero biases, drawn from an explicit `torch.Generator`.
+zero biases, drawn from an explicit `torch.Generator`. Dropout draws its
+masks from an explicit generator too.
 """
 from __future__ import annotations
 
@@ -75,3 +76,19 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, *,
+            generator: Optional[torch.Generator] = None,
+            training: bool = False) -> torch.Tensor:
+    """Inverted dropout (`paths_tpu.nn.core.dropout`): in training with
+    rate > 0, keep each element with probability 1 - rate and scale the
+    survivors by 1 / (1 - rate); otherwise return `x`. The mask comes from
+    `generator`, which lives on x's device (`F.dropout` takes none)."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)

@@ -2,8 +2,11 @@
 `paths_tpu.nn.transformer`).
 
 Layer structure matches `torch.nn.Transformer` defaults (norm_first=False,
-ReLU feed-forward, a final LayerNorm after each stack). The port serves
-only, so no dropout runs here yet.
+ReLU feed-forward, a final LayerNorm after each stack). Dropout sites match
+the JAX package (and torch): the attention weights, after each attention
+output, inside the feed-forward after the ReLU, and after the feed-forward
+output. `rate`, `generator` and `training` are threaded through every
+layer; dropout runs only in training at rate > 0.
 """
 from __future__ import annotations
 
@@ -13,7 +16,12 @@ import torch
 from torch import nn
 
 from paths_tpu_torch.nn.attention import MultiheadAttention
-from paths_tpu_torch.nn.core import LayerNorm, linear_apply, make_linear
+from paths_tpu_torch.nn.core import (
+    LayerNorm,
+    dropout,
+    linear_apply,
+    make_linear,
+)
 
 
 class FeedForward(nn.Module):
@@ -23,8 +31,10 @@ class FeedForward(nn.Module):
         self.lin1 = make_linear(dim, ff_dim, init="xavier", generator=generator)
         self.lin2 = make_linear(ff_dim, dim, init="xavier", generator=generator)
 
-    def forward(self, x, compute_dtype=None):
+    def forward(self, x, compute_dtype=None, *, rate=0.0, generator=None,
+                training=False):
         h = torch.relu(linear_apply(self.lin1, x, compute_dtype))
+        h = dropout(h, rate, generator=generator, training=training)
         return linear_apply(self.lin2, h, compute_dtype).to(x.dtype)
 
 
@@ -37,11 +47,14 @@ class EncoderLayer(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
 
-    def forward(self, x, *, valid=None, compute_dtype=None, impl="xla"):
-        sa = self.self_attn(x, x, x, key_valid=valid,
-                            compute_dtype=compute_dtype, impl=impl)
-        x = self.norm1(x + sa)
-        return self.norm2(x + self.ff(x, compute_dtype))
+    def forward(self, x, *, valid=None, rate=0.0, generator=None,
+                training=False, compute_dtype=None, impl="xla"):
+        drop = dict(generator=generator, training=training)
+        sa = self.self_attn(x, x, x, key_valid=valid, dropout_rate=rate,
+                            compute_dtype=compute_dtype, impl=impl, **drop)
+        x = self.norm1(x + dropout(sa, rate, **drop))
+        ff = self.ff(x, compute_dtype, rate=rate, **drop)
+        return self.norm2(x + dropout(ff, rate, **drop))
 
 
 class DecoderLayer(nn.Module):
@@ -56,16 +69,21 @@ class DecoderLayer(nn.Module):
         self.norm3 = LayerNorm(dim)
 
     def forward(self, x, memory, *, tgt_valid=None, mem_valid=None,
-                compute_dtype=None, impl="xla"):
-        """`memory` may have length 0; cross-attention then adds the
-        out-projection bias (see `MultiheadAttention.forward`)."""
-        sa = self.self_attn(x, x, x, key_valid=tgt_valid,
-                            compute_dtype=compute_dtype, impl=impl)
-        x = self.norm1(x + sa)
+                rate=0.0, generator=None, training=False, compute_dtype=None,
+                impl="xla"):
+        """`memory` may have length 0; cross-attention then returns the
+        out-projection bias (see `MultiheadAttention.forward`), which still
+        goes through the output dropout."""
+        drop = dict(generator=generator, training=training)
+        sa = self.self_attn(x, x, x, key_valid=tgt_valid, dropout_rate=rate,
+                            compute_dtype=compute_dtype, impl=impl, **drop)
+        x = self.norm1(x + dropout(sa, rate, **drop))
         ca = self.cross_attn(x, memory, memory, key_valid=mem_valid,
-                             compute_dtype=compute_dtype)
-        x = self.norm2(x + ca)
-        return self.norm3(x + self.ff(x, compute_dtype))
+                             dropout_rate=rate, compute_dtype=compute_dtype,
+                             **drop)
+        x = self.norm2(x + dropout(ca, rate, **drop))
+        ff = self.ff(x, compute_dtype, rate=rate, **drop)
+        return self.norm3(x + dropout(ff, rate, **drop))
 
 
 class _Stack(nn.Module):
@@ -88,18 +106,20 @@ class Transformer(nn.Module):
                                             generator=generator)
                                for _ in range(num_layers)], dim)
 
-    def forward(self, src, tgt, *, src_valid=None, tgt_valid=None,
-                compute_dtype=None, impl="xla"):
+    def forward(self, src, tgt, *, src_valid=None, tgt_valid=None, rate=0.0,
+                generator=None, training=False, compute_dtype=None,
+                impl="xla"):
         """`transformer_apply`. `src` may be zero-length (B, 0, D); the
         encoder is then skipped."""
+        kw = dict(rate=rate, generator=generator, training=training,
+                  compute_dtype=compute_dtype, impl=impl)
         memory = src
         if src.shape[1] > 0:
             for layer in self.encoder.layers:
-                memory = layer(memory, valid=src_valid,
-                               compute_dtype=compute_dtype, impl=impl)
+                memory = layer(memory, valid=src_valid, **kw)
             memory = self.encoder.norm(memory)
         x = tgt
         for layer in self.decoder.layers:
             x = layer(x, memory, tgt_valid=tgt_valid, mem_valid=src_valid,
-                      compute_dtype=compute_dtype, impl=impl)
+                      **kw)
         return self.decoder.norm(x)

@@ -22,7 +22,7 @@ from paths_tpu_torch.data.feature_store import FeatureStore
 from paths_tpu_torch.engine.hierarchy import end2end_forward
 from paths_tpu_torch.models.recursive import RecursiveModel
 from paths_tpu_torch.train.metrics import class_probs, survival_risk
-from paths_tpu_torch.train.state import load_state
+from paths_tpu_torch.train.state import load_model
 
 
 def prediction_rows(config: Config, slide_ids: Sequence[str],
@@ -100,7 +100,7 @@ class ServingSession:
         self._pads = (self._dataset.global_pads()
                       if self.config.static_shapes and self.slide_ids else None)
         self.batch_size = batch_size or self.config.batch_size[0]
-        model = load_state(model_dir, RecursiveModel(self.config))
+        model = load_model(model_dir, RecursiveModel(self.config))
         self.model = model.to(self.device).eval().requires_grad_(False)
 
     def _pad_width(self, n: int) -> int:

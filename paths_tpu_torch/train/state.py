@@ -1,19 +1,42 @@
-"""Model checkpoints in the JAX package's `model.npz` layout (counterpart of
-the npz route of `paths_tpu.train.state`). A model directory written by
-`paths_tpu` loads here unchanged. Optimizer state and the reference `.pt`
-route come with the training slice."""
+"""Checkpoints in the JAX package's npz layout (counterpart of the npz route
+of `paths_tpu.train.state`).
+
+A model directory holds `model.npz` (the flat JAX params dict),
+`opt.npz` (the optimizer state) and `train_stats.json` (the epoch to resume
+from plus per-epoch metric histories). `opt.npz` uses the keys of the JAX
+package's optax state, `inject_hyperparams(adamw)` or, with a gradient-norm
+clip (`config.clip_grad_norm`, passed as `clip_grad_norm`),
+`inject_hyperparams(chain(clip_by_global_norm, adamw))`: the step count,
+the hyperparameters, and AdamW's first and second moments (`mu`, `nu`) per
+parameter key. So a model directory resumes in either package.
+
+Not ported: the Orbax backend and the reference `model.pt` /
+`train_stats.pkl` route raise NotImplementedError.
+"""
 from __future__ import annotations
 
+import json
 import os
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-from paths_tpu_torch.convert import load_jax_flat, to_jax_flat
+from paths_tpu_torch.convert import (
+    jax_keys,
+    load_jax_flat,
+    to_jax_flat,
+    to_jax_layout,
+)
 from paths_tpu_torch.models.recursive import RecursiveModel
 
+# where optax keeps AdamW's count and moments inside the injected state
+_ADAM_PREFIX = {False: ".inner_state/0/", True: ".inner_state/1/0/"}
 
-def load_state(root_path: str, model: RecursiveModel) -> RecursiveModel:
-    """Load `<root_path>/model.npz` into `model` (in place) and return it."""
+
+def load_model(root_path: str, model: RecursiveModel) -> RecursiveModel:
+    """Load `<root_path>/model.npz` into `model` (in place) and return it;
+    raise if the file is missing."""
     npz_path = os.path.join(root_path, "model.npz")
     if not os.path.isfile(npz_path):
         raise FileNotFoundError(f"{npz_path} not found")
@@ -21,7 +44,125 @@ def load_state(root_path: str, model: RecursiveModel) -> RecursiveModel:
         return load_jax_flat(model, dict(z.items()))
 
 
-def save_state(root_path: str, model: RecursiveModel) -> None:
-    """Write the model's weights to `<root_path>/model.npz`."""
+def optimizer_to_jax_flat(model: RecursiveModel,
+                          optimizer: torch.optim.Optimizer,
+                          clip_grad_norm: Optional[float] = None) -> dict:
+    """The AdamW state of `optimizer` (over `model`'s parameters) as the
+    flat optax state dict of the JAX package, whose layout depends on
+    whether the step clips (`clip_grad_norm`)."""
+    group = optimizer.param_groups[0]
+    prefix = _ADAM_PREFIX[bool(clip_grad_norm)]
+    keys = jax_keys(model)
+    f32 = np.float32
+    flat = {}
+    step = 0
+    for name, p in model.named_parameters():
+        state = optimizer.state.get(p, {})
+        if "step" in state:
+            step = int(state["step"])
+        for moment, torch_name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            arr = (state[torch_name].detach().cpu().numpy() if state
+                   else np.zeros(tuple(p.shape), f32))
+            key = f"{prefix}.{moment}/{keys[name]}"
+            flat[key] = to_jax_layout(keys[name], arr)
+    flat[".count"] = flat[f"{prefix}.count"] = np.asarray(step, np.int32)
+    hyper = {"learning_rate": group["lr"],
+             "weight_decay": group["weight_decay"]}
+    if clip_grad_norm:
+        hyper["max_norm"] = clip_grad_norm
+    else:
+        b1, b2 = group["betas"]
+        hyper.update(b1=b1, b2=b2, eps=group["eps"], eps_root=0.0)
+    for k, v in hyper.items():
+        flat[f".hyperparams/{k}"] = np.asarray(v, f32)
+    return flat
+
+
+def load_optimizer_jax_flat(model: RecursiveModel,
+                            optimizer: torch.optim.Optimizer, flat: dict,
+                            clip_grad_norm: Optional[float] = None
+                            ) -> torch.optim.Optimizer:
+    """Load a flat optax AdamW state (see `optimizer_to_jax_flat`) into
+    `optimizer` in place: moments, step count and learning rate. Every
+    parameter's moments must be present with its shape."""
+    prefix = _ADAM_PREFIX[bool(clip_grad_norm)]
+    keys = jax_keys(model)
+    step = int(flat[f"{prefix}.count"])
+    for name, p in model.named_parameters():
+        state = {"step": torch.tensor(float(step), dtype=torch.float32)}
+        for moment, torch_name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            key = f"{prefix}.{moment}/{keys[name]}"
+            if key not in flat:
+                raise KeyError(f"optimizer checkpoint missing key {key}")
+            arr = np.asarray(flat[key], np.float32)
+            arr = arr.T if keys[name].endswith("/w") else arr
+            if arr.shape != tuple(p.shape):
+                raise ValueError(f"shape mismatch for {key}: checkpoint "
+                                 f"{arr.shape} vs model {tuple(p.shape)}")
+            state[torch_name] = torch.from_numpy(
+                np.ascontiguousarray(arr)).to(p)
+        optimizer.state[p] = state
+    for group in optimizer.param_groups:
+        group["lr"] = float(flat[".hyperparams/learning_rate"])
+    return optimizer
+
+
+def save_state(root_path: str, model: RecursiveModel,
+               optimizer: Optional[torch.optim.Optimizer] = None,
+               train_stats: Optional[dict] = None, *,
+               clip_grad_norm: Optional[float] = None) -> None:
+    """Write `model.npz`, `opt.npz` (with an optimizer; its layout follows
+    `clip_grad_norm`) and `train_stats.json` (with stats) into
+    `root_path`."""
+    print(f"Saving to {root_path}...")
     os.makedirs(root_path, exist_ok=True)
     np.savez(os.path.join(root_path, "model.npz"), **to_jax_flat(model))
+    if optimizer is not None:
+        np.savez(os.path.join(root_path, "opt.npz"),
+                 **optimizer_to_jax_flat(model, optimizer, clip_grad_norm))
+    if train_stats is not None:
+        with open(os.path.join(root_path, "train_stats.json"), "w") as f:
+            json.dump(train_stats, f)
+
+
+def load_state(root_path: str, model: RecursiveModel,
+               optimizer: Optional[torch.optim.Optimizer] = None, *,
+               clip_grad_norm: Optional[float] = None) -> Tuple:
+    """Restore (model, optimizer, train_stats) from `root_path`, in place;
+    `opt.npz` is read in the layout that `clip_grad_norm` gives it.
+    Missing files leave the passed-in values untouched; a fresh directory
+    gives train_stats {"epoch": 1}. Integer epoch keys of the metric
+    histories survive the JSON round trip."""
+    npz_path = os.path.join(root_path, "model.npz")
+    if os.path.isfile(npz_path):
+        load_model(root_path, model)
+    elif (os.path.isdir(os.path.join(root_path, "orbax"))
+          or os.path.isfile(os.path.join(root_path, "model.pt"))):
+        raise NotImplementedError(
+            f"{root_path} holds an Orbax or reference .pt checkpoint; the "
+            "port reads model.npz only (ROADMAP.md Queue 1, 'Checkpoint "
+            "routes')")
+    else:
+        print(f"{npz_path} not found, not loading model state!")
+
+    opt_path = os.path.join(root_path, "opt.npz")
+    if optimizer is not None and os.path.isfile(opt_path):
+        with np.load(opt_path) as z:
+            load_optimizer_jax_flat(model, optimizer, dict(z.items()),
+                                    clip_grad_norm)
+
+    stats_path = os.path.join(root_path, "train_stats.json")
+    if os.path.isfile(stats_path):
+        with open(stats_path) as f:
+            train_stats = json.load(f)
+        for k, v in train_stats.items():
+            if isinstance(v, dict):
+                train_stats[k] = {int(e): x for e, x in v.items()}
+    elif os.path.isfile(os.path.join(root_path, "train_stats.pkl")):
+        raise NotImplementedError(
+            "reference train_stats.pkl is not read by the port (ROADMAP.md "
+            "Queue 1, 'Checkpoint routes')")
+    else:
+        print("No train stats found, assuming first run")
+        train_stats = {"epoch": 1}
+    return model, optimizer, train_stats

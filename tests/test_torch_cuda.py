@@ -8,7 +8,8 @@ dependencies are installed:
 
 Kernel and plain version both compute in f32 (TF32 off) and differ only in
 summation order: 2e-5 absolute on O(1) outputs (bf16 I/O adds the final
-rounding of the output).
+rounding of the output). Gradients sum up to N terms of O(1), so the
+backward is held to 1e-5 relative to the largest plain gradient.
 """
 import numpy as np
 import pytest
@@ -85,3 +86,104 @@ def test_mha_kernel_route_matches_plain_route(card):
     assert tfa.masked_flash_attention_fwd.launches == before + 1
     want = mha(x, x, x, key_valid=valid, impl="xla")
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def _bwd_inputs(b, h, nq, nk, d, lengths, device, dtype=torch.float32):
+    """Forward through the kernel, plus a random upstream gradient."""
+    q, k, v, ln = _inputs(b, h, nq, nk, d, lengths, device, dtype)
+    out, lse = tfa.masked_flash_attention_fwd(q, k, v, ln)
+    dout = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(b, h, nq, d)).astype(np.float32)).to(device, dtype)
+    return q, k, v, ln, out, lse, dout
+
+
+def _grad_close(got, want, rel=1e-5, rtol=0.0):
+    scale = max(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), atol=rel * scale,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk,d", [(257, 257, 32), (81, 81, 32),
+                                     (37, 45, 32), (130, 130, 64),
+                                     (70, 33, 64)])
+def test_flash_backward_kernels_match_plain(card, nq, nk, d):
+    """Lengths 0, 1, N and ragged; Nq != Nk; keys at or past the length get
+    exactly zero dk/dv; the launch counters move by one each."""
+    lengths = [nk, 1, 0, nk // 2, 7]
+    args = _bwd_inputs(5, 4, nq, nk, d, lengths, card)
+    before = (tfa.masked_flash_attention_bwd_dq.launches,
+              tfa.masked_flash_attention_bwd_dkv.launches)
+    got = tfa.masked_flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert (tfa.masked_flash_attention_bwd_dq.launches,
+            tfa.masked_flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                             before[1] + 1)
+    want = tfa.flash_attention_backward_reference(*args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.isfinite(g).all()
+        _grad_close(g, w)
+    dq, dk, dv = got
+    for i, n in enumerate(lengths[1:], start=1):
+        assert dk[i, :, n:].abs().max().item() == 0.0
+        assert dv[i, :, n:].abs().max().item() == 0.0
+    assert dq[2].abs().max().item() == 0.0     # length 0: no valid key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_backward_kernels_bf16_match_plain(card, d):
+    """bf16 in and out, f32 inside: the two differ by the final rounding to
+    bf16 (rtol 1.6e-2, torch's bf16 default) and by summation order."""
+    args = _bwd_inputs(4, 4, 129, 129, d, [129, 1, 0, 50], card,
+                       torch.bfloat16)
+    got = tfa.masked_flash_attention_bwd(*args)
+    want = tfa.flash_attention_backward_reference(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _grad_close(g, w, rel=1e-4, rtol=1.6e-2)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic(card):
+    """No atomics: two calls give bitwise-equal gradients."""
+    args = _bwd_inputs(8, 4, 257, 257, 32, [257, 1, 100, 33, 0, 256, 2, 7],
+                       card)
+    first = tfa.masked_flash_attention_bwd(*args)
+    second = tfa.masked_flash_attention_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mha_kernel_route_gradients_match_plain_route(card):
+    """Under requires_grad the kernel route goes through the autograd
+    Function (forward kernel once, both backward kernels once) and agrees
+    with autograd through the plain route on the output, the input's
+    gradient and every weight's gradient."""
+    grads = {}
+    for impl in ("pallas", "xla"):
+        mha = MultiheadAttention(128, 4,
+                                 generator=torch.Generator().manual_seed(0))
+        mha = mha.to(card)
+        x = torch.randn(8, 81, 128,
+                        generator=torch.Generator().manual_seed(1)).to(card)
+        x.requires_grad_(True)
+        valid = torch.arange(81, device=card)[None] < torch.tensor(
+            [81, 1, 40, 7, 81, 2, 60, 33], device=card)[:, None]
+        before = [f.launches for f in (tfa.masked_flash_attention_fwd,
+                                       tfa.masked_flash_attention_bwd_dq,
+                                       tfa.masked_flash_attention_bwd_dkv)]
+        y = mha(x, x, x, key_valid=valid, impl=impl)
+        (y * torch.linspace(-1, 1, 128, device=card)).sum().backward()
+        after = [f.launches for f in (tfa.masked_flash_attention_fwd,
+                                      tfa.masked_flash_attention_bwd_dq,
+                                      tfa.masked_flash_attention_bwd_dkv)]
+        assert [a - b for a, b in zip(after, before)] == (
+            [1, 1, 1] if impl == "pallas" else [0, 0, 0])
+        grads[impl] = {"y": y.detach(), "x": x.grad,
+                       **{n: p.grad for n, p in mha.named_parameters()}}
+    for name, want in grads["xla"].items():
+        torch.testing.assert_close(grads["pallas"][name], want, atol=1e-4,
+                                   rtol=0, msg=name)
