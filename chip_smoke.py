@@ -23,7 +23,20 @@ Phases, each printing its own lines:
      went through all three kernels exactly as often as the code says, the
      two runs and one batch's gradients must agree, one step at the
      published dropout 0.05 must launch no kernel (as in the JAX package),
-     and one step's time, memory and profile are printed.
+     and one step's time, memory and profile are printed;
+  5. ViT block kernels: the fused attention, GELU-MLP and packed-SwiGLU-MLP
+     block kernels against their plain versions at the UNI and Virchow2
+     shapes (64 images) and one ragged small case, in f32 and bf16, with a
+     planted fault per kernel that the check must fail, their times, a
+     yardstick made of PyTorch library calls, and their bounds;
+  6. preprocess: two synthetic blob-on-white slides go through
+     `paths_tpu_torch.cli.preprocess` with UNI at full width and depth in
+     bf16 on the fused route and again on the plain route; the grids must
+     agree and the launch counters must read what the code predicts. Then
+     Virchow2 at full width and depth (fused against plain), one UNI batch on
+     the flash route, and one f32 UNI batch with LayerScale 1 (fused against
+     plain, with a planted fault), and the encode's time, busy share, memory
+     and profile.
 The line before the last is a JSON object of per-kernel numbers, and the
 last line is `{"ok": true, "device": {...}}`. Any failed check raises, so
 the script exits non-zero and prints no result; without a CUDA device it
@@ -81,6 +94,29 @@ GRAD_RTOL = 1e-4
 # backward. A c-index moves only when two predictions swap order.
 LOSS_RTOL = 1e-5
 CINDEX_ATOL = 0.02
+
+
+# Peak dense bf16 rate of the tensor cores (same data sheet).
+PEAK_BF16_FLOPS = 989e12
+# Fused ViT block kernels vs their plain versions. f32 (TF32 off): both sum up
+# to 6912 f32 terms in different orders into outputs of size up to about 10;
+# the JAX tests hold 3e-5 on O(1) activations at widths of 32, and the widths
+# here are 30-200 times that. bf16: kernel and plain version round at the same
+# places, so they differ where a sum lands on the other side of a rounding
+# boundary: 2 bf16 ulps of the largest output (an ulp is 2^-8 of the value).
+VIT_F32_ATOL = 1e-4
+VIT_BF16_ULPS = 2
+# Feature grids of the fused route vs the plain route in bf16, per tissue
+# cell, as |fused - plain|_2 / |plain|_2. The two routes round the branch at
+# different places (the plain route after every op, the kernels only where
+# the TPU kernels do), a bf16 rounding is 2^-8 = 4e-3, and a ViT without
+# LayerScale (Virchow2) passes such differences through 32 blocks.
+FEATURE_RTOL_BF16 = 5e-2
+# One f32 UNI batch (TF32 off) with LayerScale 1, fused vs plain route:
+# max |diff| over features of size O(1) after 24 blocks, each adding a few
+# 1e-6 of summation-order error. A planted fault (every other entry of one
+# block's fc2 bias moved by 0.02) must fail it.
+FEATURE_ATOL_F32 = 5e-4
 
 
 def card() -> str:
@@ -665,6 +701,391 @@ def step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout):
         print(f"[train-profile] {line}", flush=True)
 
 
+def vit_counts(tvf):
+    return {f.__name__: f.launches for f in (
+        tvf.fused_attn_block, tvf.fused_mlp_block, tvf.fused_swiglu_mlp_block)}
+
+
+def reset_vit_counts(tvf):
+    for f in (tvf.fused_attn_block, tvf.fused_mlp_block,
+              tvf.fused_swiglu_mlp_block):
+        f.launches = 0
+
+
+def vit_bound(kind, b, n, d, hidden, dtype_bytes):
+    """(operation-limited ms, byte-limited ms) of one fused block kernel on x
+    (b, n, d): 2 operations per multiply-add of every product in the kernel's
+    body, at the bf16 tensor-core rate for bf16 and the f32 CUDA-core rate for
+    f32; bytes = x read once, out written once, every weight read once (in the
+    compute dtype) and the small f32 vectors."""
+    rows = b * n
+    if kind == "attn":
+        flops = 2.0 * rows * d * 3 * d + 2.0 * rows * d * d + 4.0 * b * n * n * d
+        weights, vectors = 4 * d * d, 7 * d
+    elif kind == "mlp":
+        flops = 4.0 * rows * d * hidden
+        weights, vectors = 2 * d * hidden, 4 * d + hidden
+    else:   # packed SwiGLU: fc1 is (2 hidden, d)
+        flops = 6.0 * rows * d * hidden
+        weights, vectors = 3 * d * hidden, 4 * d + 2 * hidden
+    nbytes = dtype_bytes * (2 * rows * d + weights) + 4.0 * vectors
+    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
+    return flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def vit_kernel_phase(torch, tvf, gpu):
+    """Kernels #4-#6 against their plain versions, with planted faults, at
+    the main path's shapes and one ragged small case; returns the bf16 case
+    of each kernel at its main-path shape."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(2)
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return (base + scale * torch.randn(*shape, generator=gen)).cuda()
+
+    def library_attn(x, ns, nb, wq, bq, wp, bp, ls, heads):
+        b, n, d = x.shape
+        y = F.layer_norm(x, (d,), ns.to(x.dtype), nb.to(x.dtype), 1e-6)
+        qkv = F.linear(y, wq, bq.to(x.dtype)).view(b, n, 3, heads, d // heads)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, d)
+        return x + F.linear(o, wp, bp.to(x.dtype)) * ls.to(x.dtype)
+
+    def library_mlp(x, ns, nb, w1, b1, w2, b2, ls, swiglu):
+        d = x.shape[-1]
+        y = F.layer_norm(x, (d,), ns.to(x.dtype), nb.to(x.dtype), 1e-6)
+        h = F.linear(y, w1, b1.to(x.dtype))
+        if swiglu:
+            gate, val = h.chunk(2, dim=-1)
+            h = F.silu(gate) * val
+        else:
+            h = F.gelu(h)
+        return x + F.linear(h, w2, b2.to(x.dtype)) * ls.to(x.dtype)
+
+    main_rows = {}
+    shapes = (("ragged", 3, 50, 128, 2, 512, ("attn", "mlp", "swiglu")),
+              ("uni", 64, 197, 1024, 16, 4096, ("attn", "mlp")),
+              ("virchow2", 64, 261, 1280, 20, 6912, ("attn", "swiglu")))
+    for case, b, n, d, heads, hidden, kinds in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rnd(b, n, d).to(dtype)
+            # realistic scale: O(1) activations after every product, and
+            # LayerScale about 1 so that an error in the branch shows
+            ns, nb, ls = rnd(d, scale=0.1, base=1.0), rnd(d, scale=0.1), \
+                rnd(d, scale=0.1, base=1.0)
+            for kind in kinds:
+                if kind == "attn":
+                    wq, bq = rnd(3 * d, d, scale=d ** -0.5).to(dtype), rnd(3 * d, scale=0.1)
+                    wp, bp = rnd(d, d, scale=d ** -0.5).to(dtype), rnd(d, scale=0.1)
+                    args = (x, ns, nb, wq, bq, wp, bp, ls)
+                    kernel = lambda a=args: tvf.fused_attn_block(*a, num_heads=heads)
+                    plain = lambda a=args: tvf.fused_attn_block_reference(
+                        *a, num_heads=heads)
+                    library = lambda a=args: library_attn(*a, heads)
+                    faulty_w = wp.clone()
+                    faulty_w[:, 64:128] = 0       # head 1's context dropped
+                    faulty = lambda a=args, w=faulty_w: tvf.fused_attn_block_reference(
+                        *a[:5], w, *a[6:], num_heads=heads)
+                    fault = "one head's context zeroed"
+                else:
+                    packed = 2 if kind == "swiglu" else 1
+                    w1 = rnd(packed * hidden, d, scale=d ** -0.5).to(dtype)
+                    b1 = rnd(packed * hidden, scale=0.1)
+                    w2, b2 = rnd(d, hidden, scale=hidden ** -0.5).to(dtype), rnd(d, scale=0.1)
+                    args = (x, ns, nb, w1, b1, w2, b2, ls)
+                    if kind == "swiglu":
+                        kernel = lambda a=args: tvf.fused_swiglu_mlp_block(*a)
+                        plain = lambda a=args: tvf.fused_swiglu_mlp_block_reference(*a)
+                        faulty_w = w1.clone()     # value half shifted by one column
+                        faulty_w[hidden:] = torch.roll(w1[hidden:], 1, dims=0)
+                        faulty = lambda a=args, w=faulty_w: \
+                            tvf.fused_swiglu_mlp_block_reference(*a[:3], w, *a[4:])
+                        fault = "value half shifted by one column"
+                    else:
+                        kernel = lambda a=args: tvf.fused_mlp_block(*a)
+                        plain = lambda a=args: tvf.fused_mlp_block_reference(*a)
+                        faulty_w = w2.clone()     # the last hidden chunk dropped
+                        faulty_w[:, -256:] = 0
+                        faulty = lambda a=args, w=faulty_w: \
+                            tvf.fused_mlp_block_reference(*a[:5], w, *a[6:])
+                        fault = "last 256 hidden columns dropped"
+                    library = lambda a=args: library_mlp(*a, kind == "swiglu")
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"vit {kind} {case} {dtype}: non-finite output")
+                peak = want.float().abs().max().item()
+                tol = VIT_F32_ATOL if dtype == torch.float32 else \
+                    VIT_BF16_ULPS * 2.0 ** -8 * peak
+                err = (got.float() - want.float()).abs().max().item()
+                if not err <= tol:
+                    raise AssertionError(f"vit {kind} {case} {dtype}: err "
+                                         f"{err:.3g} > {tol:.3g}")
+                if not torch.equal(got, kernel()):
+                    raise AssertionError(f"vit {kind} {case} {dtype}: two calls differ")
+                fault_err = (got.float() - faulty().float()).abs().max().item()
+                if not fault_err > tol:
+                    raise AssertionError(f"vit {kind} {case} {dtype}: the check "
+                                         f"passes a planted fault ({fault}): "
+                                         f"{fault_err:.3g} <= {tol:.3g}")
+                del want
+                # device time from the profiler's trace for the small case;
+                # the 64-image cases run for milliseconds, where the time
+                # between CUDA events is the device's
+                timer = (lambda fn: cuda_ms(fn, 3, warmup=1)) if b > 8 else \
+                    (lambda fn: device_ms(fn, 20))
+                dev = {key: timer(fn) for key, fn in (
+                    ("ms", kernel), ("plain_ms", plain), ("library_ms", library))}
+                if not all(v > 0 for v in dev.values()):
+                    raise AssertionError(f"vit {kind} {case}: a time was not "
+                                         f"measured: {dev}")
+                flop_ms, byte_ms = vit_bound(kind, b, n, d, hidden, x.element_size())
+                tname = "f32" if dtype == torch.float32 else "bf16"
+                print(f"[kernel] vit_{kind} {case}: B={b} N={n} D={d} heads={heads} "
+                      f"H={hidden} {tname}: max_abs_err {err:.3g} (tol {tol:.3g}, "
+                      f"max |out| {peak:.3g}); planted fault ({fault}) err "
+                      f"{fault_err:.3g}: caught; device ms: kernel {dev['ms']:.4f}, "
+                      f"plain {dev['plain_ms']:.4f}, library calls "
+                      f"{dev['library_ms']:.4f}; bound {max(flop_ms, byte_ms):.4f} "
+                      f"(operations {flop_ms:.4f}, bytes {byte_ms:.4f}) | {gpu}",
+                      flush=True)
+                main_case = "virchow2" if kind == "swiglu" else "uni"
+                if case == main_case and dtype == torch.bfloat16:
+                    main_rows[kind] = dict(err=err, flop_ms=flop_ms,
+                                           byte_ms=byte_ms, **dev)
+    return main_rows
+
+
+def make_blob_slide(path, side, seed):
+    """A blob-on-white slide as a `.npy` array pyramid base: light background
+    with noise and a dark disc of tissue of radius 0.45 side."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(240, 250, (side, side, 3), dtype=np.uint8)
+    yy, xx = np.ogrid[0:side, 0:side]
+    blob = ((yy - side // 2) ** 2 + (xx - side // 2) ** 2) < (0.45 * side) ** 2
+    img[blob] = rng.integers(80, 160, (int(blob.sum()), 3), dtype=np.uint8)
+    np.save(path, img)
+
+
+def feature_mismatch(got, want):
+    """Worst |got - want|_2 / |want|_2 over the rows of two (rows, dim)
+    arrays."""
+    import numpy as np
+
+    num = np.linalg.norm(got.astype(np.float64) - want, axis=-1)
+    return float((num / np.linalg.norm(want.astype(np.float64), axis=-1)).max())
+
+
+def preprocess_phase(torch, tfa, tvf, gpu):
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from paths_tpu_torch.cli.preprocess import main as preprocess_main
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.encoders import vit
+    from paths_tpu_torch.encoders.registry import from_name
+    from paths_tpu_torch.encoders.transforms import UNI_TRANSFORM, apply_transform
+    from paths_tpu_torch.preprocess.pipeline import _read_batch
+    from paths_tpu_torch.preprocess.wsi import open_wsi
+
+    side, powers, batch = 7168, [0.625, 1.25, 2.5, 5.0, 10.0], 64
+    slide_dir = os.path.join(WORK, "slides")
+    os.makedirs(slide_dir)
+    t0 = time.perf_counter()
+    for i in range(2):
+        make_blob_slide(os.path.join(slide_dir, f"slide{i}.npy"), side, seed=i)
+    print(f"[preprocess] 2 synthetic slides of {side} x {side} px at objective "
+          f"power 10, written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- UNI, full width and depth, bf16, through the CLI on both routes
+    runs = {}
+    for impl in ("fused", "xla"):
+        out = os.path.join(WORK, f"features_{impl}")
+        reset_vit_counts(tvf)
+        reset_counts(tfa)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = preprocess_main(
+            ["-m", "UNI", "-d", slide_dir, "-o", out, "--ext", ".npy", "-b",
+             str(batch), "--default-power", "10", "--block-impl", impl])
+        torch.cuda.synchronize()
+        runs[impl] = dict(wall=time.perf_counter() - t0, stats=stats,
+                          counts=vit_counts(tvf), out=out,
+                          peak=torch.cuda.max_memory_allocated() / 2**20)
+    stores = {impl: FeatureStore(r["out"]) for impl, r in runs.items()}
+    patches = batches = 0
+    worst = 0.0
+    for i in range(2):
+        for power in powers:
+            a = np.asarray(stores["fused"].load(f"slide{i}", power))
+            b = np.asarray(stores["xla"].load(f"slide{i}", power))
+            if a.shape != b.shape or a.shape[2] != 1024 or a.dtype != np.float32:
+                raise AssertionError(f"slide{i} @ {power}: grids {a.shape} "
+                                     f"{a.dtype} vs {b.shape}")
+            cells = np.abs(b).sum(-1) > 0
+            if not np.array_equal(cells, np.abs(a).sum(-1) > 0):
+                raise AssertionError(f"slide{i} @ {power}: background cells differ")
+            if not np.isfinite(a).all():
+                raise AssertionError(f"slide{i} @ {power}: non-finite features")
+            patches += int(cells.sum())
+            batches += math.ceil(int(cells.sum()) / batch)
+            if cells.any():
+                worst = max(worst, feature_mismatch(a[cells], b[cells]))
+    if not worst <= FEATURE_RTOL_BF16:
+        raise AssertionError(f"UNI fused vs plain route: features differ by "
+                             f"{worst:.3g} of their norm > {FEATURE_RTOL_BF16}")
+    depth = vit.UNI.depth
+    want = {"fused_attn_block": depth * batches, "fused_mlp_block": depth * batches,
+            "fused_swiglu_mlp_block": 0}
+    if runs["fused"]["counts"] != want:
+        raise AssertionError(f"fused route launched {runs['fused']['counts']}, "
+                             f"the code says {want}")
+    if any(runs["xla"]["counts"].values()) or any(launch_counts(tfa).values()):
+        raise AssertionError(f"plain route launched kernels: {runs['xla']['counts']}")
+    for impl, r in runs.items():
+        st = r["stats"]
+        print(f"[preprocess] cli.preprocess -m UNI --block-impl {impl} (bf16, -b "
+              f"{batch}, 24 blocks, D 1024): {patches} tissue patches of 2 slides "
+              f"x {len(powers)} magnifications in {batches} encoded batches, "
+              f"{r['wall']:.1f} s wall with the encoder's initialisation = "
+              f"{patches / r['wall']:.1f} patches/s; staging thread busy "
+              f"{st['h2d_busy_s'] / batches * 1e3:.2f} ms per batch for "
+              f"{st['h2d_bytes'] / batches / 2**20:.1f} MiB; kernel launches "
+              f"{r['counts']}; peak memory {r['peak']:.0f} MiB | {gpu}", flush=True)
+    print(f"[preprocess] UNI fused vs plain route over {patches} tissue cells: "
+          f"same grids and background, worst |diff|/|feature| {worst:.3g} (rtol "
+          f"{FEATURE_RTOL_BF16})", flush=True)
+    uni_counts = runs["fused"]["counts"]
+
+    # two 64-patch batches of real tissue for the single-batch checks, read
+    # as the pipeline's producer reads them (8 threads), which is timed
+    wsi = open_wsi(os.path.join(slide_dir, "slide0.npy"), 10.0)
+    cells = np.array([(r, c) for r in range(10, 18) for c in range(10, 26)])
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        t0 = time.perf_counter()
+        read = [_read_batch(wsi, cells, bi, 10.0, 256, batch, pool, False)[0]
+                for bi in range(2)]
+        decode_ms = (time.perf_counter() - t0) / 2 * 1e3
+    wsi.close()
+    print(f"[preprocess] host decode of one 64-patch batch from a .npy slide "
+          f"(8 threads): {decode_ms:.1f} ms", flush=True)
+    imgs = torch.from_numpy(np.concatenate(read)).cuda()
+    two_batches = [imgs[:64], imgs[64:]]
+
+    # -- encode time, busy share and profile of one UNI batch on both routes
+    encoders, init_s = {}, {}
+    for impl in ("fused", "xla", "flash"):
+        t0 = time.perf_counter()
+        encoders[impl] = from_name("UNI", block_impl=impl, seed=0)[0]
+        torch.cuda.synchronize()
+        init_s[impl] = time.perf_counter() - t0
+    for impl in ("fused", "xla"):
+        enc = encoders[impl]
+        ms = cuda_ms(lambda: enc(two_batches[0]), iters=3, warmup=1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            enc(two_batches[0])
+            torch.cuda.synchronize()
+        busy_us = kernel_us(prof)
+        print(f"[preprocess] UNI encode of one 64-patch batch, block_impl={impl}, "
+              f"bf16: {ms:.2f} ms between CUDA events = {64e3 / ms:.1f} patches/s "
+              f"of encode alone; kernel time in one profiled encode "
+              f"{busy_us / 1e3:.2f} ms (busy share {busy_us / 1e3 / ms:.3f}); "
+              f"from_name took {init_s[impl]:.1f} s | {gpu}", flush=True)
+        if impl == "fused":
+            table = prof.key_averages().table(sort_by="device_time_total",
+                                              row_limit=15)
+            for line in table.splitlines():
+                print(f"[preprocess-profile] {line}", flush=True)
+
+    # -- one UNI batch on the flash route: kernel #1 at bf16, head_dim 64
+    reset_counts(tfa)
+    reset_vit_counts(tvf)
+    got = encoders["flash"](two_batches[0])
+    ref = encoders["xla"](two_batches[0])
+    torch.cuda.synchronize()
+    flash_counts = launch_counts(tfa)
+    rel = feature_mismatch(got.cpu().numpy(), ref.cpu().numpy())
+    if flash_counts["masked_flash_attention_fwd"] != depth or any(
+            vit_counts(tvf).values()) or not rel <= FEATURE_RTOL_BF16:
+        raise AssertionError(f"flash route: launches {flash_counts}, "
+                             f"{vit_counts(tvf)}, mismatch {rel:.3g}")
+    print(f"[preprocess] UNI, one batch, block_impl=flash: {depth} launches of "
+          f"the flash forward kernel (bf16, head_dim 64, N 197), worst "
+          f"|diff|/|feature| vs the plain route {rel:.3g} (rtol "
+          f"{FEATURE_RTOL_BF16})", flush=True)
+    del encoders
+
+    # -- one f32 UNI batch with LayerScale 1: the check with power
+    x = apply_transform(two_batches[0].float() / 255.0, UNI_TRANSFORM)
+    model = vit.vit_init(0, vit.UNI)
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.ls1.fill_(1.0)
+            blk.ls2.fill_(1.0)
+    model = model.cuda()
+    reset_vit_counts(tvf)
+    fused = vit.vit_apply(model, x, torch.float32, "fused")
+    plain = vit.vit_apply(model, x, torch.float32, "xla")
+    with torch.no_grad():
+        # every other entry: a shift of all entries alike would vanish in the
+        # next LayerNorm
+        model.blocks[12].fc2.bias[::2] += 0.02
+    faulty = vit.vit_apply(model, x, torch.float32, "fused")
+    torch.cuda.synchronize()
+    err = (fused - plain).abs().max().item()
+    fault_err = (faulty - plain).abs().max().item()
+    # the sound and the faulty encode both ran on the fused route
+    want = {"fused_attn_block": 2 * depth, "fused_mlp_block": 2 * depth,
+            "fused_swiglu_mlp_block": 0}
+    if vit_counts(tvf) != want or not err <= FEATURE_ATOL_F32 \
+            or not fault_err > FEATURE_ATOL_F32:
+        raise AssertionError(f"f32 UNI batch: err {err:.3g}, planted fault "
+                             f"{fault_err:.3g}, atol {FEATURE_ATOL_F32}, launches "
+                             f"{vit_counts(tvf)} (want {want})")
+    print(f"[preprocess] UNI, one f32 batch, LayerScale 1, fused vs plain route: "
+          f"max |diff| {err:.3g} on features up to {plain.abs().max().item():.3g} "
+          f"(atol {FEATURE_ATOL_F32}); planted fault (every other entry of block "
+          f"12's fc2 bias + 0.02): {fault_err:.3g}, caught", flush=True)
+    del model
+
+    # -- Virchow2, full width and depth, bf16, through from_name on both routes
+    feats, ms = {}, {}
+    virchow_counts = None
+    for impl in ("fused", "xla"):
+        enc, dim, _ = from_name("virchow2", block_impl=impl, seed=0)
+        if dim != 2560:
+            raise AssertionError(f"virchow2 out dim {dim}")
+        reset_vit_counts(tvf)
+        feats[impl] = torch.cat([enc(b) for b in two_batches]).cpu().numpy()
+        torch.cuda.synchronize()
+        if impl == "fused":
+            virchow_counts = vit_counts(tvf)
+        ms[impl] = cuda_ms(lambda: enc(two_batches[0]), iters=2, warmup=0)
+        del enc
+    rel = feature_mismatch(feats["fused"], feats["xla"])
+    vdepth = vit.VIRCHOW2.depth
+    want = {"fused_attn_block": 2 * vdepth, "fused_mlp_block": 0,
+            "fused_swiglu_mlp_block": 2 * vdepth}
+    if virchow_counts != want or feats["fused"].shape != (128, 2560) or \
+            not np.isfinite(feats["fused"]).all() or not rel <= FEATURE_RTOL_BF16:
+        raise AssertionError(f"virchow2: launches {virchow_counts} (want {want}), "
+                             f"shape {feats['fused'].shape}, mismatch {rel:.3g}")
+    print(f"[preprocess] Virchow2 (32 blocks, D 1280, packed SwiGLU 6912, 261 "
+          f"tokens, bf16), 2 batches of 64 through from_name: launches "
+          f"{virchow_counts}; (128, 2560) features, worst |diff|/|feature| fused "
+          f"vs plain route {rel:.3g} (rtol {FEATURE_RTOL_BF16}); encode of one "
+          f"batch {ms['fused']:.1f} ms fused, {ms['xla']:.1f} ms plain | {gpu}",
+          flush=True)
+    return {"vit_attn": uni_counts["fused_attn_block"],
+            "vit_mlp": uni_counts["fused_mlp_block"],
+            "vit_swiglu_mlp": virchow_counts["fused_swiglu_mlp_block"]}
+
+
 def main() -> int:
     import torch
 
@@ -674,6 +1095,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from paths_tpu_torch.kernels import build
     from paths_tpu_torch.kernels import flash_attention as tfa
+    from paths_tpu_torch.kernels import vit_fused as tvf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -695,6 +1117,8 @@ def main() -> int:
         bwd = backward_kernel_phase(torch, tfa, gpu)
         serving_phase(torch, tfa, gpu)
         launches = training_phase(torch, tfa, gpu)
+        vit_cases = vit_kernel_phase(torch, tvf, gpu)
+        vit_launches = preprocess_phase(torch, tfa, tvf, gpu)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -736,6 +1160,18 @@ def main() -> int:
             per_step(bwd, "plain_dkv_ms"), per_step(bwd, "library_ms"),
             *bound["dkv"]),
     ]
+    # the fused block kernels at their main-path shape in bf16 (UNI for the
+    # attention and GELU-MLP blocks, Virchow2 for the packed-SwiGLU block),
+    # 64 images; launches from the preprocess runs (UNI through the CLI,
+    # Virchow2 two batches)
+    vit_src = "paths_tpu_torch/csrc/vit_fused.cu"
+    for name, kind, line in (("vit_attn", "attn", 174), ("vit_mlp", "mlp", 218),
+                             ("vit_swiglu_mlp", "swiglu", 298)):
+        c = vit_cases[kind]
+        launches[name] = vit_launches[name]
+        kernels.append(row(name, vit_src, f"paths_tpu/kernels/vit_fused.py:{line}",
+                           c["err"], c["ms"], c["plain_ms"], c["library_ms"],
+                           c["flop_ms"], c["byte_ms"]))
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,9 @@ becomes `weight` in `nn.Linear`'s (out, in) layout, `b` becomes `bias`, a
 LayerNorm's `scale` becomes `weight` (its `bias` keeps its name). This
 module is the one place where weights are transposed. Head counts are not
 stored; they come from the config.
+
+The patch encoders' ViT parameter tree (`paths_tpu.encoders.vit`) is carried
+by `vit_from_jax` / `vit_to_jax`.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from paths_tpu_torch.config import Config
+from paths_tpu_torch.encoders.vit import ViT, ViTSpec
 from paths_tpu_torch.models.recursive import RecursiveModel
 
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight"}
@@ -75,3 +79,88 @@ def to_jax_flat(model: RecursiveModel) -> Dict[str, np.ndarray]:
     keys = jax_keys(model)
     return {keys[name]: to_jax_layout(keys[name], p.detach().cpu().numpy())
             for name, p in model.named_parameters()}
+
+
+# JAX block key path -> (module attribute of `ViTBlock`, parameter, transposed)
+_VIT_BLOCK = {
+    ("norm1", "scale"): ("norm1", "weight", False),
+    ("norm1", "bias"): ("norm1", "bias", False),
+    ("attn", "qkv_w"): ("qkv", "weight", True),
+    ("attn", "qkv_b"): ("qkv", "bias", False),
+    ("attn", "proj_w"): ("proj", "weight", True),
+    ("attn", "proj_b"): ("proj", "bias", False),
+    ("norm2", "scale"): ("norm2", "weight", False),
+    ("norm2", "bias"): ("norm2", "bias", False),
+    ("mlp", "fc1_w"): ("fc1", "weight", True),
+    ("mlp", "fc1_b"): ("fc1", "bias", False),
+    ("mlp", "fc2_w"): ("fc2", "weight", True),
+    ("mlp", "fc2_b"): ("fc2", "bias", False),
+}
+
+
+def _f32(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def vit_from_jax(params: dict, spec: ViTSpec) -> ViT:
+    """A new CPU `ViT` holding the JAX package's ViT parameter tree: leaves
+    convertible to numpy, `blocks` a list of per-block dicts or one dict of
+    arrays stacked along a leading depth axis, Linear weights (in, out), the
+    patch-embedding conv kernel (P, P, 3, D). `spec` is the port's `ViTSpec`
+    of the same architecture (the tree's own `spec` entry is not read)."""
+    blocks = params["blocks"]
+    if isinstance(blocks, dict):      # stacked: slice block i out of each leaf
+        blocks = [{g: {k: v[i] for k, v in grp.items()} if isinstance(grp, dict)
+                   else grp[i] for g, grp in blocks.items()}
+                  for i in range(spec.depth)]
+    if len(blocks) != spec.depth:
+        raise ValueError(f"{len(blocks)} blocks, spec.depth {spec.depth}")
+    p = spec.patch_size
+    model = ViT(spec, pos_embed_rows=np.shape(params["pos_embed"])[0])
+    with torch.no_grad():
+        model.patch_embed.weight.copy_(
+            _f32(params["patch_embed"]["w"]).reshape(p * p * 3, -1).T)
+        model.patch_embed.bias.copy_(_f32(params["patch_embed"]["b"]))
+        model.cls_token.copy_(_f32(params["cls_token"]))
+        model.pos_embed.copy_(_f32(params["pos_embed"]))
+        if spec.num_reg_tokens:
+            model.reg_tokens.copy_(_f32(params["reg_tokens"]))
+        model.norm.weight.copy_(_f32(params["norm"]["scale"]))
+        model.norm.bias.copy_(_f32(params["norm"]["bias"]))
+        for blk, src in zip(model.blocks, blocks):
+            for (group, leaf), (attr, name, transposed) in _VIT_BLOCK.items():
+                t = _f32(src[group][leaf])
+                getattr(getattr(blk, attr), name).copy_(t.T if transposed else t)
+            if spec.layer_scale:
+                blk.ls1.copy_(_f32(src["ls1"]))
+                blk.ls2.copy_(_f32(src["ls2"]))
+    return model
+
+
+def vit_to_jax(model: ViT) -> dict:
+    """The inverse of `vit_from_jax`: the JAX package's ViT parameter tree
+    (list-of-blocks layout, numpy leaves) without its `spec` entry, which the
+    caller adds from the JAX package's own `ViTSpec`."""
+    spec = model.spec
+    p = spec.patch_size
+    arr = lambda t: np.ascontiguousarray(t.detach().cpu().numpy())
+    params = {
+        "patch_embed": {
+            "w": arr(model.patch_embed.weight.T).reshape(p, p, 3, -1),
+            "b": arr(model.patch_embed.bias)},
+        "cls_token": arr(model.cls_token),
+        "pos_embed": arr(model.pos_embed),
+        "norm": {"scale": arr(model.norm.weight), "bias": arr(model.norm.bias)},
+        "blocks": [],
+    }
+    if spec.num_reg_tokens:
+        params["reg_tokens"] = arr(model.reg_tokens)
+    for blk in model.blocks:
+        out: dict = {}
+        for (group, leaf), (attr, name, transposed) in _VIT_BLOCK.items():
+            t = getattr(getattr(blk, attr), name)
+            out.setdefault(group, {})[leaf] = arr(t.T if transposed else t)
+        if spec.layer_scale:
+            out["ls1"], out["ls2"] = arr(blk.ls1), arr(blk.ls2)
+        params["blocks"].append(out)
+    return params

@@ -1,0 +1,90 @@
+"""Encoder factory (counterpart of `paths_tpu.encoders.registry`): name ->
+(encode_fn, dim, transform).
+
+Weights: there is no network access at run time; pass `weights_path` (a torch
+state_dict file of a timm ViT) or get a randomly initialised encoder of the
+right architecture (shape tests and throughput runs; real runs need real
+weights).
+
+    encode, dim, transform = from_name("UNI", weights_path="uni.pt")
+    fts = encode(images_bhwc)      # uint8 or [0, 1] float -> (B, dim) float32
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from paths_tpu_torch.encoders import transforms as T
+from paths_tpu_torch.encoders import vit
+from paths_tpu_torch.encoders.convert_vit import vit_from_torch_file
+from paths_tpu_torch.encoders.transforms import TransformSpec, apply_transform
+
+_VIT_SPECS = {
+    "uni": (vit.UNI, T.UNI_TRANSFORM),
+    "virchow2": (vit.VIRCHOW2, T.VIRCHOW2_TRANSFORM),
+    "kaiko-vits16": (vit.KAIKO_VITS16, T.KAIKO_TRANSFORM),
+    "kaiko-vits8": (vit.KAIKO_VITS8, T.KAIKO_TRANSFORM),
+    "kaiko-vitb16": (vit.KAIKO_VITB16, T.KAIKO_TRANSFORM),
+    "kaiko-vitb8": (vit.KAIKO_VITB8, T.KAIKO_TRANSFORM),
+    "kaiko-vitl14": (vit.KAIKO_VITL14, T.KAIKO_TRANSFORM),
+}
+
+
+def _to_float01(images: torch.Tensor) -> torch.Tensor:
+    """uint8 [0, 255] or float [0, 1] -> float32 [0, 1]."""
+    if not images.is_floating_point():
+        return images.float() / 255.0
+    return images.float()
+
+
+def _resolve_block_impl(impl: str, device: torch.device) -> str:
+    """'auto' -> the fused block kernels on a CUDA device, the plain route
+    on an explicitly requested CPU."""
+    if impl != "auto":
+        return impl
+    return "fused" if device.type == "cuda" else "xla"
+
+
+def from_name(name: str, weights_path: Optional[str] = None,
+              compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+              fast_math: bool = False, block_impl: str = "auto",
+              device: str = "cuda") -> Tuple[Callable, int, TransformSpec]:
+    """:return: (encode_fn taking (B, H, W, 3) uint8 or [0, 1] float images
+    on `device` -> (B, dim) float32 features, feature dim, transform spec).
+
+    :param fast_math: tanh GELU instead of timm's exact erf GELU.
+    :param block_impl: "auto" (the fused block kernels on a CUDA device, the
+        plain route on the CPU), "fused", "flash" or "xla"; "fused1" and
+        "int8" are not ported yet.
+    :param device: where the weights live and the encode runs; "cuda" unless
+        the caller asks for the CPU.
+    """
+    name = name.lower()
+    dev = torch.device(device)
+    if name in ("resnet50", "resnet18"):
+        raise NotImplementedError(
+            f"the {name} encoder is not ported yet (it needs a torchvision "
+            "weight file): ROADMAP.md Queue 1, 'left out of the preprocess "
+            "slice'")
+    if name not in _VIT_SPECS:
+        raise ValueError(f"Invalid patch encoder '{name}'.")
+    spec, tspec = _VIT_SPECS[name]
+    impl = _resolve_block_impl(block_impl, dev)
+    vit.check_block_impl(impl)
+    if fast_math:
+        spec = dataclasses.replace(spec, gelu="tanh")
+    if weights_path:
+        model = vit_from_torch_file(weights_path, spec)
+    else:
+        model = vit.vit_init(seed, spec)
+    model = model.to(dev)
+
+    def encode(images: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            x = apply_transform(_to_float01(images), tspec)
+            return vit.vit_apply(model, x, compute_dtype=compute_dtype,
+                                 block_impl=impl)
+
+    return encode, spec.out_dim, tspec

@@ -23,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> source under the package
 SOURCES = {"flash_attention": "csrc/flash_attention.cu",
-           "flash_attention_bwd": "csrc/flash_attention_bwd.cu"}
+           "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
+           "vit_fused": "csrc/vit_fused.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

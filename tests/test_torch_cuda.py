@@ -187,3 +187,113 @@ def test_mha_kernel_route_gradients_match_plain_route(card):
     for name, want in grads["xla"].items():
         torch.testing.assert_close(grads["pallas"][name], want, atol=1e-4,
                                    rtol=0, msg=name)
+
+
+# ----------------------------------------------------- fused ViT block kernels
+# f32: kernel and plain version both accumulate in f32 (TF32 off) over up to
+# 6912 terms in different orders: 1e-4 absolute on O(1)..O(10) outputs. bf16:
+# both round at the same places, so they differ by single bf16 roundings of
+# intermediates and of the output: 2 bf16 ulps of the largest output.
+from paths_tpu_torch.kernels import vit_fused as tvf  # noqa: E402
+
+VIT_F32_ATOL = 1e-4
+VIT_SHAPES = [  # (B, N, D, heads, hidden): ragged small, UNI, Virchow2, Kaiko-S
+    (3, 50, 128, 2, 512), (2, 197, 1024, 16, 4096), (2, 261, 1280, 20, 6912),
+    (2, 197, 384, 6, 1536)]
+
+
+def _vit_args(b, n, d, hidden, packed, dtype, device, ls=True):
+    rng = np.random.default_rng(0)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.normal(size=s) * scale).astype(np.float32)).to(device)
+    return dict(
+        x=f(b, n, d).to(dtype), ns=1.0 + 0.1 * f(d), nb=0.1 * f(d),
+        qkv_w=f(3 * d, d, scale=d ** -0.5).to(dtype), qkv_b=0.1 * f(3 * d),
+        proj_w=f(d, d, scale=d ** -0.5).to(dtype), proj_b=0.1 * f(d),
+        fc1_w=f(packed * hidden, d, scale=d ** -0.5).to(dtype),
+        fc1_b=0.1 * f(packed * hidden),
+        fc2_w=f(d, hidden, scale=hidden ** -0.5).to(dtype), fc2_b=0.1 * f(d),
+        ls=(1.0 + 0.1 * f(d)) if ls else None)
+
+
+def _vit_close(got, want, dtype):
+    tol = VIT_F32_ATOL if dtype == torch.float32 else \
+        2 * 2.0 ** -8 * want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", VIT_SHAPES)
+def test_vit_attn_kernel_matches_plain(card, shape, dtype):
+    b, n, d, heads, hidden = shape
+    p = _vit_args(b, n, d, hidden, 1, dtype, card)
+    args = (p["x"], p["ns"], p["nb"], p["qkv_w"], p["qkv_b"], p["proj_w"],
+            p["proj_b"], p["ls"])
+    before = tvf.fused_attn_block.launches
+    got = tvf.fused_attn_block(*args, num_heads=heads)
+    torch.cuda.synchronize()
+    assert tvf.fused_attn_block.launches == before + 1
+    _vit_close(got, tvf.fused_attn_block_reference(*args, num_heads=heads), dtype)
+    assert torch.equal(got, tvf.fused_attn_block(*args, num_heads=heads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact_gelu", [True, False])
+@pytest.mark.parametrize("shape", VIT_SHAPES)
+def test_vit_mlp_kernel_matches_plain(card, shape, exact_gelu, dtype):
+    b, n, d, heads, hidden = shape
+    p = _vit_args(b, n, d, hidden, 1, dtype, card, ls=exact_gelu)
+    args = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+            p["fc2_b"], p["ls"])
+    before = tvf.fused_mlp_block.launches
+    got = tvf.fused_mlp_block(*args, exact_gelu=exact_gelu)
+    torch.cuda.synchronize()
+    assert tvf.fused_mlp_block.launches == before + 1
+    _vit_close(got, tvf.fused_mlp_block_reference(*args, exact_gelu=exact_gelu),
+               dtype)
+    assert torch.equal(got, tvf.fused_mlp_block(*args, exact_gelu=exact_gelu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", VIT_SHAPES)
+def test_vit_swiglu_kernel_matches_plain(card, shape, dtype):
+    b, n, d, heads, hidden = shape
+    p = _vit_args(b, n, d, hidden, 2, dtype, card)
+    args = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+            p["fc2_b"], p["ls"])
+    before = tvf.fused_swiglu_mlp_block.launches
+    got = tvf.fused_swiglu_mlp_block(*args)
+    torch.cuda.synchronize()
+    assert tvf.fused_swiglu_mlp_block.launches == before + 1
+    _vit_close(got, tvf.fused_swiglu_mlp_block_reference(*args), dtype)
+    assert torch.equal(got, tvf.fused_swiglu_mlp_block(*args))
+
+
+@pytest.mark.cuda
+def test_vit_kernels_refuse_what_they_do_not_take(card):
+    p = _vit_args(2, 20, 128, 256, 1, torch.float32, card)
+    attn = (p["x"], p["ns"], p["nb"], p["qkv_w"], p["qkv_b"], p["proj_w"],
+            p["proj_b"], p["ls"])
+    with pytest.raises(ValueError, match="head_dim"):
+        tvf.fused_attn_block(*attn, num_heads=4)
+    with pytest.raises(TypeError, match="compute dtype"):
+        tvf.fused_attn_block(p["x"].bfloat16(), *attn[1:], num_heads=2)
+    with pytest.raises(ValueError, match="is on"):
+        tvf.fused_attn_block(p["x"], p["ns"], p["nb"], p["qkv_w"].cpu(),
+                             *attn[4:], num_heads=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tvf.fused_attn_block(p["x"].transpose(0, 1), *attn[1:], num_heads=2)
+    long = _vit_args(1, 785, 128, 256, 1, torch.float32, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        tvf.fused_attn_block(long["x"], *attn[1:], num_heads=2)
+    with pytest.raises(ValueError, match="layout"):
+        tvf.fused_mlp_block(p["x"], p["ns"], p["nb"], p["fc1_w"].T.contiguous(),
+                            p["fc1_b"], p["fc2_w"], p["fc2_b"], p["ls"])
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tvf.fused_mlp_block(p["x"], p["ns"], p["nb"], p["fc1_w"][:250],
+                            p["fc1_b"][:250], p["fc2_w"][:, :250].contiguous(),
+                            p["fc2_b"], p["ls"])
