@@ -28,7 +28,11 @@ Phases, each printing its own lines:
      block kernels against their plain versions at the UNI and Virchow2
      shapes (64 images) and one ragged small case, in f32 and bf16, with a
      planted fault per kernel that the check must fail, their times, a
-     yardstick made of PyTorch library calls, and their bounds;
+     yardstick made of PyTorch library calls, and their bounds; then the
+     whole-block kernel and the int8 attention, GELU-MLP and packed-SwiGLU-MLP
+     block kernels at the same shapes, the int8 ones with a check that allows
+     for codes on the other side of a rounding boundary and three planted
+     faults that it must fail;
   6. preprocess: two synthetic blob-on-white slides go through
      `paths_tpu_torch.cli.preprocess` with UNI at full width and depth in
      bf16 on the fused route and again on the plain route; the grids must
@@ -36,7 +40,8 @@ Phases, each printing its own lines:
      Virchow2 at full width and depth (fused against plain), one UNI batch on
      the flash route, and one f32 UNI batch with LayerScale 1 (fused against
      plain, with a planted fault), and the encode's time, busy share, memory
-     and profile.
+     and profile. The `int8` and `fused1` routes go through the same CLI run,
+     the same Virchow2 batches and the same f32 batch.
 The line before the last is a JSON object of per-kernel numbers, and the
 last line is `{"ok": true, "device": {...}}`. Any failed check raises, so
 the script exits non-zero and prints no result; without a CUDA device it
@@ -117,6 +122,52 @@ FEATURE_RTOL_BF16 = 5e-2
 # 1e-6 of summation-order error. A planted fault (every other entry of one
 # block's fc2 bias moved by 0.02) must fail it.
 FEATURE_ATOL_F32 = 5e-4
+# Peak dense int8 rate of the tensor cores (same data sheet).
+PEAK_INT8_OPS = 1979e12
+# Int8 block kernels vs their plain versions. Integer sums are exact and the
+# LayerNorm before a quantisation is evaluated in f64, so the two agree to f32
+# summation order (the tight bar: VIT_F32_ATOL, or VIT_BF16_ULPS of the
+# largest output) except where a context or hidden value, an f32 sum taken in
+# another order, lands on the other side of a rounding boundary: that moves
+# one int8 code, and the row's outputs by at most one output quantum (one code
+# step of the block's last quantisation times the largest weight and
+# LayerScale; about 1e-3). Through the attention it also moves the other rows
+# of the image, by about 1/N of that, far inside the tight bar. A value lies
+# within an ulp of a boundary about once in 1e5, so of UNI's 12,608 rows about
+# a hundred hold such a code: predicted share of rows outside the tight bar
+# 0.2% (f32; in bf16 a quantum is below the tight bar), allowed 2%; no row may
+# be off by more than 8 quanta (a row with several moved codes). Planted
+# faults that must fail: round-half-up in place of half-even (on inputs whose
+# LayerNorm output lies on exact ties), the weight scale of one output channel
+# dropped, and a whole-row hidden scale where a per-chunk one is due.
+# In bf16 an output's ulp (2^-8 of its size, 0.03 at 4) is above a quantum, so
+# the two bars above cannot see an error of a few quanta there (the wrong
+# hidden scale moves outputs by about 0.01). But kernel and plain version
+# round the same f32 values, so nearly every bf16 output is the same to the
+# bit, while an error of a third of an ulp rounds a third of them elsewhere:
+# in bf16 at most 1% of the output elements may differ at all (predicted:
+# under 0.1%).
+I8_FLIP_SHARE = 0.02
+I8_LOOSE_QUANTA = 8.0
+I8_BF16_CHANGED = 0.01
+# Feature grids of the int8 route vs the plain route in bf16: the
+# quantisation error itself. The JAX package holds it to 5e-2 of the largest
+# feature and a cosine above 0.999 for a 12-block random encoder; Virchow2 has
+# 32 blocks and no LayerScale, and each block adds about 1e-2.
+FEATURE_RTOL_INT8 = 1e-1
+FEATURE_COS_INT8 = 0.99
+# One f32 UNI batch with LayerScale 1 on the int8 route, kernels vs plain
+# versions: a moved code changes a row by about 1e-3, after which later
+# blocks' codes of that image differ freely, so after 24 blocks the two runs
+# are two draws of the same quantisation noise and differ by about as much as
+# either differs from the float route (measured on the H100: 0.098 on
+# features up to 3.9), not by summation order. The bar is therefore taken
+# from the run itself: max |kernels - plain versions| may be at most
+# FEATURE_INT8_SELF times max |kernels - float route|, the quantisation noise.
+# The [kernel] lines above are the check with power for a single kernel; this
+# one holds the route's wiring. A planted fault (the scale of one fc2 output
+# channel of block 12 set to 1) must fail it.
+FEATURE_INT8_SELF = 2.0
 
 
 def card() -> str:
@@ -701,15 +752,28 @@ def step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout):
         print(f"[train-profile] {line}", flush=True)
 
 
+def vit_wrappers(tvf):
+    from paths_tpu_torch.kernels import vit_int8 as tvi
+
+    return (tvf.fused_attn_block, tvf.fused_mlp_block, tvf.fused_swiglu_mlp_block,
+            tvf.fused_block, tvi.fused_attn_block_i8, tvi.fused_mlp_block_i8,
+            tvi.fused_swiglu_mlp_block_i8)
+
+
 def vit_counts(tvf):
-    return {f.__name__: f.launches for f in (
-        tvf.fused_attn_block, tvf.fused_mlp_block, tvf.fused_swiglu_mlp_block)}
+    return {f.__name__: f.launches for f in vit_wrappers(tvf)}
 
 
 def reset_vit_counts(tvf):
-    for f in (tvf.fused_attn_block, tvf.fused_mlp_block,
-              tvf.fused_swiglu_mlp_block):
+    for f in vit_wrappers(tvf):
         f.launches = 0
+
+
+def vit_expect(tvf, **launched):
+    """Launch counts by wrapper name: those given, 0 for every other."""
+    want = dict.fromkeys(vit_counts(tvf), 0)
+    assert set(launched) <= set(want), launched
+    return {**want, **launched}
 
 
 def vit_bound(kind, b, n, d, hidden, dtype_bytes):
@@ -857,6 +921,341 @@ def vit_kernel_phase(torch, tvf, gpu):
     return main_rows
 
 
+def i8_mismatch(got, want, tight):
+    """(share of rows whose largest |got - want| is over `tight`, the largest
+    |got - want| of any row, the share of elements that differ at all)."""
+    diff = (got.float() - want.float()).abs()
+    rows = diff.flatten(0, -2).amax(-1)
+    return ((rows > tight).float().mean().item(), rows.max().item(),
+            (diff > 0).float().mean().item())
+
+
+def i8_passes(share, worst, changed, tight, quantum, bf16):
+    return share <= I8_FLIP_SHARE and \
+        worst <= max(tight, I8_LOOSE_QUANTA * quantum) and \
+        (not bf16 or changed <= I8_BF16_CHANGED)
+
+
+@contextlib.contextmanager
+def rounding_half_up(tvi):
+    """While inside, the plain versions quantise with round-half-up."""
+    import torch
+
+    rne = tvi._round
+    tvi._round = lambda t: torch.floor(t + 0.5)
+    try:
+        yield
+    finally:
+        tvi._round = rne
+
+
+def vit_new_bound(kind, b, n, d, hidden, dtype_bytes):
+    """(operation-limited ms, byte-limited ms) of kernels #7-#10 on x
+    (b, n, d). Int8 projections at the int8 tensor-core rate, the attention's
+    two products and every product of the whole-block kernel at the compute
+    dtype's rate; bytes = x in, out, every weight once (int8 weights one byte
+    an element plus an f32 scale per output channel)."""
+    rows = b * n
+    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
+    attn_core = 4.0 * b * n * n * d
+    if kind == "block":
+        flops = 8.0 * rows * d * d + attn_core + 4.0 * rows * d * hidden
+        nbytes = dtype_bytes * (2 * rows * d + 4 * d * d + 2 * d * hidden) + \
+            4.0 * (11 * d + hidden)
+        return flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    if kind == "attn_i8":
+        ops_ms = 8.0 * rows * d * d / PEAK_INT8_OPS + attn_core / peak
+        weights, vectors = 4 * d * d, 11 * d
+    elif kind == "mlp_i8":
+        ops_ms = 4.0 * rows * d * hidden / PEAK_INT8_OPS
+        weights, vectors = 2 * d * hidden, 5 * d + 2 * hidden
+    else:   # packed SwiGLU
+        ops_ms = 6.0 * rows * d * hidden / PEAK_INT8_OPS
+        weights, vectors = 3 * d * hidden, 5 * d + 4 * hidden
+    nbytes = dtype_bytes * 2 * rows * d + weights + 4.0 * vectors
+    return ops_ms * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def vit_new_kernel_phase(torch, tvf, tvi, gpu):
+    """Kernels #7 (whole block, one launch) and #8-#10 (int8 blocks) against
+    their plain versions at the main path's shapes, f32 and bf16, with
+    planted faults; returns the bf16 case of each kernel at its main-path
+    shape."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(3)
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return (base + scale * torch.randn(*shape, generator=gen)).cuda()
+
+    def quantized(w):
+        return tvi.quantize_weight(w.float())
+
+    def lib_linear_i8(y, wq):
+        """One int8 product as library calls: quantise rows, `torch._int_mm`,
+        rescale."""
+        s = y.abs().amax(-1, keepdim=True) * (1.0 / 127.0)
+        s = torch.where(s > 0, s, torch.ones_like(s))
+        q = torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
+        acc = torch._int_mm(q.reshape(-1, q.shape[-1]), wq["q"].t())
+        return acc.view(*y.shape[:-1], -1).float() * s * wq["s"]
+
+    def library_attn_i8(x, ns, nb, wqkv, wproj, bq, bp, ls, heads):
+        b, n, d = x.shape
+        y = F.layer_norm(x.float(), (d,), ns, nb, 1e-6)
+        qkv = (lib_linear_i8(y, wqkv) + bq).to(x.dtype).view(b, n, 3, heads, d // heads)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, d)
+        return (x.float() + (lib_linear_i8(o.float(), wproj) + bp) * ls).to(x.dtype)
+
+    def library_mlp_i8(x, ns, nb, w1, b1, w2, b2, ls, swiglu):
+        d = x.shape[-1]
+        y = F.layer_norm(x.float(), (d,), ns, nb, 1e-6)
+        h = lib_linear_i8(y, w1) + b1
+        if swiglu:
+            gate, val = h.chunk(2, dim=-1)
+            h = F.silu(gate) * val
+        else:
+            h = F.gelu(h)
+        return (x.float() + (lib_linear_i8(h, w2) + b2) * ls).to(x.dtype)
+
+    def library_block(x, t, heads):
+        d = x.shape[-1]
+        cd = x.dtype
+        at, ml = t["attn"], t["mlp"]
+        y = F.layer_norm(x, (d,), t["norm1"]["scale"].to(cd), t["norm1"]["bias"].to(cd), 1e-6)
+        b, n, _ = x.shape
+        qkv = F.linear(y, at["qkv_w"], at["qkv_b"].to(cd)).view(b, n, 3, heads, d // heads)
+        q, k, v = (u.transpose(1, 2) for u in qkv.unbind(2))
+        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, d)
+        x = x + F.linear(o, at["proj_w"], at["proj_b"].to(cd)) * t["ls1"].to(cd)
+        y = F.layer_norm(x, (d,), t["norm2"]["scale"].to(cd), t["norm2"]["bias"].to(cd), 1e-6)
+        h = F.gelu(F.linear(y, ml["fc1_w"], ml["fc1_b"].to(cd)))
+        return x + F.linear(h, ml["fc2_w"], ml["fc2_b"].to(cd)) * t["ls2"].to(cd)
+
+    def time_all(case, kind, calls):
+        dev = {}
+        for key, fn in calls.items():
+            try:
+                dev[key] = cuda_ms(fn, 3, warmup=1)
+            except RuntimeError as err:
+                if key != "library_ms":
+                    raise
+                # the yardstick only: this PyTorch's `_int_mm` may not take
+                # the shape
+                print(f"[kernel] vit_{kind} {case}: no library time "
+                      f"({str(err).splitlines()[0][:120]})", flush=True)
+                dev[key] = None
+        if not all(v is None or v > 0 for v in dev.values()):
+            raise AssertionError(f"vit {kind} {case}: a time was not measured: {dev}")
+        return dev
+
+    main_rows = {}
+    shapes = (("uni", 64, 197, 1024, 16, 4096, ("block", "attn_i8", "mlp_i8")),
+              ("virchow2", 64, 261, 1280, 20, 6912, ("attn_i8", "swiglu_i8")))
+    for case, b, n, d, heads, hidden, kinds in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = "f32" if dtype == torch.float32 else "bf16"
+            x = rnd(b, n, d).to(dtype)
+            vec = lambda: (rnd(d, scale=0.1, base=1.0), rnd(d, scale=0.1),
+                           rnd(d, scale=0.1, base=1.0))
+            ns, nb, ls = vec()
+            # LayerNorm output on exact ties of the quantiser: scale 0, bias
+            # (m + 1/2) / 32 for integer m, its largest entry 127 / 32, so
+            # that the row scale is exactly 1 / 32
+            tie_ns = torch.zeros_like(ns)
+            tie_nb = ((torch.arange(d, device="cuda") % 254) - 126.5) / 32.0
+            tie_nb[0] = 127.0 / 32.0
+            for kind in kinds:
+                if kind == "block":
+                    ns2, nb2, ls2 = vec()
+                    tree = {
+                        "norm1": {"scale": ns, "bias": nb},
+                        "attn": {"qkv_w": rnd(3 * d, d, scale=d ** -0.5).to(dtype),
+                                 "qkv_b": rnd(3 * d, scale=0.1),
+                                 "proj_w": rnd(d, d, scale=d ** -0.5).to(dtype),
+                                 "proj_b": rnd(d, scale=0.1)},
+                        "norm2": {"scale": ns2, "bias": nb2},
+                        "mlp": {"fc1_w": rnd(hidden, d, scale=d ** -0.5).to(dtype),
+                                "fc1_b": rnd(hidden, scale=0.1),
+                                "fc2_w": rnd(d, hidden, scale=hidden ** -0.5).to(dtype),
+                                "fc2_b": rnd(d, scale=0.1)},
+                        "ls1": ls, "ls2": ls2}
+                    kernel = lambda t=tree: tvf.fused_block(x, t, num_heads=heads)
+                    plain = lambda t=tree: tvf.fused_block_reference(x, t, num_heads=heads)
+                    library = lambda t=tree: library_block(x, t, heads)
+                    before = vit_counts(tvf)
+                    got, want = kernel(), plain()
+                    torch.cuda.synchronize()
+                    after = vit_counts(tvf)
+                    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                    if moved != {"fused_block": 1}:
+                        raise AssertionError(f"vit block {case}: one call moved "
+                                             f"the counters by {moved}")
+                    peak = want.float().abs().max().item()
+                    tol = VIT_F32_ATOL if dtype == torch.float32 else \
+                        VIT_BF16_ULPS * 2.0 ** -8 * peak
+                    err = (got.float() - want.float()).abs().max().item()
+                    if not (torch.isfinite(got.float()).all() and err <= tol):
+                        raise AssertionError(f"vit block {case} {tname}: err "
+                                             f"{err:.3g} > {tol:.3g}")
+                    if not torch.equal(got, kernel()):
+                        raise AssertionError(f"vit block {case} {tname}: two calls differ")
+                    faulty_tree = dict(tree, attn=dict(tree["attn"]))
+                    faulty_w = tree["attn"]["proj_w"].clone()
+                    faulty_w[:, 64:128] = 0       # head 1's context dropped
+                    faulty_tree["attn"]["proj_w"] = faulty_w
+                    fault_err = (got.float() - tvf.fused_block_reference(
+                        x, faulty_tree, num_heads=heads).float()).abs().max().item()
+                    if not fault_err > tol:
+                        raise AssertionError(f"vit block {case} {tname}: the check "
+                                             f"passes a planted fault: {fault_err:.3g}")
+                    del want
+                    dev = time_all(case, kind, {"ms": kernel, "plain_ms": plain,
+                                                "library_ms": library})
+                    flop_ms, byte_ms = vit_new_bound(kind, b, n, d, hidden,
+                                                     x.element_size())
+                    print(f"[kernel] vit_block {case}: B={b} N={n} D={d} heads={heads} "
+                          f"H={hidden} {tname}, one launch: max_abs_err {err:.3g} (tol "
+                          f"{tol:.3g}, max |out| {peak:.3g}); planted fault (one head's "
+                          f"context zeroed) err {fault_err:.3g}: caught; device ms: "
+                          f"kernel {dev['ms']:.4f}, plain {dev['plain_ms']:.4f}, "
+                          f"library calls {dev['library_ms']:.4f}; bound "
+                          f"{max(flop_ms, byte_ms):.4f} (operations {flop_ms:.4f}, "
+                          f"bytes {byte_ms:.4f}) | {gpu}", flush=True)
+                    if dtype == torch.bfloat16:
+                        main_rows[kind] = dict(err=err, flop_ms=flop_ms,
+                                               byte_ms=byte_ms, **dev)
+                    del tree, faulty_tree
+                    continue
+
+                # ---- the int8 kernels: (args, keyword args) -> output
+                if kind == "attn_i8":
+                    wa = quantized(rnd(3 * d, d, scale=d ** -0.5))
+                    wb = quantized(rnd(d, d, scale=d ** -0.5))
+                    ba, bb = rnd(3 * d, scale=0.1), rnd(d, scale=0.1)
+                    make = lambda ns_, nb_, wa_, wb_: (x, ns_, nb_, wa_, wb_, ba, bb, ls)
+                    kw = dict(num_heads=heads)
+                    kernel_fn, plain_fn = tvi.fused_attn_block_i8, \
+                        tvi.fused_attn_block_i8_reference
+                    quantum_fn = tvi.attn_output_quantum
+                    library = lambda: library_attn_i8(x, ns, nb, wa, wb, ba, bb, ls, heads)
+                    chunk_kw = None
+                else:
+                    swiglu = kind == "swiglu_i8"
+                    packed = 2 if swiglu else 1
+                    wa = quantized(rnd(packed * hidden, d, scale=d ** -0.5))
+                    wb = quantized(rnd(d, hidden, scale=hidden ** -0.5))
+                    ba, bb = rnd(packed * hidden, scale=0.1), rnd(d, scale=0.1)
+                    make = lambda ns_, nb_, wa_, wb_: (x, ns_, nb_, wa_, ba, wb_, bb, ls)
+                    kw = dict(num_chunks=1)
+                    kernel_fn, plain_fn = (
+                        (tvi.fused_swiglu_mlp_block_i8,
+                         tvi.fused_swiglu_mlp_block_i8_reference) if swiglu else
+                        (tvi.fused_mlp_block_i8, tvi.fused_mlp_block_i8_reference))
+                    quantum_fn = lambda *a: tvi.mlp_output_quantum(*a, swiglu=swiglu)
+                    library = lambda: library_mlp_i8(x, ns, nb, wa, ba, wb, bb, ls, swiglu)
+                    chunk_kw = dict(num_chunks=2)
+                args = make(ns, nb, wa, wb)
+                got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"vit {kind} {case} {tname}: non-finite output")
+                peak = want.float().abs().max().item()
+                tight = VIT_F32_ATOL if dtype == torch.float32 else \
+                    VIT_BF16_ULPS * 2.0 ** -8 * peak
+                quantum = quantum_fn(*args)
+                bf16 = dtype == torch.bfloat16
+                share, worst, changed = i8_mismatch(got, want, tight)
+                if not i8_passes(share, worst, changed, tight, quantum, bf16):
+                    raise AssertionError(
+                        f"vit {kind} {case} {tname}: {share:.4f} of the rows outside "
+                        f"{tight:.3g}, worst {worst:.3g} ({worst / quantum:.2f} "
+                        f"quanta), {changed:.4f} of the elements differ")
+                if not torch.equal(got, kernel_fn(*args, **kw)):
+                    raise AssertionError(f"vit {kind} {case} {tname}: two calls differ")
+                del want
+
+                faults = {}
+                # 1: round-half-up, on a LayerNorm output made of exact ties
+                tie_args = make(tie_ns, tie_nb, wa, wb)
+                tie_got = kernel_fn(*tie_args, **kw)
+                tie_tight = tight if dtype == torch.float32 else \
+                    VIT_BF16_ULPS * 2.0 ** -8 * tie_got.float().abs().max().item()
+                tie_q = quantum_fn(*tie_args)
+                sound = i8_mismatch(tie_got, plain_fn(*tie_args, **kw), tie_tight)
+                if not i8_passes(*sound, tie_tight, tie_q, bf16):
+                    raise AssertionError(f"vit {kind} {case} {tname}: on exact ties "
+                                         f"{sound[0]:.4f} of the rows outside, worst "
+                                         f"{sound[1]:.3g}, {sound[2]:.4f} of the "
+                                         "elements differ")
+                with rounding_half_up(tvi):
+                    faults["round-half-up on ties"] = (
+                        *i8_mismatch(tie_got, plain_fn(*tie_args, **kw), tie_tight),
+                        tie_tight, tie_q)
+                del tie_got
+                # 2: the weight scale of one output channel of the last
+                # projection dropped
+                dropped = {"q": wb["q"], "s": wb["s"].clone()}
+                dropped["s"][7] = 1.0
+                faults["one channel's weight scale dropped"] = (
+                    *i8_mismatch(got, plain_fn(*make(ns, nb, wa, dropped), **kw), tight),
+                    tight, quantum)
+                # 3: the hidden scale over the whole row where two chunks are due
+                if chunk_kw is not None:
+                    got2 = kernel_fn(*args, **chunk_kw)
+                    sound = i8_mismatch(got2, plain_fn(*args, **chunk_kw), tight)
+                    if not i8_passes(*sound, tight, quantum, bf16):
+                        raise AssertionError(
+                            f"vit {kind} {case} {tname} num_chunks=2: {sound[0]:.4f} "
+                            f"of the rows outside, worst {sound[1]:.3g}, "
+                            f"{sound[2]:.4f} of the elements differ")
+                    faults["whole-row hidden scale for 2 chunks"] = (
+                        *i8_mismatch(got2, plain_fn(*args, **kw), tight), tight, quantum)
+                    chunk_note = (f"; num_chunks=2: {sound[0]:.4f} outside, worst "
+                                  f"{sound[1]:.3g}, {sound[2]:.4f} of the elements "
+                                  "differ")
+                    del got2
+                else:
+                    chunk_note = ""
+                for label, (f_share, f_worst, f_changed, f_tight, f_q) in faults.items():
+                    if i8_passes(f_share, f_worst, f_changed, f_tight, f_q, bf16):
+                        raise AssertionError(
+                            f"vit {kind} {case} {tname}: the check passes a planted "
+                            f"fault ({label}): {f_share:.4f} outside, worst "
+                            f"{f_worst:.3g}, {f_changed:.4f} of the elements differ")
+                fault_note = "; ".join(
+                    f"{label}: {v[0]:.3f} of the rows outside, worst "
+                    f"{v[1] / v[4]:.3g} quanta, {v[2]:.3f} of the elements differ"
+                    for label, v in faults.items())
+
+                dev = time_all(case, kind, {
+                    "ms": lambda: kernel_fn(*args, **kw),
+                    "plain_ms": lambda: plain_fn(*args, **kw),
+                    "library_ms": library})
+                flop_ms, byte_ms = vit_new_bound(kind, b, n, d, hidden, x.element_size())
+                lib = "none" if dev["library_ms"] is None else f"{dev['library_ms']:.4f}"
+                print(f"[kernel] vit_{kind} {case}: B={b} N={n} D={d} heads={heads} "
+                      f"H={hidden} {tname}: {share:.4f} of {b * n} rows outside the "
+                      f"tight bar {tight:.3g} (allowed {I8_FLIP_SHARE}), worst row "
+                      f"{worst:.3g} = {worst / quantum:.2f} output quanta of "
+                      f"{quantum:.3g} (allowed {I8_LOOSE_QUANTA}), {changed:.5f} of the "
+                      f"elements differ"
+                      + (f" (allowed {I8_BF16_CHANGED})" if bf16 else "")
+                      + f", max |out| {peak:.3g}"
+                      f"{chunk_note}; planted faults, all caught: {fault_note}; device "
+                      f"ms: kernel {dev['ms']:.4f}, plain {dev['plain_ms']:.4f}, "
+                      f"library calls (_int_mm) {lib}; bound "
+                      f"{max(flop_ms, byte_ms):.4f} (operations {flop_ms:.4f}, bytes "
+                      f"{byte_ms:.4f}) | {gpu}", flush=True)
+                main_case = "virchow2" if kind == "swiglu_i8" else "uni"
+                if case == main_case and dtype == torch.bfloat16:
+                    main_rows[kind] = dict(err=worst, flop_ms=flop_ms,
+                                           byte_ms=byte_ms, **dev)
+                del got
+    return main_rows
+
+
 def make_blob_slide(path, side, seed):
     """A blob-on-white slide as a `.npy` array pyramid base: light background
     with noise and a dark disc of tissue of radius 0.45 side."""
@@ -879,7 +1278,17 @@ def feature_mismatch(got, want):
     return float((num / np.linalg.norm(want.astype(np.float64), axis=-1)).max())
 
 
+def feature_cosine(got, want):
+    """Lowest cosine between the rows of two (rows, dim) arrays."""
+    import numpy as np
+
+    got, want = got.astype(np.float64), want.astype(np.float64)
+    return float(((got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                          * np.linalg.norm(want, axis=-1))).min())
+
+
 def preprocess_phase(torch, tfa, tvf, gpu):
+    import copy
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -890,6 +1299,7 @@ def preprocess_phase(torch, tfa, tvf, gpu):
     from paths_tpu_torch.encoders import vit
     from paths_tpu_torch.encoders.registry import from_name
     from paths_tpu_torch.encoders.transforms import UNI_TRANSFORM, apply_transform
+    from paths_tpu_torch.kernels import vit_int8 as tvi
     from paths_tpu_torch.preprocess.pipeline import _read_batch
     from paths_tpu_torch.preprocess.wsi import open_wsi
 
@@ -902,9 +1312,11 @@ def preprocess_phase(torch, tfa, tvf, gpu):
     print(f"[preprocess] 2 synthetic slides of {side} x {side} px at objective "
           f"power 10, written in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # -- UNI, full width and depth, bf16, through the CLI on both routes
+    # -- UNI, full width and depth, bf16, through the CLI on every block route
+    # but flash
+    kernel_impls = ("fused", "int8", "fused1")
     runs = {}
-    for impl in ("fused", "xla"):
+    for impl in kernel_impls + ("xla",):
         out = os.path.join(WORK, f"features_{impl}")
         reset_vit_counts(tvf)
         reset_counts(tfa)
@@ -917,38 +1329,57 @@ def preprocess_phase(torch, tfa, tvf, gpu):
         runs[impl] = dict(wall=time.perf_counter() - t0, stats=stats,
                           counts=vit_counts(tvf), out=out,
                           peak=torch.cuda.max_memory_allocated() / 2**20)
+        if any(launch_counts(tfa).values()):
+            raise AssertionError(f"{impl} route launched flash kernels: "
+                                 f"{launch_counts(tfa)}")
     stores = {impl: FeatureStore(r["out"]) for impl, r in runs.items()}
     patches = batches = 0
-    worst = 0.0
+    worst = dict.fromkeys(kernel_impls, 0.0)
+    cosine = 1.0
     for i in range(2):
         for power in powers:
-            a = np.asarray(stores["fused"].load(f"slide{i}", power))
             b = np.asarray(stores["xla"].load(f"slide{i}", power))
-            if a.shape != b.shape or a.shape[2] != 1024 or a.dtype != np.float32:
-                raise AssertionError(f"slide{i} @ {power}: grids {a.shape} "
-                                     f"{a.dtype} vs {b.shape}")
             cells = np.abs(b).sum(-1) > 0
-            if not np.array_equal(cells, np.abs(a).sum(-1) > 0):
-                raise AssertionError(f"slide{i} @ {power}: background cells differ")
-            if not np.isfinite(a).all():
-                raise AssertionError(f"slide{i} @ {power}: non-finite features")
             patches += int(cells.sum())
             batches += math.ceil(int(cells.sum()) / batch)
-            if cells.any():
-                worst = max(worst, feature_mismatch(a[cells], b[cells]))
-    if not worst <= FEATURE_RTOL_BF16:
-        raise AssertionError(f"UNI fused vs plain route: features differ by "
-                             f"{worst:.3g} of their norm > {FEATURE_RTOL_BF16}")
+            for impl in kernel_impls:
+                a = np.asarray(stores[impl].load(f"slide{i}", power))
+                if a.shape != b.shape or a.shape[2] != 1024 or a.dtype != np.float32:
+                    raise AssertionError(f"slide{i} @ {power} {impl}: grids "
+                                         f"{a.shape} {a.dtype} vs {b.shape}")
+                if not np.array_equal(cells, np.abs(a).sum(-1) > 0):
+                    raise AssertionError(f"slide{i} @ {power} {impl}: background "
+                                         "cells differ")
+                if not np.isfinite(a).all():
+                    raise AssertionError(f"slide{i} @ {power} {impl}: non-finite "
+                                         "features")
+                if cells.any():
+                    worst[impl] = max(worst[impl],
+                                      feature_mismatch(a[cells], b[cells]))
+                    if impl == "int8":
+                        cosine = min(cosine, feature_cosine(a[cells], b[cells]))
+    bars = {"fused": FEATURE_RTOL_BF16, "fused1": FEATURE_RTOL_BF16,
+            "int8": FEATURE_RTOL_INT8}
+    for impl in kernel_impls:
+        if not worst[impl] <= bars[impl]:
+            raise AssertionError(f"UNI {impl} vs plain route: features differ by "
+                                 f"{worst[impl]:.3g} of their norm > {bars[impl]}")
+    if not cosine >= FEATURE_COS_INT8:
+        raise AssertionError(f"UNI int8 vs plain route: cosine {cosine:.5f}")
     depth = vit.UNI.depth
-    want = {"fused_attn_block": depth * batches, "fused_mlp_block": depth * batches,
-            "fused_swiglu_mlp_block": 0}
-    if runs["fused"]["counts"] != want:
-        raise AssertionError(f"fused route launched {runs['fused']['counts']}, "
-                             f"the code says {want}")
-    if any(runs["xla"]["counts"].values()) or any(launch_counts(tfa).values()):
-        raise AssertionError(f"plain route launched kernels: {runs['xla']['counts']}")
+    per_run = depth * batches
+    wants = {"fused": vit_expect(tvf, fused_attn_block=per_run, fused_mlp_block=per_run),
+             "int8": vit_expect(tvf, fused_attn_block_i8=per_run,
+                                fused_mlp_block_i8=per_run),
+             "fused1": vit_expect(tvf, fused_block=per_run),
+             "xla": vit_expect(tvf)}
+    for impl, want in wants.items():
+        if runs[impl]["counts"] != want:
+            raise AssertionError(f"{impl} route launched {runs[impl]['counts']}, "
+                                 f"the code says {want}")
     for impl, r in runs.items():
         st = r["stats"]
+        launched = {k: v for k, v in r["counts"].items() if v}
         print(f"[preprocess] cli.preprocess -m UNI --block-impl {impl} (bf16, -b "
               f"{batch}, 24 blocks, D 1024): {patches} tissue patches of 2 slides "
               f"x {len(powers)} magnifications in {batches} encoded batches, "
@@ -956,11 +1387,15 @@ def preprocess_phase(torch, tfa, tvf, gpu):
               f"{patches / r['wall']:.1f} patches/s; staging thread busy "
               f"{st['h2d_busy_s'] / batches * 1e3:.2f} ms per batch for "
               f"{st['h2d_bytes'] / batches / 2**20:.1f} MiB; kernel launches "
-              f"{r['counts']}; peak memory {r['peak']:.0f} MiB | {gpu}", flush=True)
-    print(f"[preprocess] UNI fused vs plain route over {patches} tissue cells: "
-          f"same grids and background, worst |diff|/|feature| {worst:.3g} (rtol "
-          f"{FEATURE_RTOL_BF16})", flush=True)
-    uni_counts = runs["fused"]["counts"]
+              f"{launched}, every other wrapper 0; peak memory {r['peak']:.0f} MiB "
+              f"| {gpu}", flush=True)
+    for impl in kernel_impls:
+        print(f"[preprocess] UNI {impl} vs plain route over {patches} tissue "
+              f"cells: same grids and background, worst |diff|/|feature| "
+              f"{worst[impl]:.3g} (rtol {bars[impl]})"
+              + (f", lowest cosine {cosine:.6f} (at least {FEATURE_COS_INT8})"
+                 if impl == "int8" else ""), flush=True)
+    uni_counts = {impl: runs[impl]["counts"] for impl in kernel_impls}
 
     # two 64-patch batches of real tissue for the single-batch checks, read
     # as the pipeline's producer reads them (8 threads), which is timed
@@ -977,16 +1412,39 @@ def preprocess_phase(torch, tfa, tvf, gpu):
     imgs = torch.from_numpy(np.concatenate(read)).cuda()
     two_batches = [imgs[:64], imgs[64:]]
 
-    # -- encode time, busy share and profile of one UNI batch on both routes
-    encoders, init_s = {}, {}
-    for impl in ("fused", "xla", "flash"):
-        t0 = time.perf_counter()
-        encoders[impl] = from_name("UNI", block_impl=impl, seed=0)[0]
+    # -- encode time, busy share and profile of one UNI batch on every route,
+    # all from one random model (`from_name` is timed by the CLI runs above)
+    t0 = time.perf_counter()
+    base = vit.vit_init(0, vit.UNI)
+    init_s = time.perf_counter() - t0
+    ls1_model = copy.deepcopy(base)          # for the f32 checks below
+    t0 = time.perf_counter()
+    quantised = tvi.quantize_vit_blocks(copy.deepcopy(base))
+    quantise_s = time.perf_counter() - t0
+    held = {}
+    for name, m in (("float", base), ("int8", quantised)):
         torch.cuda.synchronize()
-        init_s[impl] = time.perf_counter() - t0
-    for impl in ("fused", "xla"):
+        before = torch.cuda.memory_allocated()
+        m.cuda()
+        torch.cuda.synchronize()
+        held[name] = (torch.cuda.memory_allocated() - before) / 2**20
+    print(f"[preprocess] vit_init(0, UNI) took {init_s:.1f} s, quantising its 96 "
+          f"block matrices on the host {quantise_s:.1f} s; on the card the float "
+          f"encoder holds {held['float']:.0f} MiB (f32, before the bf16 copies of "
+          f"the block matrices), the int8 encoder {held['int8']:.0f} MiB | {gpu}",
+          flush=True)
+
+    def encoder(impl, dtype=torch.bfloat16):
+        model = quantised if impl == "int8" else base
+        return lambda imgs: vit.vit_apply(
+            model, apply_transform(imgs.float() / 255.0, UNI_TRANSFORM), dtype, impl)
+
+    encoders = {impl: encoder(impl) for impl in kernel_impls + ("xla", "flash")}
+    for impl in kernel_impls + ("xla",):
         enc = encoders[impl]
+        torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: enc(two_batches[0]), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**20
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             enc(two_batches[0])
             torch.cuda.synchronize()
@@ -994,13 +1452,14 @@ def preprocess_phase(torch, tfa, tvf, gpu):
         print(f"[preprocess] UNI encode of one 64-patch batch, block_impl={impl}, "
               f"bf16: {ms:.2f} ms between CUDA events = {64e3 / ms:.1f} patches/s "
               f"of encode alone; kernel time in one profiled encode "
-              f"{busy_us / 1e3:.2f} ms (busy share {busy_us / 1e3 / ms:.3f}); "
-              f"from_name took {init_s[impl]:.1f} s | {gpu}", flush=True)
-        if impl == "fused":
-            table = prof.key_averages().table(sort_by="device_time_total",
-                                              row_limit=15)
+              f"{busy_us / 1e3:.2f} ms (busy share {busy_us / 1e3 / ms:.3f}); peak "
+              f"memory with both encoders resident {peak:.0f} MiB | {gpu}",
+              flush=True)
+        if impl != "xla":
+            table = prof.key_averages().table(
+                sort_by="device_time_total", row_limit=15 if impl == "fused" else 6)
             for line in table.splitlines():
-                print(f"[preprocess-profile] {line}", flush=True)
+                print(f"[preprocess-profile] {impl}: {line}", flush=True)
 
     # -- one UNI batch on the flash route: kernel #1 at bf16, head_dim 64
     reset_counts(tfa)
@@ -1018,72 +1477,141 @@ def preprocess_phase(torch, tfa, tvf, gpu):
           f"the flash forward kernel (bf16, head_dim 64, N 197), worst "
           f"|diff|/|feature| vs the plain route {rel:.3g} (rtol "
           f"{FEATURE_RTOL_BF16})", flush=True)
-    del encoders
+    del encoders, base, quantised
 
     # -- one f32 UNI batch with LayerScale 1: the check with power
     x = apply_transform(two_batches[0].float() / 255.0, UNI_TRANSFORM)
-    model = vit.vit_init(0, vit.UNI)
+    model = ls1_model
     with torch.no_grad():
         for blk in model.blocks:
             blk.ls1.fill_(1.0)
             blk.ls2.fill_(1.0)
+    model_i8 = tvi.quantize_vit_blocks(copy.deepcopy(model)).cuda()
     model = model.cuda()
-    reset_vit_counts(tvf)
-    fused = vit.vit_apply(model, x, torch.float32, "fused")
     plain = vit.vit_apply(model, x, torch.float32, "xla")
+    sound = {}
+    for impl in ("fused", "fused1"):
+        reset_vit_counts(tvf)
+        sound[impl] = vit.vit_apply(model, x, torch.float32, impl)
     with torch.no_grad():
         # every other entry: a shift of all entries alike would vanish in the
         # next LayerNorm
         model.blocks[12].fc2.bias[::2] += 0.02
-    faulty = vit.vit_apply(model, x, torch.float32, "fused")
-    torch.cuda.synchronize()
-    err = (fused - plain).abs().max().item()
-    fault_err = (faulty - plain).abs().max().item()
-    # the sound and the faulty encode both ran on the fused route
-    want = {"fused_attn_block": 2 * depth, "fused_mlp_block": 2 * depth,
-            "fused_swiglu_mlp_block": 0}
-    if vit_counts(tvf) != want or not err <= FEATURE_ATOL_F32 \
-            or not fault_err > FEATURE_ATOL_F32:
-        raise AssertionError(f"f32 UNI batch: err {err:.3g}, planted fault "
-                             f"{fault_err:.3g}, atol {FEATURE_ATOL_F32}, launches "
-                             f"{vit_counts(tvf)} (want {want})")
-    print(f"[preprocess] UNI, one f32 batch, LayerScale 1, fused vs plain route: "
-          f"max |diff| {err:.3g} on features up to {plain.abs().max().item():.3g} "
-          f"(atol {FEATURE_ATOL_F32}); planted fault (every other entry of block "
-          f"12's fc2 bias + 0.02): {fault_err:.3g}, caught", flush=True)
-    del model
+    for impl in ("fused", "fused1"):
+        reset_vit_counts(tvf)
+        faulty = vit.vit_apply(model, x, torch.float32, impl)
+        torch.cuda.synchronize()
+        err = (sound[impl] - plain).abs().max().item()
+        fault_err = (faulty - plain).abs().max().item()
+        want = vit_expect(tvf, fused_block=depth) if impl == "fused1" else \
+            vit_expect(tvf, fused_attn_block=depth, fused_mlp_block=depth)
+        if vit_counts(tvf) != want or not err <= FEATURE_ATOL_F32 \
+                or not fault_err > FEATURE_ATOL_F32:
+            raise AssertionError(f"f32 UNI batch, {impl}: err {err:.3g}, planted "
+                                 f"fault {fault_err:.3g}, atol {FEATURE_ATOL_F32}, "
+                                 f"launches {vit_counts(tvf)} (want {want})")
+        print(f"[preprocess] UNI, one f32 batch, LayerScale 1, {impl} vs plain "
+              f"route: max |diff| {err:.3g} on features up to "
+              f"{plain.abs().max().item():.3g} (atol {FEATURE_ATOL_F32}); planted "
+              f"fault (every other entry of block 12's fc2 bias + 0.02): "
+              f"{fault_err:.3g}, caught", flush=True)
+    del model, sound
 
-    # -- Virchow2, full width and depth, bf16, through from_name on both routes
-    feats, ms = {}, {}
-    virchow_counts = None
-    for impl in ("fused", "xla"):
+    # the int8 route through the kernels against the same route through the
+    # plain versions, and against the float plain route (the quantisation error)
+    reset_vit_counts(tvf)
+    got = vit.vit_apply(model_i8, x, torch.float32, "int8")
+    counts_i8 = vit_counts(tvf)
+    with plain_int8(tvi):
+        ref_i8 = vit.vit_apply(model_i8, x, torch.float32, "int8")
+    with torch.no_grad():
+        model_i8.blocks[12].fc2.weight_s[5] = 1.0
+    faulty = vit.vit_apply(model_i8, x, torch.float32, "int8")
+    torch.cuda.synchronize()
+    err = (got - ref_i8).abs().max().item()
+    fault_err = (faulty - ref_i8).abs().max().item()
+    noise = (got - plain).abs().max().item()
+    bar = FEATURE_INT8_SELF * noise
+    quant_rel = feature_mismatch(got.cpu().numpy(), plain.cpu().numpy())
+    quant_cos = feature_cosine(got.cpu().numpy(), plain.cpu().numpy())
+    want = vit_expect(tvf, fused_attn_block_i8=depth, fused_mlp_block_i8=depth)
+    if counts_i8 != want or not err <= bar or not fault_err > bar \
+            or not quant_rel <= FEATURE_RTOL_INT8 or not quant_cos >= FEATURE_COS_INT8:
+        raise AssertionError(f"f32 UNI batch, int8: err {err:.3g}, planted fault "
+                             f"{fault_err:.3g}, bar {bar:.3g}; vs the float route "
+                             f"{quant_rel:.3g}, cosine {quant_cos:.5f}; launches "
+                             f"{counts_i8} (want {want})")
+    print(f"[preprocess] UNI, one f32 batch, LayerScale 1, int8 route through the "
+          f"kernels vs through the plain versions: max |diff| {err:.3g} (at most "
+          f"{FEATURE_INT8_SELF} x the quantisation noise {noise:.3g}, the max "
+          f"|diff| of the kernels vs the float plain route); planted fault (block "
+          f"12's fc2 scale of channel 5 set to 1): {fault_err:.3g}, caught; vs the "
+          f"float plain route: worst |diff|/|feature| {quant_rel:.3g} (rtol "
+          f"{FEATURE_RTOL_INT8}), lowest cosine {quant_cos:.6f}", flush=True)
+    del model_i8
+
+    # -- Virchow2, full width and depth, bf16, through from_name on every route
+    feats, ms, vcounts = {}, {}, {}
+    for impl in kernel_impls + ("xla",):
         enc, dim, _ = from_name("virchow2", block_impl=impl, seed=0)
         if dim != 2560:
             raise AssertionError(f"virchow2 out dim {dim}")
         reset_vit_counts(tvf)
         feats[impl] = torch.cat([enc(b) for b in two_batches]).cpu().numpy()
         torch.cuda.synchronize()
-        if impl == "fused":
-            virchow_counts = vit_counts(tvf)
+        vcounts[impl] = vit_counts(tvf)
         ms[impl] = cuda_ms(lambda: enc(two_batches[0]), iters=2, warmup=0)
         del enc
-    rel = feature_mismatch(feats["fused"], feats["xla"])
     vdepth = vit.VIRCHOW2.depth
-    want = {"fused_attn_block": 2 * vdepth, "fused_mlp_block": 0,
-            "fused_swiglu_mlp_block": 2 * vdepth}
-    if virchow_counts != want or feats["fused"].shape != (128, 2560) or \
-            not np.isfinite(feats["fused"]).all() or not rel <= FEATURE_RTOL_BF16:
-        raise AssertionError(f"virchow2: launches {virchow_counts} (want {want}), "
-                             f"shape {feats['fused'].shape}, mismatch {rel:.3g}")
-    print(f"[preprocess] Virchow2 (32 blocks, D 1280, packed SwiGLU 6912, 261 "
-          f"tokens, bf16), 2 batches of 64 through from_name: launches "
-          f"{virchow_counts}; (128, 2560) features, worst |diff|/|feature| fused "
-          f"vs plain route {rel:.3g} (rtol {FEATURE_RTOL_BF16}); encode of one "
-          f"batch {ms['fused']:.1f} ms fused, {ms['xla']:.1f} ms plain | {gpu}",
-          flush=True)
-    return {"vit_attn": uni_counts["fused_attn_block"],
-            "vit_mlp": uni_counts["fused_mlp_block"],
-            "vit_swiglu_mlp": virchow_counts["fused_swiglu_mlp_block"]}
+    pair = vit_expect(tvf, fused_attn_block=2 * vdepth,
+                      fused_swiglu_mlp_block=2 * vdepth)
+    wants = {"fused": pair, "fused1": pair, "xla": vit_expect(tvf),
+             "int8": vit_expect(tvf, fused_attn_block_i8=2 * vdepth,
+                                fused_swiglu_mlp_block_i8=2 * vdepth)}
+    rels = {impl: feature_mismatch(feats[impl], feats["xla"]) for impl in kernel_impls}
+    vcos = feature_cosine(feats["int8"], feats["xla"])
+    for impl in kernel_impls:
+        if vcounts[impl] != wants[impl] or feats[impl].shape != (128, 2560) or \
+                not np.isfinite(feats[impl]).all() or not rels[impl] <= bars[impl]:
+            raise AssertionError(f"virchow2 {impl}: launches {vcounts[impl]} (want "
+                                 f"{wants[impl]}), shape {feats[impl].shape}, "
+                                 f"mismatch {rels[impl]:.3g} (rtol {bars[impl]})")
+    if any(vcounts["xla"].values()) or not vcos >= FEATURE_COS_INT8:
+        raise AssertionError(f"virchow2: plain route launched {vcounts['xla']}, "
+                             f"int8 cosine {vcos:.5f}")
+    for impl in kernel_impls:
+        launched = {k: v for k, v in vcounts[impl].items() if v}
+        print(f"[preprocess] Virchow2 (32 blocks, D 1280, packed SwiGLU 6912, 261 "
+              f"tokens, bf16), 2 batches of 64 through from_name(block_impl="
+              f"{impl!r}): launches {launched}; (128, 2560) features, worst "
+              f"|diff|/|feature| vs the plain route {rels[impl]:.3g} (rtol "
+              f"{bars[impl]})"
+              + (f", lowest cosine {vcos:.6f}" if impl == "int8" else "")
+              + f"; encode of one batch {ms[impl]:.1f} ms, plain route "
+              f"{ms['xla']:.1f} ms | {gpu}", flush=True)
+    return {"vit_attn": uni_counts["fused"]["fused_attn_block"],
+            "vit_mlp": uni_counts["fused"]["fused_mlp_block"],
+            "vit_swiglu_mlp": vcounts["fused"]["fused_swiglu_mlp_block"],
+            "vit_block": uni_counts["fused1"]["fused_block"],
+            "vit_attn_i8": uni_counts["int8"]["fused_attn_block_i8"],
+            "vit_mlp_i8": uni_counts["int8"]["fused_mlp_block_i8"],
+            "vit_swiglu_mlp_i8": vcounts["int8"]["fused_swiglu_mlp_block_i8"]}
+
+
+@contextlib.contextmanager
+def plain_int8(tvi):
+    """While inside, the int8 wrappers are their plain versions, whatever the
+    device: the int8 route's own reference on the card."""
+    names = ("fused_attn_block_i8", "fused_mlp_block_i8",
+             "fused_swiglu_mlp_block_i8")
+    kernels = {n: getattr(tvi, n) for n in names}
+    for n in names:
+        setattr(tvi, n, getattr(tvi, n + "_reference"))
+    try:
+        yield
+    finally:
+        for n, fn in kernels.items():
+            setattr(tvi, n, fn)
 
 
 def main() -> int:
@@ -1096,7 +1624,9 @@ def main() -> int:
     from paths_tpu_torch.kernels import build
     from paths_tpu_torch.kernels import flash_attention as tfa
     from paths_tpu_torch.kernels import vit_fused as tvf
+    from paths_tpu_torch.kernels import vit_int8 as tvi
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = card()
@@ -1118,6 +1648,7 @@ def main() -> int:
         serving_phase(torch, tfa, gpu)
         launches = training_phase(torch, tfa, gpu)
         vit_cases = vit_kernel_phase(torch, tvf, gpu)
+        vit_cases.update(vit_new_kernel_phase(torch, tvf, tvi, gpu))
         vit_launches = preprocess_phase(torch, tfa, tvf, gpu)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -1164,14 +1695,28 @@ def main() -> int:
     # attention and GELU-MLP blocks, Virchow2 for the packed-SwiGLU block),
     # 64 images; launches from the preprocess runs (UNI through the CLI,
     # Virchow2 two batches)
+    # (the whole-block kernel and the int8 blocks likewise: UNI through the
+    # CLI on the fused1 and int8 routes, Virchow2 two batches on int8; for the
+    # int8 kernels max_abs_err is the worst row, moved codes included)
     vit_src = "paths_tpu_torch/csrc/vit_fused.cu"
-    for name, kind, line in (("vit_attn", "attn", 174), ("vit_mlp", "mlp", 218),
-                             ("vit_swiglu_mlp", "swiglu", 298)):
+    i8_src = "paths_tpu_torch/csrc/vit_int8.cu"
+    for name, kind, src, replaces in (
+            ("vit_attn", "attn", vit_src, "vit_fused.py:174"),
+            ("vit_mlp", "mlp", vit_src, "vit_fused.py:218"),
+            ("vit_swiglu_mlp", "swiglu", vit_src, "vit_fused.py:298"),
+            ("vit_block", "block", vit_src, "vit_fused.py:407"),
+            ("vit_attn_i8", "attn_i8", i8_src, "vit_int8.py:156"),
+            ("vit_mlp_i8", "mlp_i8", i8_src, "vit_int8.py:224"),
+            ("vit_swiglu_mlp_i8", "swiglu_i8", i8_src, "vit_int8.py:305")):
         c = vit_cases[kind]
         launches[name] = vit_launches[name]
-        kernels.append(row(name, vit_src, f"paths_tpu/kernels/vit_fused.py:{line}",
+        kernels.append(row(name, src, f"paths_tpu/kernels/{replaces}",
                            c["err"], c["ms"], c["plain_ms"], c["library_ms"],
                            c["flop_ms"], c["byte_ms"]))
+    if len(kernels) != 10 or not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError(f"a kernel was not launched on its path: "
+                             f"{[(k['name'], k['launches']) for k in kernels]}")
+    print(f"[env] whole run took {time.perf_counter() - started:.0f} s", flush=True)
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,7 +66,8 @@ def main(argv=None) -> dict:
                                  "int8"),
                         help="encoder blocks: auto = the fused CUDA block "
                              "kernels on a card, plain torch on the CPU; "
-                             "fused1 and int8 are not ported yet")
+                             "fused1 = the whole block in one launch; int8 = "
+                             "int8 projections (weights quantised at start)")
     parser.add_argument("--data-shards", type=int, default=0,
                         help="Shard encode batches over this many devices "
                              "(0 = single device; more is not ported yet)")

@@ -10,7 +10,8 @@ module is the one place where weights are transposed. Head counts are not
 stored; they come from the config.
 
 The patch encoders' ViT parameter tree (`paths_tpu.encoders.vit`) is carried
-by `vit_from_jax` / `vit_to_jax`.
+by `vit_from_jax` / `vit_to_jax`, a tree quantised for the int8 route
+(`{"q", "s"}` leaves in place of the block matrices) included.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from paths_tpu_torch.config import Config
 from paths_tpu_torch.encoders.vit import ViT, ViTSpec
+from paths_tpu_torch.kernels import vit_int8
 from paths_tpu_torch.models.recursive import RecursiveModel
 
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight"}
@@ -102,17 +104,25 @@ def _f32(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32))
 
 
+def _slice(node, i: int):
+    """Block i of a stacked tree: index every leaf's leading depth axis."""
+    if isinstance(node, dict):
+        return {k: _slice(v, i) for k, v in node.items()}
+    return node[i]
+
+
 def vit_from_jax(params: dict, spec: ViTSpec) -> ViT:
     """A new CPU `ViT` holding the JAX package's ViT parameter tree: leaves
     convertible to numpy, `blocks` a list of per-block dicts or one dict of
     arrays stacked along a leading depth axis, Linear weights (in, out), the
-    patch-embedding conv kernel (P, P, 3, D). `spec` is the port's `ViTSpec`
-    of the same architecture (the tree's own `spec` entry is not read)."""
+    patch-embedding conv kernel (P, P, 3, D). A block matrix quantised for
+    the int8 route, `{"q": int8 (in, out), "s": f32 (out,)}`, becomes the
+    Linear's `weight_q` (out, in) and `weight_s`. `spec` is the port's
+    `ViTSpec` of the same architecture (the tree's own `spec` entry is not
+    read)."""
     blocks = params["blocks"]
     if isinstance(blocks, dict):      # stacked: slice block i out of each leaf
-        blocks = [{g: {k: v[i] for k, v in grp.items()} if isinstance(grp, dict)
-                   else grp[i] for g, grp in blocks.items()}
-                  for i in range(spec.depth)]
+        blocks = [_slice(blocks, i) for i in range(spec.depth)]
     if len(blocks) != spec.depth:
         raise ValueError(f"{len(blocks)} blocks, spec.depth {spec.depth}")
     p = spec.patch_size
@@ -129,6 +139,12 @@ def vit_from_jax(params: dict, spec: ViTSpec) -> ViT:
         model.norm.bias.copy_(_f32(params["norm"]["bias"]))
         for blk, src in zip(model.blocks, blocks):
             for (group, leaf), (attr, name, transposed) in _VIT_BLOCK.items():
+                if isinstance(src[group][leaf], dict):     # int8 {"q", "s"}
+                    wq = src[group][leaf]
+                    q = torch.from_numpy(np.array(wq["q"], dtype=np.int8))
+                    vit_int8.set_quantized(getattr(blk, attr),
+                                           {"q": q.T, "s": _f32(wq["s"])})
+                    continue
                 t = _f32(src[group][leaf])
                 getattr(getattr(blk, attr), name).copy_(t.T if transposed else t)
             if spec.layer_scale:
@@ -140,7 +156,8 @@ def vit_from_jax(params: dict, spec: ViTSpec) -> ViT:
 def vit_to_jax(model: ViT) -> dict:
     """The inverse of `vit_from_jax`: the JAX package's ViT parameter tree
     (list-of-blocks layout, numpy leaves) without its `spec` entry, which the
-    caller adds from the JAX package's own `ViTSpec`."""
+    caller adds from the JAX package's own `ViTSpec`. A quantised model gives
+    `{"q": int8 (in, out), "s": f32 (out,)}` for its block matrices."""
     spec = model.spec
     p = spec.patch_size
     arr = lambda t: np.ascontiguousarray(t.detach().cpu().numpy())
@@ -158,7 +175,12 @@ def vit_to_jax(model: ViT) -> dict:
     for blk in model.blocks:
         out: dict = {}
         for (group, leaf), (attr, name, transposed) in _VIT_BLOCK.items():
-            t = getattr(getattr(blk, attr), name)
+            lin = getattr(blk, attr)
+            if name == "weight" and lin.weight is None:    # quantised
+                out.setdefault(group, {})[leaf] = {"q": arr(lin.weight_q.T),
+                                                   "s": arr(lin.weight_s)}
+                continue
+            t = getattr(lin, name)
             out.setdefault(group, {})[leaf] = arr(t.T if transposed else t)
         if spec.layer_scale:
             out["ls1"], out["ls2"] = arr(blk.ls1), arr(blk.ls2)

@@ -20,6 +20,7 @@ from paths_tpu_torch.encoders import transforms as T
 from paths_tpu_torch.encoders import vit
 from paths_tpu_torch.encoders.convert_vit import vit_from_torch_file
 from paths_tpu_torch.encoders.transforms import TransformSpec, apply_transform
+from paths_tpu_torch.kernels import vit_int8
 
 _VIT_SPECS = {
     "uni": (vit.UNI, T.UNI_TRANSFORM),
@@ -56,8 +57,10 @@ def from_name(name: str, weights_path: Optional[str] = None,
 
     :param fast_math: tanh GELU instead of timm's exact erf GELU.
     :param block_impl: "auto" (the fused block kernels on a CUDA device, the
-        plain route on the CPU), "fused", "flash" or "xla"; "fused1" and
-        "int8" are not ported yet.
+        plain route on the CPU), "fused", "fused1" (the whole block in one
+        launch), "flash", "xla" or "int8" (int8 projections with dynamic
+        activation scales; the block matrices are quantised once here, on the
+        host, and their float copies dropped).
     :param device: where the weights live and the encode runs; "cuda" unless
         the caller asks for the CPU.
     """
@@ -79,6 +82,8 @@ def from_name(name: str, weights_path: Optional[str] = None,
         model = vit_from_torch_file(weights_path, spec)
     else:
         model = vit.vit_init(seed, spec)
+    if impl == "int8":
+        vit_int8.quantize_vit_blocks(model)    # once, on the host
     model = model.to(dev)
 
     def encode(images: torch.Tensor) -> torch.Tensor:

@@ -9,14 +9,19 @@ blocks (attention -> LayerScale -> residual; MLP -> LayerScale -> residual),
 final LayerNorm. The encoders are frozen: parameters do not require grad and
 the forward is inference only.
 
-`vit_apply` runs a block through one of three routes (`block_impl`):
+`vit_apply` runs a block through one of five routes (`block_impl`):
   "xla"    plain `torch` ops, rounding to the compute dtype where the JAX
            package's plain route does;
   "fused"  the hand-written block kernels of `kernels.vit_fused` (attention
            block, then the GELU or packed-SwiGLU MLP block);
   "flash"  the plain block with its attention through the masked
-           flash-attention forward kernel of `kernels.flash_attention`.
-"fused1" (whole block in one kernel) and "int8" are not ported yet.
+           flash-attention forward kernel of `kernels.flash_attention`;
+  "fused1" the whole block in one launch (`kernels.vit_fused.fused_block`); a
+           SwiGLU spec takes the "fused" pair instead, as in the JAX package;
+  "int8"   the int8 block kernels of `kernels.vit_int8` (int8 projections,
+           attention in the compute dtype); the model's block matrices must
+           have been quantised (`kernels.vit_int8.quantize_vit_blocks`;
+           `encoders.registry.from_name(block_impl="int8")` does it).
 """
 from __future__ import annotations
 
@@ -29,11 +34,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from paths_tpu_torch.kernels import flash_attention, vit_fused
+from paths_tpu_torch.kernels import flash_attention, vit_fused, vit_int8
 
 LN_EPS = 1e-6
-BLOCK_IMPLS = ("xla", "fused", "flash")
-UNPORTED_IMPLS = ("fused1", "int8")
+BLOCK_IMPLS = ("xla", "fused", "fused1", "flash", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,10 +132,20 @@ class ViT(nn.Module):
         self.requires_grad_(False)
         self._cast: Dict[torch.dtype, List[dict]] = {}
 
+    @property
+    def quantized(self) -> bool:
+        """Whether the blocks hold int8 matrices (`vit_int8.quantize_vit_blocks`)
+        in place of the float ones."""
+        return len(self.blocks) > 0 and vit_int8.is_quantized(self.blocks[0])
+
     def matrices(self, dtype: torch.dtype) -> List[dict]:
         """Per block, the four weight matrices in `dtype` (the compute
         dtype), contiguous: cast once and kept, so a forward does not recast
-        the weights (they are frozen). Moving the model drops the copies."""
+        the weights (they are frozen). Moving the model drops the copies. A
+        quantised model gives its int8 matrices, `{"q", "s"}` each, whatever
+        the dtype."""
+        if self.quantized:
+            return [vit_int8.quantized_weights(b) for b in self.blocks]
         if dtype not in self._cast:
             self._cast = {dtype: [
                 {"qkv": b.qkv.weight.to(dtype).contiguous(),
@@ -227,6 +241,39 @@ def _mlp(blk: ViTBlock, w: dict, x: torch.Tensor, spec: ViTSpec) -> torch.Tensor
 
 def _block(blk: ViTBlock, w: dict, x: torch.Tensor, spec: ViTSpec,
            impl: str) -> torch.Tensor:
+    if impl != "int8" and vit_int8.is_quantized(blk):
+        raise ValueError(
+            f"block_impl={impl!r} got int8-quantized params — use "
+            "block_impl='int8', or load unquantized params for this impl")
+    if impl == "int8":
+        if not vit_int8.is_quantized(blk):
+            raise ValueError(
+                "block_impl='int8' needs quantized params — run "
+                "kernels.vit_int8.quantize_vit_blocks(model) first "
+                "(encoders.from_name(block_impl='int8') does)")
+        x = vit_int8.fused_attn_block_i8(
+            x, blk.norm1.weight, blk.norm1.bias, w["qkv"], w["proj"],
+            blk.qkv.bias, blk.proj.bias, blk.ls1, num_heads=spec.num_heads)
+        if spec.swiglu:
+            return vit_int8.fused_swiglu_mlp_block_i8(
+                x, blk.norm2.weight, blk.norm2.bias, w["fc1"], blk.fc1.bias,
+                w["fc2"], blk.fc2.bias, blk.ls2)
+        return vit_int8.fused_mlp_block_i8(
+            x, blk.norm2.weight, blk.norm2.bias, w["fc1"], blk.fc1.bias,
+            w["fc2"], blk.fc2.bias, blk.ls2, exact_gelu=(spec.gelu == "exact"))
+    if impl == "fused1" and not spec.swiglu:
+        tree = {"norm1": {"scale": blk.norm1.weight, "bias": blk.norm1.bias},
+                "attn": {"qkv_w": w["qkv"], "qkv_b": blk.qkv.bias,
+                         "proj_w": w["proj"], "proj_b": blk.proj.bias},
+                "norm2": {"scale": blk.norm2.weight, "bias": blk.norm2.bias},
+                "mlp": {"fc1_w": w["fc1"], "fc1_b": blk.fc1.bias,
+                        "fc2_w": w["fc2"], "fc2_b": blk.fc2.bias}}
+        if spec.layer_scale:
+            tree["ls1"], tree["ls2"] = blk.ls1, blk.ls2
+        return vit_fused.fused_block(x, tree, num_heads=spec.num_heads,
+                                     exact_gelu=(spec.gelu == "exact"))
+    if impl == "fused1":
+        impl = "fused"       # SwiGLU keeps the two-kernel fused route
     if impl == "fused":
         x = vit_fused.fused_attn_block(
             x, blk.norm1.weight, blk.norm1.bias, w["qkv"], blk.qkv.bias,
@@ -249,11 +296,6 @@ def _block(blk: ViTBlock, w: dict, x: torch.Tensor, spec: ViTSpec,
 
 
 def check_block_impl(impl: str) -> None:
-    if impl in UNPORTED_IMPLS:
-        raise NotImplementedError(
-            f"block_impl={impl!r} is not ported yet: kernels #7-#10 (the "
-            "single-kernel block and the int8 blocks) are ROADMAP.md Queue 1 "
-            "item 1")
     if impl not in BLOCK_IMPLS:
         raise ValueError(f"block_impl={impl!r}: want one of {BLOCK_IMPLS}")
 

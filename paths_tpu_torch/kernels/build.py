@@ -17,14 +17,15 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> source under the package
 SOURCES = {"flash_attention": "csrc/flash_attention.cu",
            "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
-           "vit_fused": "csrc/vit_fused.cu"}
+           "vit_fused": "csrc/vit_fused.cu",
+           "vit_int8": "csrc/vit_int8.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -89,3 +90,27 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name])
             _loaded[name] = lib
         return lib
+
+
+def load_with_signatures(name: str,
+                         signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
+    """`load(name)` with the C signatures `entry -> (argtypes, restype)` set:
+    without them ctypes passes a pointer as a 32-bit int."""
+    lib = load(name)
+    for entry, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def launch(lib: ctypes.CDLL, entry: str, x, *args) -> None:
+    """Call launch entry `entry` of `lib` with `args` and, last, the current
+    stream of CUDA tensor x's device; raise if the launch was refused."""
+    import torch
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           + lib.paths_cuda_error_string(rc).decode())

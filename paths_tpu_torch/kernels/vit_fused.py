@@ -2,24 +2,28 @@
 plain PyTorch versions (forward only: the patch encoders are frozen).
 
 Replaces the TPU kernels of `paths_tpu/kernels/vit_fused.py`:
-`fused_attn_block` (body `_attn_kernel`), `fused_mlp_block` (`_mlp_kernel`)
-and `fused_swiglu_mlp_block` (`_swiglu_kernel`). The CUDA source is
+`fused_attn_block` (body `_attn_kernel`), `fused_mlp_block` (`_mlp_kernel`),
+`fused_swiglu_mlp_block` (`_swiglu_kernel`) and `fused_block`
+(`_block_kernel`: the whole GELU block in one launch). The CUDA source is
 `paths_tpu_torch/csrc/vit_fused.cu`, built for sm_90a by `kernels.build` and
 called through ctypes; what bounds each kernel on the card and how its design
 answers that is noted at the top of the source.
 
-The three entries keep the JAX argument order. x is (B, N, D) in the compute
+The entries keep the JAX argument order. x is (B, N, D) in the compute
 dtype (f32 or bf16); the weights share x's dtype and are in PyTorch's
 `nn.Linear` layout (out, in): `qkv_w` (3D, D), `proj_w` (D, D), `fc1_w`
 (H, D) or, packed for SwiGLU, (2H, D) with the gate rows first, `fc2_w`
 (D, H). LayerNorm scale/bias, biases and LayerScale may be any float dtype;
 `ls=None` means no LayerScale. The TPU tuning knobs `group` and `num_chunks`
-have no counterpart.
+have no counterpart (they do not change these kernels' numbers).
 
 Both the kernels and the plain versions accumulate in f32 and round to the
 compute dtype where the TPU kernels do: after the LayerNorm (eps 1e-6), after
 qkv + bias, P before P V, each head's context after the deferred divide, the
-hidden activation before fc2, and the output.
+hidden activation before fc2, and the output. `fused_block` rounds where its
+own TPU kernel does: P is divided by its row sum and then rounded, each
+head's P V is rounded, and x after the attention half is rounded to the
+compute dtype before the second LayerNorm.
 
 A CUDA tensor goes to the kernels or the call raises; a CPU tensor goes to
 the plain versions. The kernels take head_dim 64, D a multiple of 64, a hidden
@@ -85,6 +89,31 @@ def fused_attn_block_reference(x, norm_scale, norm_bias, qkv_w, qkv_b, proj_w,
     c = torch.einsum("bhqk,bkhd->bhqd", p.to(cd).float(), v)
     ctx = (c / l).to(cd).permute(0, 2, 1, 3).reshape(b, n, d)
     return _residual(x, _mm(ctx, proj_w), proj_b, ls)
+
+
+def fused_block_reference(x, blk: dict, *, num_heads: int,
+                          exact_gelu: bool = True):
+    """Plain version of kernel #7: the whole GELU block, rounding where that
+    kernel rounds. `blk` has the JAX package's block layout with the port's
+    (out, in) matrices in x's dtype: `norm1`/`norm2` `{"scale", "bias"}`,
+    `attn` `{"qkv_w", "qkv_b", "proj_w", "proj_b"}`, `mlp` `{"fc1_w",
+    "fc1_b", "fc2_w", "fc2_b"}`, optional `ls1`/`ls2`."""
+    cd = x.dtype
+    b, n, d = x.shape
+    hd = d // num_heads
+    at, ml = blk["attn"], blk["mlp"]
+    y = _ln(x, blk["norm1"]["scale"], blk["norm1"]["bias"])
+    qkv = (_mm(y, at["qkv_w"]) + at["qkv_b"].float()).to(cd)
+    q, k, v = qkv.view(b, n, 3, num_heads, hd).float().unbind(2)  # (B,N,H,hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(hd))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (p / p.sum(-1, keepdim=True)).to(cd).float()
+    ctx = torch.einsum("bhqk,bkhd->bqhd", p, v).to(cd).reshape(b, n, d)
+    x1 = _residual(x, _mm(ctx, at["proj_w"]), at["proj_b"], blk.get("ls1"))
+    return fused_mlp_block_reference(
+        x1, blk["norm2"]["scale"], blk["norm2"]["bias"], ml["fc1_w"],
+        ml["fc1_b"], ml["fc2_w"], ml["fc2_b"], blk.get("ls2"),
+        exact_gelu=exact_gelu)
 
 
 def fused_mlp_block_reference(x, norm_scale, norm_bias, fc1_w, fc1_b, fc2_w,
@@ -162,7 +191,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "paths_vit_attn_block": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
     "paths_vit_mlp_block": ([_P] * 9 + [_I] * 5 + [_P], ctypes.c_int),
+    "paths_vit_block": ([_P] * 17 + [_I] * 7 + [_P], ctypes.c_int),
     "paths_vit_attn_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "paths_vit_block_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "paths_vit_mlp_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "paths_vit_max_smem_bytes": ([], ctypes.c_longlong),
     "paths_cuda_error_string": ([_I], ctypes.c_char_p),
@@ -172,30 +203,16 @@ _SIGNATURES = {
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
-    lib = build.load("vit_fused")
-    for entry, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, entry)
-        fn.argtypes, fn.restype = argtypes, restype
-    return lib
+    return build.load_with_signatures("vit_fused", _SIGNATURES)
 
 
-def _launch(entry: str, x: torch.Tensor, *args) -> None:
-    """Call launch entry `entry` on the current stream of x's device; raise
-    if the launch was refused."""
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: "
-                           + lib.paths_cuda_error_string(rc).decode())
-
-
-def _check_smem(entry: str, size: int, dtype: torch.dtype, what: str) -> None:
+def _check_smem(entry: str, sizes, dtype: torch.dtype, what: str) -> None:
     """Refuse a shape whose shared-memory need, as the library's `entry`
-    computes it, is more than a block may have."""
+    computes it from `sizes` (an int or a tuple of ints), is more than a
+    block may have."""
     lib = _library()
-    need, limit = getattr(lib, entry)(size, DTYPES[dtype]), \
+    sizes = sizes if isinstance(sizes, tuple) else (sizes,)
+    need, limit = getattr(lib, entry)(*sizes, DTYPES[dtype]), \
         lib.paths_vit_max_smem_bytes()
     if need > limit:
         raise ValueError(f"{what} in {dtype} needs {need} bytes of shared "
@@ -232,10 +249,11 @@ def fused_attn_block(x, norm_scale, norm_bias, qkv_w, qkv_b, proj_w, proj_b,
                 f"one head's K and V for {n} tokens")
     ctx = torch.empty_like(x)    # per-head contexts, read by the projection
     ns, nb, qb, pb, lsv = vecs
-    _launch("paths_vit_attn_block", x, x.data_ptr(), ns.data_ptr(),
-            nb.data_ptr(), qkv_w.data_ptr(), qb.data_ptr(), proj_w.data_ptr(),
-            pb.data_ptr(), lsv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-            b, n, d, num_heads, DTYPES[x.dtype])
+    build.launch(_library(), "paths_vit_attn_block", x, x.data_ptr(),
+                 ns.data_ptr(), nb.data_ptr(), qkv_w.data_ptr(), qb.data_ptr(),
+                 proj_w.data_ptr(), pb.data_ptr(), lsv.data_ptr(),
+                 ctx.data_ptr(), out.data_ptr(), b, n, d, num_heads,
+                 DTYPES[x.dtype])
     fused_attn_block.launches += 1
     return out
 
@@ -260,10 +278,10 @@ def _mlp(counter, x, norm_scale, norm_bias, fc1_w, fc1_b, fc2_w, fc2_b, ls,
         return out
     _check_smem("paths_vit_mlp_smem_bytes", d, x.dtype,
                 f"the accumulator for D {d}")
-    _launch("paths_vit_mlp_block", x, x.data_ptr(), ns.data_ptr(),
-            nb.data_ptr(), fc1_w.data_ptr(), b1.data_ptr(), fc2_w.data_ptr(),
-            b2.data_ptr(), lsv.data_ptr(), out.data_ptr(), b * n, d, hidden,
-            ACTS[act], DTYPES[x.dtype])
+    build.launch(_library(), "paths_vit_mlp_block", x, x.data_ptr(),
+                 ns.data_ptr(), nb.data_ptr(), fc1_w.data_ptr(), b1.data_ptr(),
+                 fc2_w.data_ptr(), b2.data_ptr(), lsv.data_ptr(),
+                 out.data_ptr(), b * n, d, hidden, ACTS[act], DTYPES[x.dtype])
     counter.launches += 1
     return out
 
@@ -291,6 +309,59 @@ def fused_swiglu_mlp_block(x, norm_scale, norm_bias, fc1_w, fc1_b, fc2_w,
                 fc1_b, fc2_w, fc2_b, ls, "swiglu")
 
 
+def fused_block(x, blk: dict, *, num_heads: int,
+                exact_gelu: bool = True) -> torch.Tensor:
+    """Kernel #7: one whole pre-norm block with a GELU MLP in a single
+    launch; `blk` as in `fused_block_reference`. x after the attention half
+    stays in shared memory. Each launch adds one to `fused_block.launches`."""
+    if x.device.type == "cpu":
+        return fused_block_reference(x, blk, num_heads=num_heads,
+                                     exact_gelu=exact_gelu)
+    _check_x(x)
+    b, n, d = x.shape
+    if num_heads < 1 or d % num_heads:
+        raise ValueError(f"num_heads {num_heads} must divide D {d}")
+    if d // num_heads != HEAD_DIM:
+        raise ValueError(f"head_dim {d // num_heads} not supported (the "
+                         f"kernel takes {HEAD_DIM})")
+    at, ml = blk["attn"], blk["mlp"]
+    if ml["fc2_w"].dim() != 2:
+        raise ValueError(f"fc2_w {tuple(ml['fc2_w'].shape)}: want (D, H)")
+    hidden = ml["fc2_w"].shape[1]
+    if hidden % 32:
+        raise ValueError(f"hidden width {hidden} must be a multiple of 32")
+    for name, w, shape in (("qkv_w", at["qkv_w"], (3 * d, d)),
+                           ("proj_w", at["proj_w"], (d, d)),
+                           ("fc1_w", ml["fc1_w"], (hidden, d)),
+                           ("fc2_w", ml["fc2_w"], (d, hidden))):
+        _check_weight(x, name, w, shape)
+    vecs = [_vector(x, name, v, length) for name, v, length in (
+        ("norm1 scale", blk["norm1"]["scale"], d),
+        ("norm1 bias", blk["norm1"]["bias"], d), ("qkv_b", at["qkv_b"], 3 * d),
+        ("proj_b", at["proj_b"], d), ("ls1", blk.get("ls1"), d),
+        ("norm2 scale", blk["norm2"]["scale"], d),
+        ("norm2 bias", blk["norm2"]["bias"], d), ("fc1_b", ml["fc1_b"], hidden),
+        ("fc2_b", ml["fc2_b"], d), ("ls2", blk.get("ls2"), d))]
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    _check_smem("paths_vit_attn_smem_bytes", n, x.dtype,
+                f"one head's K and V for {n} tokens")
+    _check_smem("paths_vit_block_smem_bytes", (n, d), x.dtype,
+                f"a 16-row tile of x and its accumulator for D {d}")
+    ctx = torch.empty_like(x)    # per-head contexts, read by the second phase
+    n1s, n1b, qb, pb, ls1, n2s, n2b, b1, b2, ls2 = (v.data_ptr() for v in vecs)
+    build.launch(_library(), "paths_vit_block", x, x.data_ptr(), n1s, n1b,
+                 at["qkv_w"].data_ptr(), qb, at["proj_w"].data_ptr(), pb, ls1,
+                 n2s, n2b, ml["fc1_w"].data_ptr(), b1, ml["fc2_w"].data_ptr(),
+                 b2, ls2, ctx.data_ptr(), out.data_ptr(), b, n, d, num_heads,
+                 hidden, ACTS["gelu" if exact_gelu else "gelu_tanh"],
+                 DTYPES[x.dtype])
+    fused_block.launches += 1
+    return out
+
+
 fused_attn_block.launches = 0
+fused_block.launches = 0
 fused_mlp_block.launches = 0
 fused_swiglu_mlp_block.launches = 0

@@ -297,3 +297,213 @@ def test_vit_kernels_refuse_what_they_do_not_take(card):
         tvf.fused_mlp_block(p["x"], p["ns"], p["nb"], p["fc1_w"][:250],
                             p["fc1_b"][:250], p["fc2_w"][:, :250].contiguous(),
                             p["fc2_b"], p["ls"])
+
+
+# ------------------------------------------------- the whole block, one launch
+def _block_tree(p, ls=True):
+    tree = {"norm1": {"scale": p["ns"], "bias": p["nb"]},
+            "attn": {k: p[k] for k in ("qkv_w", "qkv_b", "proj_w", "proj_b")},
+            "norm2": {"scale": p["ns"].flip(0), "bias": p["nb"].flip(0)},
+            "mlp": {k: p[k] for k in ("fc1_w", "fc1_b", "fc2_w", "fc2_b")}}
+    if ls:
+        tree["ls1"], tree["ls2"] = p["ls"], p["ls"].flip(0)
+    return tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact_gelu", [True, False])
+@pytest.mark.parametrize("shape", VIT_SHAPES)
+def test_vit_block_kernel_matches_plain(card, shape, exact_gelu, dtype):
+    """Kernel #7 at a ragged small shape and the encoders' shapes: one launch,
+    none of the two-kernel route's; bitwise repeatable."""
+    b, n, d, heads, hidden = shape
+    p = _vit_args(b, n, d, hidden, 1, dtype, card, ls=exact_gelu)
+    tree = _block_tree(p, ls=exact_gelu)
+    before = (tvf.fused_block.launches, tvf.fused_attn_block.launches,
+              tvf.fused_mlp_block.launches)
+    got = tvf.fused_block(p["x"], tree, num_heads=heads, exact_gelu=exact_gelu)
+    torch.cuda.synchronize()
+    assert (tvf.fused_block.launches, tvf.fused_attn_block.launches,
+            tvf.fused_mlp_block.launches) == (before[0] + 1, *before[1:])
+    _vit_close(got, tvf.fused_block_reference(p["x"], tree, num_heads=heads,
+                                              exact_gelu=exact_gelu), dtype)
+    assert torch.equal(got, tvf.fused_block(p["x"], tree, num_heads=heads,
+                                            exact_gelu=exact_gelu))
+
+
+@pytest.mark.cuda
+def test_vit_block_kernel_refusals(card):
+    p = _vit_args(2, 20, 128, 256, 1, torch.float32, card)
+    with pytest.raises(ValueError, match="head_dim"):
+        tvf.fused_block(p["x"], _block_tree(p), num_heads=4)
+    long = _vit_args(1, 785, 128, 256, 1, torch.float32, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        tvf.fused_block(long["x"], _block_tree(p), num_heads=2)
+    # a width whose 16-row tile of x and accumulator exceed a block's
+    # shared memory: no grid of this kernel fits the card
+    wide = _vit_args(1, 20, 2048, 256, 1, torch.float32, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        tvf.fused_block(wide["x"], _block_tree(wide), num_heads=32)
+    tree = _block_tree(p)
+    tree["mlp"] = dict(tree["mlp"], fc1_w=p["fc1_w"].bfloat16())
+    with pytest.raises(TypeError, match="compute dtype"):
+        tvf.fused_block(p["x"], tree, num_heads=2)
+
+
+# -------------------------------------------------------- int8 block kernels
+# Integer sums are exact and the LayerNorm before a quantisation is evaluated
+# in f64, so kernel and plain version agree to f32 summation order except
+# where a context or hidden value lands on the other side of a rounding
+# boundary: that moves one int8 code and with it the row's outputs by up to
+# one output quantum (`attn_output_quantum`, `mlp_output_quantum`) per code.
+# Rows within the tight bar (1e-4 f32, 2 bf16 ulps): all but I8_FLIP_SHARE;
+# no row beyond I8_LOOSE_QUANTA quanta; in bf16, where an output's ulp is
+# above a quantum, at most I8_BF16_CHANGED of the output elements differ at
+# all (both round the same f32 values).
+from paths_tpu_torch.kernels import vit_int8 as tvi  # noqa: E402
+
+I8_FLIP_SHARE = 0.02
+I8_LOOSE_QUANTA = 8.0
+I8_BF16_CHANGED = 0.01
+
+
+def _i8_args(b, n, d, hidden, packed, dtype, device, ls=True):
+    p = _vit_args(b, n, d, hidden, packed, dtype, device, ls)
+    for k in ("qkv_w", "proj_w", "fc1_w", "fc2_w"):
+        wq = tvi.quantize_weight(p[k].float().cpu())
+        p[k] = {"q": wq["q"].to(device), "s": wq["s"].to(device)}
+    return p
+
+
+def _i8_close(got, want, dtype, quantum):
+    tight = VIT_F32_ATOL if dtype == torch.float32 else \
+        2 * 2.0 ** -8 * want.float().abs().max().item()
+    diff = (got.float() - want.float()).abs()
+    rows = diff.flatten(0, -2).amax(-1)
+    share = (rows > tight).float().mean().item()
+    worst = rows.max().item()
+    assert share <= I8_FLIP_SHARE, (share, worst, tight)
+    assert worst <= max(tight, I8_LOOSE_QUANTA * quantum), (worst, quantum)
+    if dtype == torch.bfloat16:
+        changed = (diff > 0).float().mean().item()
+        assert changed <= I8_BF16_CHANGED, changed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", VIT_SHAPES)
+def test_vit_attn_i8_kernel_matches_plain(card, shape, dtype):
+    b, n, d, heads, hidden = shape
+    p = _i8_args(b, n, d, hidden, 1, dtype, card)
+    args = (p["x"], p["ns"], p["nb"], p["qkv_w"], p["proj_w"], p["qkv_b"],
+            p["proj_b"], p["ls"])
+    before = tvi.fused_attn_block_i8.launches
+    got = tvi.fused_attn_block_i8(*args, num_heads=heads)
+    torch.cuda.synchronize()
+    assert tvi.fused_attn_block_i8.launches == before + 1
+    _i8_close(got, tvi.fused_attn_block_i8_reference(*args, num_heads=heads),
+              dtype, tvi.attn_output_quantum(*args))
+    assert torch.equal(got, tvi.fused_attn_block_i8(*args, num_heads=heads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact_gelu,num_chunks", [(True, 1), (True, 2),
+                                                   (False, 1)])
+@pytest.mark.parametrize("shape", VIT_SHAPES)
+def test_vit_mlp_i8_kernel_matches_plain(card, shape, exact_gelu, num_chunks,
+                                         dtype):
+    b, n, d, heads, hidden = shape
+    p = _i8_args(b, n, d, hidden, 1, dtype, card, ls=exact_gelu)
+    args = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+            p["fc2_b"], p["ls"])
+    kw = dict(exact_gelu=exact_gelu, num_chunks=num_chunks)
+    before = tvi.fused_mlp_block_i8.launches
+    got = tvi.fused_mlp_block_i8(*args, **kw)
+    torch.cuda.synchronize()
+    assert tvi.fused_mlp_block_i8.launches == before + 1
+    _i8_close(got, tvi.fused_mlp_block_i8_reference(*args, **kw), dtype,
+              tvi.mlp_output_quantum(*args, exact_gelu=exact_gelu))
+    assert torch.equal(got, tvi.fused_mlp_block_i8(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_chunks", [1, 2])
+@pytest.mark.parametrize("shape", VIT_SHAPES)
+def test_vit_swiglu_i8_kernel_matches_plain(card, shape, num_chunks, dtype):
+    b, n, d, heads, hidden = shape
+    p = _i8_args(b, n, d, hidden, 2, dtype, card)
+    args = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+            p["fc2_b"], p["ls"])
+    before = tvi.fused_swiglu_mlp_block_i8.launches
+    got = tvi.fused_swiglu_mlp_block_i8(*args, num_chunks=num_chunks)
+    torch.cuda.synchronize()
+    assert tvi.fused_swiglu_mlp_block_i8.launches == before + 1
+    _i8_close(got, tvi.fused_swiglu_mlp_block_i8_reference(
+        *args, num_chunks=num_chunks), dtype,
+        tvi.mlp_output_quantum(*args, swiglu=True))
+    assert torch.equal(got, tvi.fused_swiglu_mlp_block_i8(
+        *args, num_chunks=num_chunks))
+
+
+@pytest.mark.cuda
+def test_vit_i8_kernels_refuse_what_they_do_not_take(card):
+    p = _i8_args(2, 20, 128, 256, 1, torch.float32, card)
+    f = _vit_args(2, 20, 128, 256, 1, torch.float32, card)
+    attn = (p["x"], p["ns"], p["nb"], p["qkv_w"], p["proj_w"], p["qkv_b"],
+            p["proj_b"], p["ls"])
+    with pytest.raises(ValueError, match="head_dim"):
+        tvi.fused_attn_block_i8(*attn, num_heads=4)
+    with pytest.raises(TypeError, match="quantized weight"):
+        tvi.fused_attn_block_i8(p["x"], p["ns"], p["nb"], f["qkv_w"],
+                                *attn[4:], num_heads=2)
+    long = _vit_args(1, 785, 128, 256, 1, torch.float32, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        tvi.fused_attn_block_i8(long["x"], *attn[1:], num_heads=2)
+    mlp = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+           p["fc2_b"], p["ls"])
+    with pytest.raises(TypeError, match="quantized weight"):
+        tvi.fused_mlp_block_i8(p["x"], p["ns"], p["nb"], p["fc1_w"],
+                               p["fc1_b"], f["fc2_w"], p["fc2_b"], p["ls"])
+    with pytest.raises(ValueError, match="must divide"):
+        tvi.fused_mlp_block_i8(*mlp, num_chunks=3)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tvi.fused_mlp_block_i8(*mlp, num_chunks=8)
+    with pytest.raises(ValueError, match="is on"):
+        tvi.fused_mlp_block_i8(p["x"], p["ns"], p["nb"],
+                               {k: v.cpu() for k, v in p["fc1_w"].items()},
+                               *mlp[4:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["int8", "fused1"])
+@pytest.mark.parametrize("swiglu", [False, True])
+def test_vit_apply_routes_launch_their_kernels(card, impl, swiglu):
+    """A small ViT on the card: the int8 route launches #8 and #9 or #10 per
+    block, fused1 launches #7 per block or, for SwiGLU, #4 and #6."""
+    from paths_tpu_torch.encoders import vit
+
+    spec = vit.ViTSpec(img_size=64, patch_size=16, embed_dim=128, depth=2,
+                       num_heads=2, mlp_ratio=2.0, swiglu=swiglu)
+    model = vit.vit_init(0, spec)
+    imgs = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(3, 64, 64, 3)).astype(np.float32))
+    want = vit.vit_apply(model, imgs, torch.float32, "xla")
+    if impl == "int8":
+        tvi.quantize_vit_blocks(model)
+    fns = (tvf.fused_block, tvf.fused_attn_block, tvf.fused_mlp_block,
+           tvf.fused_swiglu_mlp_block, tvi.fused_attn_block_i8,
+           tvi.fused_mlp_block_i8, tvi.fused_swiglu_mlp_block_i8)
+    before = [f.launches for f in fns]
+    got = vit.vit_apply(model.to(card), imgs.to(card), torch.float32, impl)
+    torch.cuda.synchronize()
+    delta = [f.launches - b for f, b in zip(fns, before)]
+    expect = {("int8", False): [0, 0, 0, 0, 2, 2, 0],
+              ("int8", True): [0, 0, 0, 0, 2, 0, 2],
+              ("fused1", False): [2, 0, 0, 0, 0, 0, 0],
+              ("fused1", True): [0, 2, 0, 2, 0, 0, 0]}[(impl, swiglu)]
+    assert delta == expect
+    rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    assert rel < (5e-2 if impl == "int8" else 1e-4), rel

@@ -1,6 +1,7 @@
 """The port's patch encoders against the JAX package on the CPU: resize
-matrices, transforms, `vit_init`, `vit_apply` on its three routes, the weight
-converters and the registry. Inputs and weights come from numpy with a seed
+matrices, transforms, `vit_init`, `vit_apply` on the xla, fused and flash
+routes (`fused1` and `int8` have their own files), the weight converters
+and the registry. Inputs and weights come from numpy with a seed
 and go through both packages; f32 compute, so tolerances are tight (1e-4 on
 O(1) features for a whole forward, 1e-6 for the resize weights).
 """
@@ -222,8 +223,6 @@ def test_from_name_shapes_and_routes():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(name="UNI", block_impl="fused1"), NotImplementedError),
-    (dict(name="UNI", block_impl="int8"), NotImplementedError),
     (dict(name="resnet50"), NotImplementedError),
     (dict(name="resnet18"), NotImplementedError),
     (dict(name="UNI", block_impl="mosaic"), ValueError),

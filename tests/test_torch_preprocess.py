@@ -208,10 +208,6 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["-d", str(tmp_path), "-o", str(tmp_path / "o"), "--device", "cpu",
               "--data-shards", "2"])
-    for impl in ("fused1", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["-d", str(tmp_path), "-o", str(tmp_path / "o"), "--device",
-                  "cpu", "--block-impl", impl])
 
 
 def test_feature_store_surface(tmp_path):

@@ -111,6 +111,7 @@ def test_port_imports_neither_jax_nor_reference_package():
         "import paths_tpu_torch\n"
         "for m in pkgutil.walk_packages(paths_tpu_torch.__path__, 'paths_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'paths_tpu_torch.kernels.vit_int8' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paths_tpu', 'pandas'))\n"
         "print(bad)\n"
