@@ -26,11 +26,13 @@ Phases, each printing its own lines:
      and one step's time, memory and profile are printed;
   5. ViT block kernels: the fused attention, GELU-MLP and packed-SwiGLU-MLP
      block kernels against their plain versions at the UNI and Virchow2
-     shapes (64 images) and one ragged small case, in f32 and bf16, with a
+     shapes (64 images), the attention block also at Kaiko-B/8's 785 tokens,
+     and one ragged small case, in f32 and bf16, with a
      planted fault per kernel that the check must fail, their times, a
      yardstick made of PyTorch library calls, and their bounds; then the
      whole-block kernel and the int8 attention, GELU-MLP and packed-SwiGLU-MLP
-     block kernels at the same shapes, the int8 ones with a check that allows
+     block kernels at the same shapes (the whole block and the int8 attention
+     also at Kaiko-B/8), the int8 ones with a check that allows
      for codes on the other side of a rounding boundary and three planted
      faults that it must fail;
   6. preprocess: two synthetic blob-on-white slides go through
@@ -41,7 +43,8 @@ Phases, each printing its own lines:
      the flash route, and one f32 UNI batch with LayerScale 1 (fused against
      plain, with a planted fault), and the encode's time, busy share, memory
      and profile. The `int8` and `fused1` routes go through the same CLI run,
-     the same Virchow2 batches and the same f32 batch.
+     the same Virchow2 batches and the same f32 batch. Last, one batch of
+     Kaiko-B/8 (patch 8, 785 tokens) through `from_name` on the four routes.
 The line before the last is a JSON object of per-kernel numbers, and the
 last line is `{"ok": true, "device": {...}}`. Any failed check raises, so
 the script exits non-zero and prints no result; without a CUDA device it
@@ -830,7 +833,8 @@ def vit_kernel_phase(torch, tvf, gpu):
     main_rows = {}
     shapes = (("ragged", 3, 50, 128, 2, 512, ("attn", "mlp", "swiglu")),
               ("uni", 64, 197, 1024, 16, 4096, ("attn", "mlp")),
-              ("virchow2", 64, 261, 1280, 20, 6912, ("attn", "swiglu")))
+              ("virchow2", 64, 261, 1280, 20, 6912, ("attn", "swiglu")),
+              ("kaiko-b8", 64, 785, 768, 12, 3072, ("attn",)))
     for case, b, n, d, heads, hidden, kinds in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = rnd(b, n, d).to(dtype)
@@ -977,7 +981,7 @@ def vit_new_bound(kind, b, n, d, hidden, dtype_bytes):
 
 
 def vit_new_kernel_phase(torch, tvf, tvi, gpu):
-    """Kernels #7 (whole block, one launch) and #8-#10 (int8 blocks) against
+    """Kernels #7 (whole block, one call) and #8-#10 (int8 blocks) against
     their plain versions at the main path's shapes, f32 and bf16, with
     planted faults; returns the bf16 case of each kernel at its main-path
     shape."""
@@ -1052,7 +1056,8 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
 
     main_rows = {}
     shapes = (("uni", 64, 197, 1024, 16, 4096, ("block", "attn_i8", "mlp_i8")),
-              ("virchow2", 64, 261, 1280, 20, 6912, ("attn_i8", "swiglu_i8")))
+              ("virchow2", 64, 261, 1280, 20, 6912, ("attn_i8", "swiglu_i8")),
+              ("kaiko-b8", 64, 785, 768, 12, 3072, ("block", "attn_i8")))
     for case, b, n, d, heads, hidden, kinds in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             tname = "f32" if dtype == torch.float32 else "bf16"
@@ -1116,14 +1121,14 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
                     flop_ms, byte_ms = vit_new_bound(kind, b, n, d, hidden,
                                                      x.element_size())
                     print(f"[kernel] vit_block {case}: B={b} N={n} D={d} heads={heads} "
-                          f"H={hidden} {tname}, one launch: max_abs_err {err:.3g} (tol "
+                          f"H={hidden} {tname}, one call: max_abs_err {err:.3g} (tol "
                           f"{tol:.3g}, max |out| {peak:.3g}); planted fault (one head's "
                           f"context zeroed) err {fault_err:.3g}: caught; device ms: "
                           f"kernel {dev['ms']:.4f}, plain {dev['plain_ms']:.4f}, "
                           f"library calls {dev['library_ms']:.4f}; bound "
                           f"{max(flop_ms, byte_ms):.4f} (operations {flop_ms:.4f}, "
                           f"bytes {byte_ms:.4f}) | {gpu}", flush=True)
-                    if dtype == torch.bfloat16:
+                    if case == "uni" and dtype == torch.bfloat16:
                         main_rows[kind] = dict(err=err, flop_ms=flop_ms,
                                                byte_ms=byte_ms, **dev)
                     del tree, faulty_tree
@@ -1589,6 +1594,49 @@ def preprocess_phase(torch, tfa, tvf, gpu):
               + (f", lowest cosine {vcos:.6f}" if impl == "int8" else "")
               + f"; encode of one batch {ms[impl]:.1f} ms, plain route "
               f"{ms['xla']:.1f} ms | {gpu}", flush=True)
+    # -- Kaiko-B/8 (patch 8: 785 tokens), full width and depth, bf16, one
+    # batch through from_name on every route: the kernels' streamed key tiles
+    # (#4, #7) and device-memory K and V (#8)
+    kfeats, kms, kcounts = {}, {}, {}
+    for impl in kernel_impls + ("xla",):
+        enc, dim, _ = from_name("kaiko-vitb8", block_impl=impl, seed=0)
+        if dim != 768:
+            raise AssertionError(f"kaiko-vitb8 out dim {dim}")
+        reset_vit_counts(tvf)
+        kfeats[impl] = enc(two_batches[0]).cpu().numpy()
+        torch.cuda.synchronize()
+        kcounts[impl] = vit_counts(tvf)
+        kms[impl] = cuda_ms(lambda: enc(two_batches[0]), iters=2, warmup=0)
+        del enc
+    kdepth = vit.KAIKO_VITB8.depth
+    wants = {"fused": vit_expect(tvf, fused_attn_block=kdepth, fused_mlp_block=kdepth),
+             "fused1": vit_expect(tvf, fused_block=kdepth),
+             "int8": vit_expect(tvf, fused_attn_block_i8=kdepth, fused_mlp_block_i8=kdepth),
+             "xla": vit_expect(tvf)}
+    krels = {impl: feature_mismatch(kfeats[impl], kfeats["xla"]) for impl in kernel_impls}
+    kcos = feature_cosine(kfeats["int8"], kfeats["xla"])
+    for impl in kernel_impls + ("xla",):
+        if kcounts[impl] != wants[impl]:
+            raise AssertionError(f"kaiko-vitb8 {impl}: launches {kcounts[impl]}, the "
+                                 f"code says {wants[impl]}")
+    for impl in kernel_impls:
+        if kfeats[impl].shape != (64, 768) or not np.isfinite(kfeats[impl]).all() \
+                or not krels[impl] <= bars[impl]:
+            raise AssertionError(f"kaiko-vitb8 {impl}: shape {kfeats[impl].shape}, "
+                                 f"mismatch {krels[impl]:.3g} (rtol {bars[impl]})")
+    if not kcos >= FEATURE_COS_INT8:
+        raise AssertionError(f"kaiko-vitb8 int8: cosine {kcos:.5f}")
+    for impl in kernel_impls:
+        launched = {k: v for k, v in kcounts[impl].items() if v}
+        print(f"[preprocess] Kaiko-B/8 (12 blocks, D 768, MLP 3072, patch 8: 785 "
+              f"tokens, bf16), one batch of 64 through from_name(block_impl="
+              f"{impl!r}): launches {launched}; (64, 768) features, worst "
+              f"|diff|/|feature| vs the plain route {krels[impl]:.3g} (rtol "
+              f"{bars[impl]})"
+              + (f", lowest cosine {kcos:.6f}" if impl == "int8" else "")
+              + f"; encode of one batch {kms[impl]:.1f} ms, plain route "
+              f"{kms['xla']:.1f} ms | {gpu}", flush=True)
+
     return {"vit_attn": uni_counts["fused"]["fused_attn_block"],
             "vit_mlp": uni_counts["fused"]["fused_mlp_block"],
             "vit_swiglu_mlp": vcounts["fused"]["fused_swiglu_mlp_block"],

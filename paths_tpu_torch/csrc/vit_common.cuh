@@ -1,8 +1,10 @@
-// Shared pieces of the fused ViT encoder-block kernels (`vit_fused.cu`,
-// `vit_int8.cu`): tile constants, the LayerNorm statistics, the staged
-// 16-row product `gemm_tile` (f32 FMAs or bf16 tensor cores), the MLP half of
-// a block for 16 rows, and the per-(image, head) attention core. The design
-// notes are at the top of `vit_fused.cu`.
+// Shared pieces of the fused ViT MLP kernels (`vit_fused.cu`) and the int8
+// block kernels (`vit_int8.cu`): tile constants, the LayerNorm statistics,
+// the staged 16-row product `gemm_tile` (f32 FMAs or bf16 tensor cores), the
+// MLP half of a block for 16 rows, and the per-(image, head) attention core
+// of the int8 attention kernel. The design notes are at the top of
+// `vit_fused.cu` and `vit_int8.cu`; the attention block and the whole block
+// are built from `vit_tiles.cuh`.
 #pragma once
 
 #include <mma.h>
@@ -349,78 +351,33 @@ struct MlpSmem {
 };
 
 // ---------------------------------------------------- attention, per head
-// The q, k, v projection of 16 token rows of one image in floating point:
-// LN(x) W^T + b with the LayerNorm applied while the left operand is staged.
+// Elements of T that one head's K and V take for N tokens.
 template <typename T>
-struct QkvFloat {
-  const T* xb;           // the image's (N, D) activation
-  const float* ns;
-  const float* nb;
-  const T* w;            // (3D, D)
-  const float* bias;     // (3D,)
-  int N, D;
-  float* As;
-  float* mu_s;
-  float* rstd_s;
-  T* Ws;                 // 128 x kLDW
-  int r0;
+__host__ __device__ inline size_t attn_kv_elems(int N) {
+  return 2 * ((static_cast<size_t>(N) + 3) / 4 * 4) * Strides<T>::kLDK;
+}
 
-  __device__ QkvFloat(const T* xb_, const float* ns_, const float* nb_,
-                      const T* w_, const float* bias_, int N_, int D_,
-                      unsigned char* smem)
-      : xb(xb_), ns(ns_), nb(nb_), w(w_), bias(bias_), N(N_), D(D_), r0(0) {
-    As = reinterpret_cast<float*>(smem);
-    mu_s = As + kBM * kLDA;
-    rstd_s = mu_s + kBM;
-    Ws = reinterpret_cast<T*>(rstd_s + kBM);
-  }
-  __host__ __device__ static size_t bytes(int) {
-    return align_up((kBM * kLDA + 2 * kBM) * sizeof(float) +
-                    128 * Strides<T>::kLDW * sizeof(T));
-  }
-  // Rows r0 .. r0 + 15 become the left operand. Ends with a barrier.
-  __device__ __forceinline__ void prepare(int r0_) {
-    r0 = r0_;
-    ln_stats<T>(xb + static_cast<size_t>(r0) * D, N - r0, D, mu_s, rstd_s);
-  }
-  // out[r] = the projection's value (bias included, not yet rounded) at this
-  // thread's tile column c = t % NCOLS and rows (t / NCOLS) RM + r, where
-  // tile column n is row `row_of(n)` of the weight.
-  template <int NCOLS, typename RowOf>
-  __device__ __forceinline__ void product(float (&out)[kBM * NCOLS / kThreads],
-                                          RowOf row_of) {
-    constexpr int RM = kBM * NCOLS / kThreads;
-#pragma unroll
-    for (int r = 0; r < RM; ++r) out[r] = 0.f;
-    const LnRows<T> a_ln{xb + static_cast<size_t>(r0) * D, ns, nb, mu_s, rstd_s,
-                         N - r0, D};
-    gemm_tile<T, NCOLS>(out, D, a_ln, [&](int n) -> const T* {
-      return w + static_cast<size_t>(row_of(n)) * D;
-    }, As, Ws);
-    const float b = bias[row_of(threadIdx.x % NCOLS)];
-#pragma unroll
-    for (int r = 0; r < RM; ++r) out[r] += b;
-  }
-};
-
-// Shared memory of the attention core itself for N tokens.
+// Shared memory of the attention core itself for N tokens, with K and V in
+// it or in device memory.
 template <typename T>
-__host__ __device__ inline size_t attn_core_bytes(int N) {
+__host__ __device__ inline size_t attn_core_bytes(int N, bool kv_in_smem) {
   const size_t np = (static_cast<size_t>(N) + 3) / 4 * 4;
   return align_up((kBM * (np + 4) + kBM * kLDQ + kBM) * sizeof(float) +
-                  2 * np * Strides<T>::kLDK * sizeof(T));
+                  (kv_in_smem ? attn_kv_elems<T>(N) * sizeof(T) : 0));
 }
 
 // cb[:, h 64 : (h + 1) 64] = softmax(q k^T / 8) v of head h of one image,
 // with q, k, v from `qkv` rounded to T. One block: K and V of every token go
-// to shared memory, then the queries are walked 16 rows at a time.
-// NORM_FIRST false: P is rounded to T, the context is divided by the row sum
-// of the unrounded P afterwards and then stored as CT. NORM_FIRST true: P is
-// divided by its row sum, rounded to T, and P V is stored as CT.
-// `smem` holds `attn_core_bytes<T>(N)`. Ends with a barrier.
-template <typename T, typename CT, bool NORM_FIRST, typename Qkv>
+// to shared memory or, with KV_DEVICE, to `kv_dev` (`attn_kv_elems<T>(N)`
+// elements of device memory of this block's own, read back through the
+// caches), then the queries are walked 16 rows at a time against all keys:
+// the scores of 16 rows stay in shared memory, so the softmax takes the
+// row's final max. P is rounded to T, the context is divided by the row sum
+// of the unrounded P afterwards and then stored as CT. `smem` holds
+// `attn_core_bytes<T>(N, !KV_DEVICE)`. Ends with a barrier.
+template <typename T, typename CT, bool KV_DEVICE, typename Qkv>
 __device__ __forceinline__ void attn_head(Qkv& qkv, CT* cb, int h, int N, int D,
-                                          unsigned char* smem) {
+                                          unsigned char* smem, T* kv_dev) {
   constexpr int LDK = Strides<T>::kLDK;
   constexpr int PL = Piece<T>::kLen;
   const int Np = (N + 3) / 4 * 4;
@@ -428,7 +385,11 @@ __device__ __forceinline__ void attn_head(Qkv& qkv, CT* cb, int h, int N, int D,
   float* S = reinterpret_cast<float*>(smem);       // kBM x LDS
   float* Qs = S + kBM * LDS;                       // kBM x kLDQ
   float* l_s = Qs + kBM * kLDQ;
-  T* Ks = reinterpret_cast<T*>(l_s + kBM);         // Np x LDK
+  T* Ks;                                           // Np x LDK
+  if constexpr (KV_DEVICE)
+    Ks = kv_dev;
+  else
+    Ks = reinterpret_cast<T*>(l_s + kBM);
   T* Vs = Ks + Np * LDK;                           // Np x LDK
   const int t = threadIdx.x;
 
@@ -508,13 +469,10 @@ __device__ __forceinline__ void attn_head(Qkv& qkv, CT* cb, int h, int N, int D,
         for (int j = lane; j < N; j += 32) {
           const float p = expf(sr[j] - mx);
           sum += p;
-          sr[j] = NORM_FIRST ? p : round_to<T>(p);
+          sr[j] = round_to<T>(p);
         }
         for (int j = N + lane; j < Np; j += 32) sr[j] = 0.f;   // padded keys
         sum = warp_sum(sum);
-        if (NORM_FIRST) {
-          for (int j = lane; j < N; j += 32) sr[j] = round_to<T>(sr[j] / sum);
-        }
         if (lane == 0) l_s[m] = sum;
       }
     }
@@ -545,43 +503,10 @@ __device__ __forceinline__ void attn_head(Qkv& qkv, CT* cb, int h, int N, int D,
         const int row = r0 + m;
         if (row < N)
           cb[static_cast<size_t>(row) * D + h * kHD + c] =
-              from_float<CT>(NORM_FIRST ? o[r] : o[r] / l_s[m]);
+              from_float<CT>(o[r] / l_s[m]);
       }
     }
     __syncthreads();   // S, Qs and l_s are free for the next tile
-  }
-}
-
-// x1 = x + ls * (ctx Wp^T + bp) for the first `valid` of the 16 rows that
-// start at ctx_t / x_t (row stride D); `emit(m, n, value)` receives every
-// element of those rows. Ends without a barrier.
-template <typename T, typename Emit>
-__device__ __forceinline__ void proj_rows(const T* ctx_t, const T* x_t,
-                                          const T* __restrict__ wp,
-                                          const float* __restrict__ bp,
-                                          const float* __restrict__ ls,
-                                          int valid, int D, float* As, T* Ws,
-                                          Emit emit) {
-  const int t = threadIdx.x;
-  for (int d0 = 0; d0 < D; d0 += kThreads) {
-    float o[kBM];
-#pragma unroll
-    for (int r = 0; r < kBM; ++r) o[r] = 0.f;
-    gemm_tile<T, kThreads>(o, D, [&](int m, int k) {
-      return m < valid ? to_float(ctx_t[static_cast<size_t>(m) * D + k]) : 0.f;
-    }, [&](int n) -> const T* {
-      return d0 + n < D ? wp + static_cast<size_t>(d0 + n) * D : nullptr;
-    }, As, Ws);
-    const int n = d0 + t;
-    if (n < D) {
-      const float bias = bp[n], scale = ls[n];
-#pragma unroll
-      for (int r = 0; r < kBM; ++r) {
-        if (r < valid)
-          emit(r, n, to_float(x_t[static_cast<size_t>(r) * D + n]) +
-                         (o[r] + bias) * scale);
-      }
-    }
   }
 }
 

@@ -9,8 +9,8 @@
 // the tensor cores (`wmma` 16x16x16, `signed char`); weights are (out, in)
 // int8 with one f32 scale per output channel, quantised once on the host;
 // LayerNorm scale/bias, biases and LayerScale are f32. The attention itself
-// (q k^T, softmax, P V) runs in T as in `vit_fused.cu`, whose attention core
-// this file shares (`vit_common.cuh`).
+// (q k^T, softmax, P V) runs in T on the CUDA cores (`attn_head`,
+// `vit_common.cuh`).
 //
 // Arithmetic, as in the TPU kernels. Activations are quantised per row:
 // s = max|y| * (1/127), s = 1 for a row of zeros, code = clip(rint(y / s),
@@ -50,14 +50,24 @@
 //    operations of the GELU block and 5/3 of the SwiGLU block. The fc2 sum of
 //    a chunk stays in an int32 (16, D) tile in shared memory; with more than
 //    one chunk an f32 tile beside it takes the rescaled sums.
-//  * Attention: as in `vit_fused.cu`, one block per (image, head); the per
-//    head context leaves in f32 (B, N, D) through device memory, and a second
-//    kernel quantises each row of it and computes the out projection,
-//    LayerScale and the residual.
+//  * Attention: one block per (image, head) (`attn_head` in
+//    `vit_common.cuh`) computes that head's K and V for all tokens, then
+//    walks the queries 16 rows at a time, the scores of 16 rows against all
+//    keys in shared memory (so P is taken against the row's final max). K and
+//    V stay in shared memory where they fit (N up to about 300 in f32, 510 in
+//    bf16 at the encoders' widths); beyond that (the patch-8 Kaiko models' 785 tokens)
+//    they go to a device-memory scratch of the block's own, from which the
+//    score and P V loops read them back through L1/L2. The per-head context
+//    leaves in f32 (B, N, D) through device memory, and a second kernel
+//    quantises each row of it and computes the out projection, LayerScale
+//    and the residual.
 //
 // Bound on the card: the projections at the int8 tensor-core rate, the
-// attention's two products at T's rate. This version is far from it for the
-// reasons given in `vit_fused.cu` (16-row tiles, weights restreamed from L2).
+// attention's two products at T's rate. This version is far from it: 16-row
+// tiles restream the weights from L2, the f64 LayerNorm and quantisation of a
+// row are redone for each of its heads, and q k^T and P V run on the CUDA
+// cores. The attention block of `vit_fused.cu` shows the way out (one
+// LayerNorm pass, GEMMs over all rows, tensor-core attention).
 //
 // Requirements (checked by the Python wrapper): head_dim 64, D % 64 == 0,
 // H / num_chunks a multiple of 64, 16-byte aligned contiguous tensors.
@@ -326,19 +336,25 @@ struct QkvInt8 {
   }
 };
 
-template <typename T>
+// ctx[b, :, h 64 : (h + 1) 64] of head h = blockIdx.x of image b =
+// blockIdx.y. KV_DEVICE: K and V go to the block's own part of `kv`
+// (`attn_kv_elems<T>(N)` elements per (image, head)) instead of shared memory.
+template <typename T, bool KV_DEVICE>
 __global__ void __launch_bounds__(kThreads)
 vit_attn_i8_kernel(const T* __restrict__ x, const float* __restrict__ ns,
                    const float* __restrict__ nb,
                    const signed char* __restrict__ wq,
                    const float* __restrict__ ws, const float* __restrict__ bqkv,
-                   float* __restrict__ ctx, int N, int D) {
+                   float* __restrict__ ctx, T* kv, int N, int D) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int h = blockIdx.x, b = blockIdx.y;
   const size_t image = static_cast<size_t>(b) * N * D;
+  T* kv_head = KV_DEVICE ? kv + (static_cast<size_t>(b) * gridDim.x + h) *
+                                    attn_kv_elems<T>(N)
+                         : nullptr;
   QkvInt8<T> qkv(x + image, ns, nb, wq, ws, bqkv, N, D,
-                 smem_raw + attn_core_bytes<T>(N));
-  attn_head<T, float, false>(qkv, ctx + image, h, N, D, smem_raw);
+                 smem_raw + attn_core_bytes<T>(N, !KV_DEVICE));
+  attn_head<T, float, KV_DEVICE>(qkv, ctx + image, h, N, D, smem_raw, kv_head);
 }
 
 // out = x + ls * (quant(ctx) Wp^T * scales + bp) for rows r0 .. r0 + 15.
@@ -541,8 +557,21 @@ vit_mlp_i8_kernel(const T* __restrict__ x, const float* __restrict__ ns,
 
 // ------------------------------------------------------------------ launch
 template <typename T>
-size_t attn_i8_smem(int N, int D) {
-  return attn_core_bytes<T>(N) + QuantSmem::bytes(D);
+size_t attn_i8_smem(int N, int D, bool kv_in_smem) {
+  return attn_core_bytes<T>(N, kv_in_smem) + QuantSmem::bytes(D);
+}
+
+// K and V stay in shared memory where they fit beside the rest.
+template <typename T>
+bool kv_in_smem(int N, int D) {
+  return attn_i8_smem<T>(N, D, true) <= kMaxSmem;
+}
+
+template <typename T>
+size_t attn_i8_kv_bytes(int B, int N, int D, int heads) {
+  return kv_in_smem<T>(N, D) ? 0
+                             : static_cast<size_t>(B) * heads *
+                                   attn_kv_elems<T>(N) * sizeof(T);
 }
 
 size_t mlp_i8_smem(int D, int chunks) {
@@ -550,22 +579,36 @@ size_t mlp_i8_smem(int D, int chunks) {
          static_cast<size_t>(chunks > 1 ? 2 : 1) * kBM * D * sizeof(int);
 }
 
+template <typename T, bool KV_DEVICE>
+cudaError_t launch_attn_core(const void* x, const float* ns, const float* nb,
+                             const signed char* wq, const float* ws,
+                             const float* bqkv, float* ctx, void* kv, int B,
+                             int N, int D, int heads, size_t smem,
+                             cudaStream_t stream) {
+  const cudaError_t rc = allow_smem(vit_attn_i8_kernel<T, KV_DEVICE>, smem);
+  if (rc != cudaSuccess) return rc;
+  vit_attn_i8_kernel<T, KV_DEVICE><<<dim3(heads, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), ns, nb, wq, ws, bqkv, ctx, static_cast<T*>(kv), N, D);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_attn_i8(const void* x, const float* ns, const float* nb,
                    const signed char* wq, const float* ws, const float* bqkv,
                    const signed char* pq, const float* ps, const float* bp,
-                   const float* ls, float* ctx, void* out, int B, int N, int D,
-                   int heads, cudaStream_t stream) {
+                   const float* ls, float* ctx, void* kv, void* out, int B,
+                   int N, int D, int heads, cudaStream_t stream) {
   if (heads * kHD != D || D % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem_a = attn_i8_smem<T>(N, D), smem_p = QuantSmem::bytes(D);
-  if (smem_a > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = allow_smem(vit_attn_i8_kernel<T>, smem_a);
+  const bool in_smem = kv_in_smem<T>(N, D);
+  const size_t smem_a = attn_i8_smem<T>(N, D, in_smem), smem_p = QuantSmem::bytes(D);
+  if (smem_a > kMaxSmem || (!in_smem && kv == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = allow_smem(vit_proj_i8_kernel<T>, smem_p);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  rc = allow_smem(vit_proj_i8_kernel<T>, smem_p);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  vit_attn_i8_kernel<T><<<dim3(heads, B), kThreads, smem_a, stream>>>(
-      static_cast<const T*>(x), ns, nb, wq, ws, bqkv, ctx, N, D);
-  rc = cudaGetLastError();
+  rc = in_smem ? launch_attn_core<T, false>(x, ns, nb, wq, ws, bqkv, ctx, kv, B,
+                                            N, D, heads, smem_a, stream)
+               : launch_attn_core<T, true>(x, ns, nb, wq, ws, bqkv, ctx, kv, B,
+                                           N, D, heads, smem_a, stream);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const int R = B * N;
   vit_proj_i8_kernel<T><<<(R + kBM - 1) / kBM, kThreads, smem_p, stream>>>(
@@ -616,23 +659,24 @@ int dispatch_mlp_i8(int act, const void* x, const float* ns, const float* nb,
 
 // dtype: 0 = f32, 1 = bf16 (x and out). Weight codes are int8 (out, in),
 // weight scales, norm scale/bias, biases and LayerScale f32. ctx is f32
-// scratch of x's shape.
+// scratch of x's shape; kv is scratch of `paths_vit_attn_i8_kv_bytes` bytes
+// (none when that is 0: K and V fit shared memory).
 extern "C" int paths_vit_attn_block_i8(
     const void* x, const float* norm_scale, const float* norm_bias,
     const signed char* qkv_q, const float* qkv_s, const float* qkv_b,
     const signed char* proj_q, const float* proj_s, const float* proj_b,
-    const float* ls, float* ctx, void* out, int B, int N, int D, int heads,
-    int dtype, void* stream) {
+    const float* ls, float* ctx, void* kv, void* out, int B, int N, int D,
+    int heads, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return launch_attn_i8<float>(x, norm_scale, norm_bias, qkv_q, qkv_s, qkv_b,
-                                   proj_q, proj_s, proj_b, ls, ctx, out, B, N,
-                                   D, heads, s);
+                                   proj_q, proj_s, proj_b, ls, ctx, kv, out, B,
+                                   N, D, heads, s);
     case 1:
       return launch_attn_i8<__nv_bfloat16>(x, norm_scale, norm_bias, qkv_q,
                                            qkv_s, qkv_b, proj_q, proj_s, proj_b,
-                                           ls, ctx, out, B, N, D, heads, s);
+                                           ls, ctx, kv, out, B, N, D, heads, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -662,9 +706,21 @@ extern "C" int paths_vit_mlp_block_i8(
   }
 }
 
+// Shared memory of the attention kernel for N tokens at width D: with K and
+// V in it where they fit, else without them.
 extern "C" long long paths_vit_attn_i8_smem_bytes(int N, int D, int dtype) {
-  return static_cast<long long>(dtype == 0 ? attn_i8_smem<float>(N, D)
-                                           : attn_i8_smem<__nv_bfloat16>(N, D));
+  return static_cast<long long>(
+      dtype == 0 ? attn_i8_smem<float>(N, D, kv_in_smem<float>(N, D))
+                 : attn_i8_smem<__nv_bfloat16>(N, D, kv_in_smem<__nv_bfloat16>(N, D)));
+}
+
+// Bytes of device memory K and V of every (image, head) need when they do
+// not fit shared memory, else 0.
+extern "C" long long paths_vit_attn_i8_kv_bytes(int B, int N, int D, int heads,
+                                                int dtype) {
+  return static_cast<long long>(
+      dtype == 0 ? attn_i8_kv_bytes<float>(B, N, D, heads)
+                 : attn_i8_kv_bytes<__nv_bfloat16>(B, N, D, heads));
 }
 
 extern "C" long long paths_vit_mlp_i8_smem_bytes(int D, int chunks) {

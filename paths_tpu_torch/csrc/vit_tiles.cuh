@@ -1,0 +1,929 @@
+// Tiled pieces of the ViT attention-block and whole-block kernels
+// (`vit_fused.cu`: `fused_attn_block`, `fused_block`): the LayerNorm
+// pre-pass, the GEMMs with their epilogue hooks, and the attention core that
+// streams K and V in key tiles. The design notes are at the top of
+// `vit_fused.cu`.
+//
+// Tensor cores. The bf16 projections use `wgmma` (m64n128k16, f32
+// accumulation) on tiles that TMA brings in, with a producer warp and
+// mbarriers in place of block-wide barriers (an `mma.sync` GEMM over the same
+// tiles, fed by `cp.async`, reached about half its rate on the H100). The
+// attention's q k^T and P V use `mma.sync.m16n8k16` fed by `ldmatrix` from a
+// `cp.async` double buffer: per head its products are 64 keys wide, and its
+// score fragments become P V's A operand in registers without passing
+// through shared memory. f32 (the parity mode) multiplies with FMAs on the
+// CUDA cores, no TF32.
+#pragma once
+
+#include <cuda.h>
+
+#include <type_traits>
+
+#include "vit_common.cuh"
+
+namespace paths_cuda {
+namespace tiles {
+
+using vit::kHD;
+
+// ------------------------------------------------------------------- PTX
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !valid
+// (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 and packed, the first in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Two f32 values rounded to bf16, stored as a pair.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T>
+constexpr bool kTensor = std::is_same<T, __nv_bfloat16>::value;
+
+// ------------------------------------------------------- LayerNorm pre-pass
+constexpr int kLnThreads = 256;
+constexpr int kLnRows = kLnThreads / 32;
+
+// y = LN(x) rounded to T, one warp per row of (R, D); D % (16 / sizeof T)
+// == 0. The statistics are taken once per row, in two passes over it. A row
+// of up to kLnPieces 16-byte pieces per lane (1280 bf16, 640 f32 values) is
+// read once into registers, all its loads in flight together; a longer row
+// is read again from the caches for each pass.
+constexpr int kLnPieces = 5;
+
+template <typename T>
+__device__ __forceinline__ void layernorm_rows(const T* __restrict__ x,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ bias,
+                                               T* __restrict__ y, int R, int D) {
+  constexpr int PL = Piece<T>::kLen;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnRows + threadIdx.x / 32;
+  if (row >= R) return;
+  const T* xr = x + static_cast<size_t>(row) * D;
+  T* yr = y + static_cast<size_t>(row) * D;
+  auto normalise = [&](int k, float (&v)[PL], float mu, float rstd) {
+#pragma unroll
+    for (int i = 0; i < PL; i += 4) {
+      const float4 sc = *reinterpret_cast<const float4*>(scale + k + i);
+      const float4 bi = *reinterpret_cast<const float4*>(bias + k + i);
+      v[i] = (v[i] - mu) * rstd * sc.x + bi.x;
+      v[i + 1] = (v[i + 1] - mu) * rstd * sc.y + bi.y;
+      v[i + 2] = (v[i + 2] - mu) * rstd * sc.z + bi.z;
+      v[i + 3] = (v[i + 3] - mu) * rstd * sc.w + bi.w;
+    }
+    Piece<T>::store(v, yr + k);
+  };
+  if (D <= 32 * PL * kLnPieces) {
+    float v[kLnPieces][PL];
+#pragma unroll
+    for (int j = 0; j < kLnPieces; ++j) {
+      const int k = (lane + 32 * j) * PL;
+      if (k < D) Piece<T>::load(xr + k, v[j]);
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnPieces; ++j)
+      if ((lane + 32 * j) * PL < D) {
+#pragma unroll
+        for (int i = 0; i < PL; ++i) s += v[j][i];
+      }
+    const float mu = vit::warp_sum(s) / D;
+    float var = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnPieces; ++j)
+      if ((lane + 32 * j) * PL < D) {
+#pragma unroll
+        for (int i = 0; i < PL; ++i) {
+          const float d = v[j][i] - mu;
+          var = fmaf(d, d, var);
+        }
+      }
+    const float rstd = rsqrtf(vit::warp_sum(var) / D + vit::kLnEps);
+#pragma unroll
+    for (int j = 0; j < kLnPieces; ++j) {
+      const int k = (lane + 32 * j) * PL;
+      if (k < D) normalise(k, v[j], mu, rstd);
+    }
+    return;
+  }
+  float s = 0.f;
+  for (int k = lane * PL; k < D; k += 32 * PL) {
+    float v[PL];
+    Piece<T>::load(xr + k, v);
+#pragma unroll
+    for (int i = 0; i < PL; ++i) s += v[i];
+  }
+  const float mu = vit::warp_sum(s) / D;
+  float var = 0.f;
+  for (int k = lane * PL; k < D; k += 32 * PL) {
+    float v[PL];
+    Piece<T>::load(xr + k, v);
+#pragma unroll
+    for (int i = 0; i < PL; ++i) {
+      const float d = v[i] - mu;
+      var = fmaf(d, d, var);
+    }
+  }
+  const float rstd = rsqrtf(vit::warp_sum(var) / D + vit::kLnEps);
+  for (int k = lane * PL; k < D; k += 32 * PL) {
+    float v[PL];
+    Piece<T>::load(xr + k, v);
+    normalise(k, v, mu, rstd);
+  }
+}
+
+// ----------------------------------------------------------- GEMM epilogues
+// The f32 value stored at (row, col) of out (M, N) for the accumulator `acc`;
+// the caller rounds it to T.
+struct EpiBias {              // acc + bias
+  const float* bias;
+  __device__ __forceinline__ float operator()(int, int col, float acc) const {
+    return acc + bias[col];
+  }
+};
+
+template <int ACT>
+struct EpiGelu {              // gelu(acc + bias)
+  const float* bias;
+  __device__ __forceinline__ float operator()(int, int col, float acc) const {
+    return vit::gelu<ACT>(acc + bias[col]);
+  }
+};
+
+template <typename T>
+struct EpiResidual {          // resid + (acc + bias) ls
+  const T* resid;             // (M, ld)
+  const float* bias;
+  const float* ls;
+  int ld;
+  __device__ __forceinline__ float operator()(int row, int col, float acc) const {
+    return to_float(resid[static_cast<size_t>(row) * ld + col]) +
+           (acc + bias[col]) * ls[col];
+  }
+};
+
+// ------------------------------------------------- bf16 GEMM: TMA + wgmma
+// out = epi(A W^T), A (M, K) and W (N, K) row-major bf16, as 128 x 128
+// output tiles. A block is 2 consumer warpgroups and one producer warp. One
+// thread of the producer streams 64-column slabs of A (128 x 64) and W
+// (128 x 64) by TMA into a ring of kWStages stages (128-byte swizzle; zeros
+// past the edges of M, N and K), each stage guarded by a "full" and an
+// "empty" mbarrier. Each consumer warpgroup multiplies 64 rows of the tile
+// with `wgmma.m64n128k16` (4 per slab, operands read from shared memory
+// through descriptors), keeps one group of products in flight, releases a
+// stage once its products are done, and applies the epilogue from
+// registers. Two blocks fit an SM (registers and shared memory), so one
+// block's epilogue runs beside the other's products: the epilogue (GELU of
+// fc1 above all) costs as much as a slab's products and would otherwise
+// idle the tensor cores.
+constexpr int kWBM = 128, kWBN = 128, kWBK = 64;
+constexpr int kWStages = 3;
+constexpr int kWThreads = 288;   // warpgroups 0, 1: consumers; warp 8: producer
+constexpr int kWABytes = kWBM * kWBK * 2;
+constexpr int kWStageBytes = kWABytes + kWBN * kWBK * 2;
+// the ring (1024-byte aligned, as the swizzle wants), then 2 kWStages barriers
+constexpr size_t kWSmem = 1024 + kWStages * kWStageBytes + 2 * kWStages * 8;
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also tells the barrier to expect `bytes` from TMA.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// The box of `map` at (column c0, row c1) into dst; completion counted on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            unsigned long long* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Descriptor of a K-major bf16 operand in shared memory written by TMA with
+// the 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.
+// Stepping 16 columns along K adds 32 bytes to the start address.
+__device__ __forceinline__ unsigned long long sw128_desc(const void* p) {
+  const unsigned long long addr = smem_u32(p);
+  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 128, f32) += A (64 x 16) B (16 x 128), both bf16 in shared memory
+// behind the descriptors da and db.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                unsigned long long da,
+                                                unsigned long long db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(1));
+}
+
+template <typename Epi>
+__device__ __forceinline__ void gemm_tma_block(const CUtensorMap* ma,
+                                               const CUtensorMap* mw,
+                                               __nv_bfloat16* __restrict__ out,
+                                               int M, int N, int K, int m0,
+                                               int n0, Epi epi,
+                                               unsigned char* smem_raw) {
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(smem_raw) + 1023) / 1024 * 1024);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + kWStages * kWStageBytes);
+  unsigned long long* empty = full + kWStages;
+  const int t = threadIdx.x, wg = t / 128, tw = t % 128;
+  const int KT = (K + kWBK - 1) / kWBK;
+  if (t == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {   // producer
+    if (t == 256) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % kWStages;
+        if (kt >= kWStages) mbar_wait(&empty[s], ((kt / kWStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kWStageBytes);
+        unsigned char* sa = ring + s * kWStageBytes;
+        tma_load_2d(sa, ma, &full[s], kt * kWBK, m0);
+        tma_load_2d(sa + kWABytes, mw, &full[s], kt * kWBK, n0);
+      }
+    }
+    return;
+  }
+
+  const int c = wg;   // rows 64 c .. 64 c + 63 of the tile
+  float acc[kWBN / 2];
+#pragma unroll
+  for (int i = 0; i < kWBN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kWStages;
+    mbar_wait(&full[s], (kt / kWStages) & 1);
+    const unsigned char* sa = ring + s * kWStageBytes + c * 64 * 128;
+    const unsigned char* sw = ring + s * kWStageBytes + kWABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWBK / 16; ++kk)
+      wgmma_m64n128k16(acc, sw128_desc(sa + kk * 32), sw128_desc(sw + kk * 32));
+    wgmma_commit();
+    wgmma_wait<1>();   // the products of slab kt - 1 are done: release it
+    if (kt > 0 && tw == 0) mbar_arrive(&empty[(kt - 1) % kWStages]);
+  }
+  wgmma_wait<0>();
+
+  // acc[4 j + e]: row 16 w + g (e 0, 1) or + 8 (e 2, 3), column 8 j + 2 tq
+  // + e % 2, as an `mma.sync` accumulator fragment per 8 columns
+  const int w = tw / 32, lane = tw % 32, g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = m0 + c * 64 + w * 16 + g + half * 8;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < kWBN / 8; ++j) {
+      const int col = n0 + j * 8 + tq * 2;
+      if (col < N)
+        store2(out + static_cast<size_t>(row) * N + col,
+               epi(row, col, acc[4 * j + 2 * half]),
+               epi(row, col + 1, acc[4 * j + 2 * half + 1]));
+    }
+  }
+}
+
+// --------------------------------------------------- f32 GEMM: CUDA cores
+// out = epi(A W^T) in f32 for one 128 x 128 tile, 16 x 16 threads of 8 x 8
+// outputs (rows ty 8 + i, columns tx + 16 j; a quarter warp reads one A row,
+// a broadcast, and 8 neighbouring W rows). Both operands stream in 64-byte
+// rows (16 values of the contraction) through a ring of kStages `cp.async`
+// stages; rows are 80 bytes apart in shared memory, so that float4 reads of 8
+// neighbouring rows fall on distinct banks. Rows past M or N are read as
+// zeros; K % 16 == 0.
+constexpr int kTM = 128, kTN = 128;
+constexpr int kBK = 16;
+constexpr int kPitch = 80;
+constexpr int kStages = 4;
+constexpr int kF32Threads = 256;
+constexpr int kStageBytes = (kTM + kTN) * kPitch;
+constexpr size_t kF32Smem = static_cast<size_t>(kStages) * kStageBytes;
+
+template <typename Epi>
+__device__ __forceinline__ void gemm_f32_block(const float* __restrict__ A,
+                                               const float* __restrict__ W,
+                                               int M, int N, int K, int m0,
+                                               int n0, float* __restrict__ out,
+                                               Epi epi, unsigned char* smem) {
+  const int t = threadIdx.x;
+  // stage s <- contraction columns [kt 16, kt 16 + 16) of both tiles: 128
+  // rows x 4 pieces of 16 bytes each
+  auto load = [&](int s, int kt) {
+    unsigned char* sa = smem + s * kStageBytes;
+    unsigned char* sw = sa + kTM * kPitch;
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int i = 0; i < kTM * 4 / kF32Threads; ++i) {
+      const int c = t + i * kF32Threads;
+      const int r = c / 4, piece = c % 4;
+      const int ar = m0 + r, wr = n0 + r;
+      cp_async16(sa + r * kPitch + piece * 16,
+                 A + static_cast<size_t>(ar < M ? ar : 0) * K + k0 + piece * 4,
+                 ar < M);
+      cp_async16(sw + r * kPitch + piece * 16,
+                 W + static_cast<size_t>(wr < N ? wr : 0) * K + k0 + piece * 4,
+                 wr < N);
+    }
+  };
+
+  const int KT = K / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
+  }
+  const int ty = t / 16, tx = t % 16;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage kt has landed; stage kt - 1 is free
+    if (kt + kStages - 1 < KT) load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    cp_async_commit();
+    const unsigned char* sa = smem + (kt % kStages) * kStageBytes;
+    const unsigned char* sw = sa + kTM * kPitch;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 w[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        w[j] = *reinterpret_cast<const float4*>(sw + (tx + 16 * j) * kPitch + kk * 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(sa + (ty * 8 + i) * kPitch + kk * 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(a.x, w[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, w[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, w[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, w[j].w, acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + ty * 8 + i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col < N) out[static_cast<size_t>(row) * N + col] = epi(row, col, acc[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------- attention, streamed keys
+// ctx[b, q0 .. q0 + 63, h 64 : (h + 1) 64] = softmax(q k^T / 8) v for head h
+// of image b, with q, k, v read from the (B, N, 3D) qkv scratch (columns
+// [q | k | v], each split by head). K and V stream through shared memory in
+// tiles of 64 keys, so any N works. Two passes over the keys: the first finds
+// each row's max (and, for NORM_FIRST, its row sum, rescaled as the max
+// grows); the second takes P = exp(s - m) against that final max, so P is
+// rounded to T where the TPU kernel rounds it. NORM_FIRST false: P rounded,
+// the context divided afterwards by the row sum of the unrounded P, then
+// rounded. NORM_FIRST true: P times the reciprocal of its row sum, rounded,
+// and P V rounded. exp is the fast `__expf` (within 2 + 1.2 |x| f32 ulps of
+// exp(x), far below a bf16 rounding where P matters) and the divide by the
+// row sum a multiply by its reciprocal: the accurate forms cost more than the
+// products. Keys past N get a score of
+// -1e30 (P = 0) and zero rows of V; rows past N are computed and not stored.
+constexpr int kQT = 64;    // query rows per block (f32)
+constexpr int kQTBf16 = 128;   // query rows per block (bf16)
+constexpr int kKT = 64;    // keys per streamed tile
+constexpr int kAttnThreadsBf16 = 128;   // 4 warps of 32 query rows
+constexpr int kAttnThreadsF32 = 256;    // 16 x 16 threads
+constexpr int kAP = kHD + 8;            // row pitch of a bf16 tile (144 bytes)
+constexpr int kAPF = kHD + 4;           // row pitch of an f32 tile (272 bytes)
+constexpr size_t kAttnSmemBf16 = 4 * kKT * kAP * sizeof(__nv_bfloat16);   // 2 K, 2 V
+constexpr size_t kAttnSmemF32 = 4 * kQT * kAPF * sizeof(float);           // Q, K, V, P
+
+// 64 rows x 64 columns of T from qkv rows row0.. of image b, column col, into
+// dst (row pitch `pitch` elements); rows past N are zeros.
+template <typename T, int THREADS>
+__device__ __forceinline__ void load_head_tile(T* dst, int pitch,
+                                               const T* __restrict__ qkv,
+                                               int b, int N, int ld, int row0,
+                                               int col) {
+  constexpr int PE = 16 / static_cast<int>(sizeof(T));
+  constexpr int PIECES = kKT * kHD / PE;
+#pragma unroll
+  for (int i = 0; i < PIECES / THREADS; ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    const int r = c / (kHD / PE), p = c % (kHD / PE);
+    const int row = row0 + r;
+    cp_async16(dst + r * pitch + p * PE,
+               qkv + (static_cast<size_t>(b) * N + (row < N ? row : 0)) * ld +
+                   col + p * PE,
+               row < N);
+  }
+}
+
+// bf16 on the tensor cores: 128 query rows per block, 4 warps, warp w owning
+// rows 32 w + 16 mi .. + 15 (mi < 2) of the tile, so that every K or V
+// fragment read from shared memory feeds two `mma`s and every K and V tile
+// brought in from L2 serves 128 rows. S (32 x 64 keys per warp) stays in
+// registers as accumulator fragments, whose layout is that of the A operand
+// of P V once packed to bf16 pairs. Shared memory: K tiles 0 and 1, V tiles
+// 0 and 1; Q passes through the V tiles before the first pass.
+template <bool NORM_FIRST>
+__device__ __forceinline__ void attn_tile_bf16(
+    const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ ctx,
+    int b, int h, int q0, int N, int D, unsigned char* smem) {
+  using bf16 = __nv_bfloat16;
+  constexpr int TH = kAttnThreadsBf16;
+  bf16* base = reinterpret_cast<bf16*>(smem);
+  auto Ks = [&](int j) { return base + (j & 1) * kKT * kAP; };
+  auto Vs = [&](int j) { return base + (2 + (j & 1)) * kKT * kAP; };
+  bf16* Qs = Vs(0);   // 128 rows: V tiles 0 and 1
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int ld = 3 * D, kcol = D + h * kHD, vcol = 2 * D + h * kHD;
+  const int KT = (N + kKT - 1) / kKT;
+  constexpr unsigned kAll = 0xffffffffu;
+
+  // s[mi][nt][e]: rows 32 warp + 16 mi + g (e 0, 1) or + 8 (e 2, 3), keys
+  // key0 + 8 nt + 2 tq + e % 2
+  auto scores = [&](float (&s)[2][8][4], const unsigned (&qf)[2][4][4],
+                    const bf16* K, int key0) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mi][nt][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kHD / 16; ++kc) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned kf[4];
+        ldmatrix_x4(kf, K + (np * 16 + lane % 8 + (lane / 16) * 8) * kAP + kc * 16 +
+                            ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(s[mi][2 * np], qf[mi][kc], kf[0], kf[1]);
+          mma_bf16(s[mi][2 * np + 1], qf[mi][kc], kf[2], kf[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mi][nt][e] *= 0.125f;   // 1 / sqrt(64)
+    if (key0 + kKT > N) {   // the ragged last tile
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (key0 + nt * 8 + tq * 2 + e % 2 >= N) s[mi][nt][e] = kNegInf;
+    }
+  };
+
+  // ---- pass 1: row max (and row sum)
+  unsigned qf[2][4][4];
+  float m[2][2], l[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mi][r] = kNegInf;
+      l[mi][r] = 0.f;
+    }
+  load_head_tile<bf16, TH>(Qs, kAP, qkv, b, N, ld, q0, h * kHD);
+  load_head_tile<bf16, TH>(Qs + kKT * kAP, kAP, qkv, b, N, ld, q0 + kKT, h * kHD);
+  load_head_tile<bf16, TH>(Ks(0), kAP, qkv, b, N, ld, 0, kcol);
+  cp_async_commit();
+  for (int j = 0; j < KT; ++j) {
+    if (j + 1 < KT)
+      load_head_tile<bf16, TH>(Ks(j + 1), kAP, qkv, b, N, ld, (j + 1) * kKT, kcol);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int kc = 0; kc < kHD / 16; ++kc)
+          ldmatrix_x4(qf[mi][kc], Qs + (warp * 32 + mi * 16 + lane % 16) * kAP +
+                                      kc * 16 + (lane / 16) * 8);
+    }
+    float s[2][8][4];
+    scores(s, qf, Ks(j), j * kKT);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      float mx[2] = {m[mi][0], m[mi][1]};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mi][nt][0], s[mi][nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mi][nt][2], s[mi][nt][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kAll, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kAll, mx[r], 2));
+      }
+      if (NORM_FIRST) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[mi][r] *= __expf(m[mi][r] - mx[r]);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          l[mi][0] += __expf(s[mi][nt][0] - mx[0]) + __expf(s[mi][nt][1] - mx[0]);
+          l[mi][1] += __expf(s[mi][nt][2] - mx[1]) + __expf(s[mi][nt][3] - mx[1]);
+        }
+      }
+      m[mi][0] = mx[0];
+      m[mi][1] = mx[1];
+    }
+    __syncthreads();   // every warp is done with this K tile (and Q)
+  }
+  if (NORM_FIRST) {   // l becomes 1 / the row sum
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[mi][r] += __shfl_xor_sync(kAll, l[mi][r], 1);
+        l[mi][r] += __shfl_xor_sync(kAll, l[mi][r], 2);
+        l[mi][r] = 1.f / l[mi][r];
+      }
+  }
+
+  // ---- pass 2: P against the final max, P V
+  float o[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mi][dt][e] = 0.f;
+  float lsum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  load_head_tile<bf16, TH>(Ks(0), kAP, qkv, b, N, ld, 0, kcol);
+  load_head_tile<bf16, TH>(Vs(0), kAP, qkv, b, N, ld, 0, vcol);
+  cp_async_commit();
+  for (int j = 0; j < KT; ++j) {
+    if (j + 1 < KT) {
+      load_head_tile<bf16, TH>(Ks(j + 1), kAP, qkv, b, N, ld, (j + 1) * kKT, kcol);
+      load_head_tile<bf16, TH>(Vs(j + 1), kAP, qkv, b, N, ld, (j + 1) * kKT, vcol);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float s[2][8][4];
+    scores(s, qf, Ks(j), j * kKT);
+    const bf16* V = Vs(j);
+#pragma unroll
+    for (int kc = 0; kc < kKT / 16; ++kc) {   // keys 16 kc .. 16 kc + 15
+      unsigned pf[2][4];   // their P as an A operand
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int nt = 2 * kc + half;
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[e] = __expf(s[mi][nt][e] - m[mi][e / 2]);
+          if (NORM_FIRST) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) p[e] *= l[mi][e / 2];
+          } else {
+            lsum[mi][0] += p[0] + p[1];
+            lsum[mi][1] += p[2] + p[3];
+          }
+          pf[mi][half * 2] = pack_bf16(p[0], p[1]);
+          pf[mi][half * 2 + 1] = pack_bf16(p[2], p[3]);
+        }
+#pragma unroll
+      for (int dp = 0; dp < kHD / 16; ++dp) {
+        unsigned vf[4];
+        ldmatrix_x4_trans(vf, V + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kAP +
+                                  dp * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(o[mi][2 * dp], pf[mi], vf[0], vf[1]);
+          mma_bf16(o[mi][2 * dp + 1], pf[mi], vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this K and V tile
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!NORM_FIRST) {
+        lsum[mi][r] += __shfl_xor_sync(kAll, lsum[mi][r], 1);
+        lsum[mi][r] += __shfl_xor_sync(kAll, lsum[mi][r], 2);
+      }
+      const int row = q0 + warp * 32 + mi * 16 + g + r * 8;
+      if (row >= N) continue;
+      bf16* dst = ctx + (static_cast<size_t>(b) * N + row) * D + h * kHD + tq * 2;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        float v0 = o[mi][dt][2 * r], v1 = o[mi][dt][2 * r + 1];
+        if (!NORM_FIRST) {
+          v0 = v0 / lsum[mi][r];
+          v1 = v1 / lsum[mi][r];
+        }
+        store2(dst + dt * 8, v0, v1);
+      }
+    }
+}
+
+// f32 on the CUDA cores: 16 x 16 threads; thread (ty, tx) owns query rows
+// 4 ty .. 4 ty + 3 and, of each 64-key tile, keys tx + 16 j (scores) or, of
+// the head, columns tx + 16 j (context), j < 4. P passes through shared
+// memory. Same two passes as the bf16 version; rounding to f32 is no
+// rounding, so the two NORM_FIRST orders differ only in where the divide is.
+template <bool NORM_FIRST>
+__device__ __forceinline__ void attn_tile_f32(const float* __restrict__ qkv,
+                                              float* __restrict__ ctx, int b,
+                                              int h, int q0, int N, int D,
+                                              unsigned char* smem) {
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + kQT * kAPF;
+  float* Vs = Ks + kKT * kAPF;
+  float* Ps = Vs + kKT * kAPF;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int ld = 3 * D, kcol = D + h * kHD, vcol = 2 * D + h * kHD;
+  const int KT = (N + kKT - 1) / kKT;
+  constexpr unsigned kAll = 0xffffffffu;
+
+  auto scores = [&](float (&s)[4][4], int key0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < kHD; d += 4) {
+      float4 k[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        k[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * kAPF + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 q = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * kAPF + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(q.x, k[j].x, s[i][j]);
+          s[i][j] = fmaf(q.y, k[j].y, s[i][j]);
+          s[i][j] = fmaf(q.z, k[j].z, s[i][j]);
+          s[i][j] = fmaf(q.w, k[j].w, s[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[i][j] = key0 + tx + 16 * j < N ? s[i][j] * 0.125f : kNegInf;
+  };
+  // max or sum over the 16 threads of a row group (one half warp)
+  auto row_max = [&](float v) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
+    return v;
+  };
+  auto row_sum = [&](float v) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
+    return v;
+  };
+
+  // ---- pass 1
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  load_head_tile<float, kAttnThreadsF32>(Qs, kAPF, qkv, b, N, ld, q0, h * kHD);
+  for (int j = 0; j < KT; ++j) {
+    load_head_tile<float, kAttnThreadsF32>(Ks, kAPF, qkv, b, N, ld, j * kKT, kcol);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float s[4][4];
+    scores(s, j * kKT);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float mx = fmaxf(m[i], row_max(fmaxf(fmaxf(s[i][0], s[i][1]),
+                                                 fmaxf(s[i][2], s[i][3]))));
+      if (NORM_FIRST) {
+        l[i] *= __expf(m[i] - mx);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) l[i] += __expf(s[i][jj] - mx);
+      }
+      m[i] = mx;
+    }
+    __syncthreads();   // the K tile is free
+  }
+  if (NORM_FIRST) {   // l becomes 1 / the row sum
+#pragma unroll
+    for (int i = 0; i < 4; ++i) l[i] = 1.f / row_sum(l[i]);
+  }
+
+  // ---- pass 2
+  float o[4][4], lsum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lsum[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+  }
+  for (int j = 0; j < KT; ++j) {
+    load_head_tile<float, kAttnThreadsF32>(Ks, kAPF, qkv, b, N, ld, j * kKT, kcol);
+    load_head_tile<float, kAttnThreadsF32>(Vs, kAPF, qkv, b, N, ld, j * kKT, vcol);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float s[4][4];
+    scores(s, j * kKT);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float p = __expf(s[i][jj] - m[i]);
+        if (NORM_FIRST)
+          p *= l[i];
+        else
+          lsum[i] += p;
+        Ps[(ty * 4 + i) * kAPF + tx + 16 * jj] = p;
+      }
+    __syncthreads();   // P is complete
+#pragma unroll 4
+    for (int kk = 0; kk < kKT; kk += 4) {
+      float4 p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * kAPF + kk);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj;
+        const float v0 = Vs[kk * kAPF + c], v1 = Vs[(kk + 1) * kAPF + c];
+        const float v2 = Vs[(kk + 2) * kAPF + c], v3 = Vs[(kk + 3) * kAPF + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][jj] = fmaf(p[i].x, v0, o[i][jj]);
+          o[i][jj] = fmaf(p[i].y, v1, o[i][jj]);
+          o[i][jj] = fmaf(p[i].z, v2, o[i][jj]);
+          o[i][jj] = fmaf(p[i].w, v3, o[i][jj]);
+        }
+      }
+    }
+    __syncthreads();   // K, V and P are free
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    const float sum = NORM_FIRST ? 1.f : row_sum(lsum[i]);
+    if (row >= N) continue;
+    float* dst = ctx + (static_cast<size_t>(b) * N + row) * D + h * kHD;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      dst[tx + 16 * jj] = NORM_FIRST ? o[i][jj] : o[i][jj] / sum;
+  }
+}
+
+}  // namespace tiles
+}  // namespace paths_cuda

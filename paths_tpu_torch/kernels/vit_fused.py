@@ -27,10 +27,12 @@ compute dtype before the second LayerNorm.
 
 A CUDA tensor goes to the kernels or the call raises; a CPU tensor goes to
 the plain versions. The kernels take head_dim 64, D a multiple of 64, a hidden
-width that is a multiple of 32, and as many tokens as let one head's K and V
-fit a block's shared memory (340 in f32, 608 in bf16): the zoo's ViTs at
-224 px with patch 14 or 16 all fit; the patch-8 Kaiko models (785 tokens) do
-not and are refused.
+width that is a multiple of 32, and any number of tokens: the attention of
+`fused_attn_block` and `fused_block` streams K and V in tiles of 64 keys, so
+the patch-8 Kaiko models (785 tokens) run as the others do. Those two
+wrappers allocate the scratch their launches pass through device memory (LN
+output and context, qkv, and for `fused_block` x after the attention half and
+the hidden activation).
 """
 from __future__ import annotations
 
@@ -189,11 +191,9 @@ def _vector(x, name, v: Optional[torch.Tensor], length: int) -> torch.Tensor:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "paths_vit_attn_block": ([_P] * 10 + [_I] * 5 + [_P], ctypes.c_int),
+    "paths_vit_attn_block": ([_P] * 11 + [_I] * 5 + [_P], ctypes.c_int),
     "paths_vit_mlp_block": ([_P] * 9 + [_I] * 5 + [_P], ctypes.c_int),
-    "paths_vit_block": ([_P] * 17 + [_I] * 7 + [_P], ctypes.c_int),
-    "paths_vit_attn_smem_bytes": ([_I, _I], ctypes.c_longlong),
-    "paths_vit_block_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "paths_vit_block": ([_P] * 20 + [_I] * 7 + [_P], ctypes.c_int),
     "paths_vit_mlp_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "paths_vit_max_smem_bytes": ([], ctypes.c_longlong),
     "paths_cuda_error_string": ([_I], ctypes.c_char_p),
@@ -206,26 +206,24 @@ def _library() -> ctypes.CDLL:
     return build.load_with_signatures("vit_fused", _SIGNATURES)
 
 
-def _check_smem(entry: str, sizes, dtype: torch.dtype, what: str) -> None:
-    """Refuse a shape whose shared-memory need, as the library's `entry`
-    computes it from `sizes` (an int or a tuple of ints), is more than a
+def _check_smem(d: int, dtype: torch.dtype) -> None:
+    """Refuse a width whose MLP accumulator needs more shared memory than a
     block may have."""
     lib = _library()
-    sizes = sizes if isinstance(sizes, tuple) else (sizes,)
-    need, limit = getattr(lib, entry)(*sizes, DTYPES[dtype]), \
+    need, limit = lib.paths_vit_mlp_smem_bytes(d, DTYPES[dtype]), \
         lib.paths_vit_max_smem_bytes()
     if need > limit:
-        raise ValueError(f"{what} in {dtype} needs {need} bytes of shared "
-                         f"memory, a block has {limit}")
+        raise ValueError(f"the accumulator for D {d} in {dtype} needs {need} "
+                         f"bytes of shared memory, a block has {limit}")
 
 
 # ----------------------------------------------------------------- wrappers
 
 def fused_attn_block(x, norm_scale, norm_bias, qkv_w, qkv_b, proj_w, proj_b,
                      ls=None, *, num_heads: int) -> torch.Tensor:
-    """Kernel #4; see the module docstring. Each launch adds one to
-    `fused_attn_block.launches` (one launch runs the per-head attention
-    kernel and the out-projection kernel on the same stream)."""
+    """Kernel #4; see the module docstring. Each call adds one to
+    `fused_attn_block.launches` (one call runs the LayerNorm, qkv,
+    attention and out-projection kernels on the same stream)."""
     if x.device.type == "cpu":
         return fused_attn_block_reference(x, norm_scale, norm_bias, qkv_w,
                                           qkv_b, proj_w, proj_b, ls,
@@ -245,15 +243,14 @@ def fused_attn_block(x, norm_scale, norm_bias, qkv_w, qkv_b, proj_w, proj_b,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    _check_smem("paths_vit_attn_smem_bytes", n, x.dtype,
-                f"one head's K and V for {n} tokens")
-    ctx = torch.empty_like(x)    # per-head contexts, read by the projection
+    act = torch.empty_like(x)    # LN(x), then the per-head contexts
+    qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
     ns, nb, qb, pb, lsv = vecs
     build.launch(_library(), "paths_vit_attn_block", x, x.data_ptr(),
                  ns.data_ptr(), nb.data_ptr(), qkv_w.data_ptr(), qb.data_ptr(),
                  proj_w.data_ptr(), pb.data_ptr(), lsv.data_ptr(),
-                 ctx.data_ptr(), out.data_ptr(), b, n, d, num_heads,
-                 DTYPES[x.dtype])
+                 act.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, n, d,
+                 num_heads, DTYPES[x.dtype])
     fused_attn_block.launches += 1
     return out
 
@@ -276,8 +273,7 @@ def _mlp(counter, x, norm_scale, norm_bias, fc1_w, fc1_b, fc2_w, fc2_b, ls,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    _check_smem("paths_vit_mlp_smem_bytes", d, x.dtype,
-                f"the accumulator for D {d}")
+    _check_smem(d, x.dtype)
     build.launch(_library(), "paths_vit_mlp_block", x, x.data_ptr(),
                  ns.data_ptr(), nb.data_ptr(), fc1_w.data_ptr(), b1.data_ptr(),
                  fc2_w.data_ptr(), b2.data_ptr(), lsv.data_ptr(),
@@ -311,9 +307,9 @@ def fused_swiglu_mlp_block(x, norm_scale, norm_bias, fc1_w, fc1_b, fc2_w,
 
 def fused_block(x, blk: dict, *, num_heads: int,
                 exact_gelu: bool = True) -> torch.Tensor:
-    """Kernel #7: one whole pre-norm block with a GELU MLP in a single
-    launch; `blk` as in `fused_block_reference`. x after the attention half
-    stays in shared memory. Each launch adds one to `fused_block.launches`."""
+    """Kernel #7: one whole pre-norm block with a GELU MLP, as one fixed
+    sequence of launches on the current stream; `blk` as in
+    `fused_block_reference`. Each call adds one to `fused_block.launches`."""
     if x.device.type == "cpu":
         return fused_block_reference(x, blk, num_heads=num_heads,
                                      exact_gelu=exact_gelu)
@@ -345,18 +341,17 @@ def fused_block(x, blk: dict, *, num_heads: int,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    _check_smem("paths_vit_attn_smem_bytes", n, x.dtype,
-                f"one head's K and V for {n} tokens")
-    _check_smem("paths_vit_block_smem_bytes", (n, d), x.dtype,
-                f"a 16-row tile of x and its accumulator for D {d}")
-    ctx = torch.empty_like(x)    # per-head contexts, read by the second phase
+    act = torch.empty_like(x)    # LN1(x), the contexts, then LN2(x1)
+    x1 = torch.empty_like(x)     # x after the attention half
+    qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
+    h = torch.empty((b, n, hidden), dtype=x.dtype, device=x.device)
     n1s, n1b, qb, pb, ls1, n2s, n2b, b1, b2, ls2 = (v.data_ptr() for v in vecs)
     build.launch(_library(), "paths_vit_block", x, x.data_ptr(), n1s, n1b,
                  at["qkv_w"].data_ptr(), qb, at["proj_w"].data_ptr(), pb, ls1,
                  n2s, n2b, ml["fc1_w"].data_ptr(), b1, ml["fc2_w"].data_ptr(),
-                 b2, ls2, ctx.data_ptr(), out.data_ptr(), b, n, d, num_heads,
-                 hidden, ACTS["gelu" if exact_gelu else "gelu_tanh"],
-                 DTYPES[x.dtype])
+                 b2, ls2, act.data_ptr(), qkv.data_ptr(), x1.data_ptr(),
+                 h.data_ptr(), out.data_ptr(), b, n, d, num_heads, hidden,
+                 ACTS["gelu" if exact_gelu else "gelu_tanh"], DTYPES[x.dtype])
     fused_block.launches += 1
     return out
 

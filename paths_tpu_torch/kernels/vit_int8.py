@@ -39,8 +39,11 @@ once, so that a different summation order does not move a code.
 
 A CUDA tensor goes to the kernels or the call raises; a CPU tensor goes to the
 plain versions. The kernels take head_dim 64, D a multiple of 64, hidden /
-num_chunks a multiple of 64, and as many tokens as let one head's K and V fit
-a block's shared memory.
+num_chunks a multiple of 64, and as many tokens as let the scores of 16 query
+rows against all keys fit a block's shared memory (over 2000): one head's K
+and V stay in shared memory where they fit (about 300 tokens in f32, 510 in bf16
+at the encoders' widths) and otherwise go to a device-memory scratch that the
+attention wrapper allocates, so the patch-8 Kaiko models (785 tokens) run.
 """
 from __future__ import annotations
 
@@ -285,9 +288,10 @@ def mlp_output_quantum(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "paths_vit_attn_block_i8": ([_P] * 12 + [_I] * 5 + [_P], ctypes.c_int),
+    "paths_vit_attn_block_i8": ([_P] * 13 + [_I] * 5 + [_P], ctypes.c_int),
     "paths_vit_mlp_block_i8": ([_P] * 11 + [_I] * 6 + [_P], ctypes.c_int),
     "paths_vit_attn_i8_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "paths_vit_attn_i8_kv_bytes": ([_I] * 5, ctypes.c_longlong),
     "paths_vit_mlp_i8_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "paths_vit_max_smem_bytes": ([], ctypes.c_longlong),
     "paths_cuda_error_string": ([_I], ctypes.c_char_p),
@@ -354,16 +358,21 @@ def fused_attn_block_i8(x, norm_scale, norm_bias, qkv_wq, proj_wq, qkv_b,
     if x.numel() == 0:
         return out
     lib = _library()
-    _check_smem(lib.paths_vit_attn_i8_smem_bytes(n, d, DTYPES[x.dtype]),
-                f"one head's K and V for {n} tokens in {x.dtype}")
-    # per-head contexts in f32, read by the projection
+    dt = DTYPES[x.dtype]
+    _check_smem(lib.paths_vit_attn_i8_smem_bytes(n, d, dt),
+                f"the scores of 16 rows against {n} keys in {x.dtype}")
+    # per-head contexts in f32, read by the projection; K and V of every
+    # (image, head) where they do not fit shared memory
     ctx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    kv_bytes = lib.paths_vit_attn_i8_kv_bytes(b, n, d, num_heads, dt)
+    kv = torch.empty(kv_bytes, dtype=torch.uint8, device=x.device) \
+        if kv_bytes else None
     build.launch(lib, "paths_vit_attn_block_i8", x, x.data_ptr(), ns.data_ptr(),
                  nb.data_ptr(), qkv_wq["q"].data_ptr(), qkv_wq["s"].data_ptr(),
                  qb.data_ptr(), proj_wq["q"].data_ptr(),
                  proj_wq["s"].data_ptr(), pb.data_ptr(), lsv.data_ptr(),
-                 ctx.data_ptr(), out.data_ptr(), b, n, d, num_heads,
-                 DTYPES[x.dtype])
+                 ctx.data_ptr(), None if kv is None else kv.data_ptr(),
+                 out.data_ptr(), b, n, d, num_heads, dt)
     fused_attn_block_i8.launches += 1
     return out
 

@@ -197,9 +197,11 @@ def test_mha_kernel_route_gradients_match_plain_route(card):
 from paths_tpu_torch.kernels import vit_fused as tvf  # noqa: E402
 
 VIT_F32_ATOL = 1e-4
-VIT_SHAPES = [  # (B, N, D, heads, hidden): ragged small, UNI, Virchow2, Kaiko-S
+VIT_SHAPES = [  # (B, N, D, heads, hidden): ragged small, UNI, Virchow2,
+    # Kaiko-S/16, Kaiko-B/8 (785 tokens), and a length that is no multiple of
+    # any tile
     (3, 50, 128, 2, 512), (2, 197, 1024, 16, 4096), (2, 261, 1280, 20, 6912),
-    (2, 197, 384, 6, 1536)]
+    (2, 197, 384, 6, 1536), (2, 785, 768, 12, 3072), (3, 131, 128, 2, 512)]
 
 
 def _vit_args(b, n, d, hidden, packed, dtype, device, ls=True):
@@ -287,9 +289,12 @@ def test_vit_kernels_refuse_what_they_do_not_take(card):
                              *attn[4:], num_heads=2)
     with pytest.raises(ValueError, match="contiguous"):
         tvf.fused_attn_block(p["x"].transpose(0, 1), *attn[1:], num_heads=2)
+    # 785 tokens (the patch-8 Kaiko models): taken, and held to the plain
+    # version
     long = _vit_args(1, 785, 128, 256, 1, torch.float32, card)
-    with pytest.raises(ValueError, match="shared memory"):
-        tvf.fused_attn_block(long["x"], *attn[1:], num_heads=2)
+    _vit_close(tvf.fused_attn_block(long["x"], *attn[1:], num_heads=2),
+               tvf.fused_attn_block_reference(long["x"], *attn[1:], num_heads=2),
+               torch.float32)
     with pytest.raises(ValueError, match="layout"):
         tvf.fused_mlp_block(p["x"], p["ns"], p["nb"], p["fc1_w"].T.contiguous(),
                             p["fc1_b"], p["fc2_w"], p["fc2_b"], p["ls"])
@@ -337,14 +342,13 @@ def test_vit_block_kernel_refusals(card):
     p = _vit_args(2, 20, 128, 256, 1, torch.float32, card)
     with pytest.raises(ValueError, match="head_dim"):
         tvf.fused_block(p["x"], _block_tree(p), num_heads=4)
-    long = _vit_args(1, 785, 128, 256, 1, torch.float32, card)
-    with pytest.raises(ValueError, match="shared memory"):
-        tvf.fused_block(long["x"], _block_tree(p), num_heads=2)
-    # a width whose 16-row tile of x and accumulator exceed a block's
-    # shared memory: no grid of this kernel fits the card
-    wide = _vit_args(1, 20, 2048, 256, 1, torch.float32, card)
-    with pytest.raises(ValueError, match="shared memory"):
-        tvf.fused_block(wide["x"], _block_tree(wide), num_heads=32)
+    # 785 tokens and a width of 2048 are taken now (K and V stream in key
+    # tiles; no tile of the block depends on D) and held to the plain version
+    for shape, heads in (((1, 785, 128), 2), ((1, 20, 2048), 32)):
+        q = _vit_args(*shape, 256, 1, torch.float32, card)
+        _vit_close(tvf.fused_block(q["x"], _block_tree(q), num_heads=heads),
+                   tvf.fused_block_reference(q["x"], _block_tree(q),
+                                             num_heads=heads), torch.float32)
     tree = _block_tree(p)
     tree["mlp"] = dict(tree["mlp"], fc1_w=p["fc1_w"].bfloat16())
     with pytest.raises(TypeError, match="compute dtype"):
@@ -459,9 +463,13 @@ def test_vit_i8_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="quantized weight"):
         tvi.fused_attn_block_i8(p["x"], p["ns"], p["nb"], f["qkv_w"],
                                 *attn[4:], num_heads=2)
-    long = _vit_args(1, 785, 128, 256, 1, torch.float32, card)
-    with pytest.raises(ValueError, match="shared memory"):
-        tvi.fused_attn_block_i8(long["x"], *attn[1:], num_heads=2)
+    # 785 tokens: K and V go to device memory, the result is held to the
+    # plain version
+    long = _i8_args(1, 785, 128, 256, 1, torch.float32, card)
+    args = (long["x"], *attn[1:])
+    _i8_close(tvi.fused_attn_block_i8(*args, num_heads=2),
+              tvi.fused_attn_block_i8_reference(*args, num_heads=2),
+              torch.float32, tvi.attn_output_quantum(*args))
     mlp = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
            p["fc2_b"], p["ls"])
     with pytest.raises(TypeError, match="quantized weight"):

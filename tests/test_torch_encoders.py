@@ -222,6 +222,37 @@ def test_from_name_shapes_and_routes():
     assert tregistry._resolve_block_impl("flash", torch.device("cuda")) == "flash"
 
 
+@pytest.mark.parametrize("impl", ["fused", "fused1", "int8"])
+def test_from_name_patch8_routes_on_cpu(impl):
+    """A patch-8 Kaiko model (785 tokens) through each kernel route on the
+    CPU: the routes' plain versions take it without raising and launch no
+    kernel; fused and fused1 agree with the plain route to f32 summation
+    order, int8 to its quantisation error (the bars of the routes' other
+    tests)."""
+    from paths_tpu_torch.kernels import vit_fused as tvf
+    from paths_tpu_torch.kernels import vit_int8 as tvi
+
+    wrappers = (tvf.fused_attn_block, tvf.fused_mlp_block, tvf.fused_block,
+                tvi.fused_attn_block_i8, tvi.fused_mlp_block_i8)
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (1, 256, 256, 3), np.uint8))
+    feats = {}
+    for route in (impl, "xla"):
+        encode, dim, _ = tregistry.from_name(
+            "kaiko-vits8", compute_dtype=torch.float32, device="cpu", seed=0,
+            block_impl=route)
+        before = [f.launches for f in wrappers]
+        feats[route] = encode(imgs)
+        assert [f.launches for f in wrappers] == before
+    got, want = feats[impl], feats["xla"]
+    assert dim == 384 and got.shape == (1, 384) and torch.isfinite(got).all()
+    if impl == "int8":
+        cos = torch.nn.functional.cosine_similarity(got, want).item()
+        assert (got - want).norm() <= 0.1 * want.norm() and cos >= 0.99, cos
+    else:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("kwargs,err", [
     (dict(name="resnet50"), NotImplementedError),
     (dict(name="resnet18"), NotImplementedError),

@@ -63,12 +63,17 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+# (B, D) of each (N, heads) case: 785 tokens are the patch-8 Kaiko models'
+WIDTHS = {17: (3, 32), 5: (3, 32), 785: (1, 128)}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("ls", [True, False])
-@pytest.mark.parametrize("n,heads", [(17, 2), (5, 4)])
+@pytest.mark.parametrize("n,heads", [(17, 2), (5, 4), (785, 2)])
 def test_attn_block_plain_matches_pallas(dtype, ls, n, heads):
     jd, td = DTYPES[dtype]
-    p = _inputs(3, n, 32, 64, 1, seed=n, ls=ls)
+    b, d = WIDTHS[n]
+    p = _inputs(b, n, d, 64, 1, seed=n, ls=ls)
     want = np.asarray(jvf.fused_attn_block(
         _j(p["x"], jd), _j(p["ns"], jnp.float32), _j(p["nb"], jnp.float32),
         _j(p["qkv_w"], jd), _j(p["qkv_b"], jnp.float32), _j(p["proj_w"], jd),
@@ -79,7 +84,7 @@ def test_attn_block_plain_matches_pallas(dtype, ls, n, heads):
         _t(p["qkv_w"], td, True), _t(p["qkv_b"], torch.float32),
         _t(p["proj_w"], td, True), _t(p["proj_b"], torch.float32),
         _t(p["ls"], torch.float32), num_heads=heads)
-    assert got.dtype == td and got.shape == (3, n, 32)
+    assert got.dtype == td and got.shape == (b, n, d)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                atol=_tol(dtype, want))
 

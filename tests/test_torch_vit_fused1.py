@@ -60,20 +60,25 @@ def _blocks(d, hidden, seed, ls, jd, td):
     return build(jleaf), build(tleaf)
 
 
+# (B, D) of each (N, heads) case: 785 tokens are the patch-8 Kaiko models'
+WIDTHS = {17: (3, 32), 5: (3, 32), 785: (1, 128)}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("ls", [True, False])
 @pytest.mark.parametrize("exact_gelu", [True, False])
-@pytest.mark.parametrize("n,heads", [(17, 2), (5, 4)])
+@pytest.mark.parametrize("n,heads", [(17, 2), (5, 4), (785, 2)])
 def test_block_plain_matches_pallas(dtype, ls, exact_gelu, n, heads):
     jd, td = DTYPES[dtype]
-    jb, tb = _blocks(32, 64, seed=n, ls=ls, jd=jd, td=td)
-    x = np.random.default_rng(1).normal(size=(3, n, 32)).astype(np.float32)
+    b, d = WIDTHS[n]
+    jb, tb = _blocks(d, 64, seed=n, ls=ls, jd=jd, td=td)
+    x = np.random.default_rng(1).normal(size=(b, n, d)).astype(np.float32)
     want = np.asarray(jvf.fused_block(
         jnp.asarray(x, jd), jb, num_heads=heads, exact_gelu=exact_gelu,
         num_chunks=2).astype(jnp.float32))
     got = tvf.fused_block(torch.from_numpy(x).to(td), tb, num_heads=heads,
                           exact_gelu=exact_gelu)
-    assert got.dtype == td and got.shape == (3, n, 32)
+    assert got.dtype == td and got.shape == (b, n, d)
     tol = F32_ATOL if dtype == "float32" else \
         2 * 2.0 ** -8 * float(np.abs(want).max())
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
