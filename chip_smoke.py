@@ -26,9 +26,11 @@ Phases, each printing its own lines:
      and one step's time, memory and profile are printed;
   5. ViT block kernels: the fused attention, GELU-MLP and packed-SwiGLU-MLP
      block kernels against their plain versions at the UNI and Virchow2
-     shapes (64 images), the attention block also at Kaiko-B/8's 785 tokens,
-     and one ragged small case, in f32 and bf16, with a
-     planted fault per kernel that the check must fail, their times, a
+     shapes (64 images), the attention and GELU-MLP blocks also at
+     Kaiko-B/8's 785 tokens, one ragged small case and a SwiGLU case whose
+     hidden width (160) is no multiple of 64, in f32 and bf16, with planted
+     faults (the SwiGLU block's gate and value halves swapped among them)
+     that the check must fail, their times, a
      yardstick made of PyTorch library calls, and their bounds; then the
      whole-block kernel and the int8 attention, GELU-MLP and packed-SwiGLU-MLP
      block kernels at the same shapes (the whole block and the int8 attention
@@ -831,10 +833,13 @@ def vit_kernel_phase(torch, tvf, gpu):
         return x + F.linear(h, w2, b2.to(x.dtype)) * ls.to(x.dtype)
 
     main_rows = {}
+    # "ragged-h160": a hidden width that is no multiple of the gated fc1
+    # tile's 64 units
     shapes = (("ragged", 3, 50, 128, 2, 512, ("attn", "mlp", "swiglu")),
+              ("ragged-h160", 3, 131, 128, 2, 160, ("swiglu",)),
               ("uni", 64, 197, 1024, 16, 4096, ("attn", "mlp")),
               ("virchow2", 64, 261, 1280, 20, 6912, ("attn", "swiglu")),
-              ("kaiko-b8", 64, 785, 768, 12, 3072, ("attn",)))
+              ("kaiko-b8", 64, 785, 768, 12, 3072, ("attn", "mlp")))
     for case, b, n, d, heads, hidden, kinds in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = rnd(b, n, d).to(dtype)
@@ -853,9 +858,9 @@ def vit_kernel_phase(torch, tvf, gpu):
                     library = lambda a=args: library_attn(*a, heads)
                     faulty_w = wp.clone()
                     faulty_w[:, 64:128] = 0       # head 1's context dropped
-                    faulty = lambda a=args, w=faulty_w: tvf.fused_attn_block_reference(
-                        *a[:5], w, *a[6:], num_heads=heads)
-                    fault = "one head's context zeroed"
+                    faults = [("one head's context zeroed",
+                               lambda a=args, w=faulty_w: tvf.fused_attn_block_reference(
+                                   *a[:5], w, *a[6:], num_heads=heads))]
                 else:
                     packed = 2 if kind == "swiglu" else 1
                     w1 = rnd(packed * hidden, d, scale=d ** -0.5).to(dtype)
@@ -867,17 +872,25 @@ def vit_kernel_phase(torch, tvf, gpu):
                         plain = lambda a=args: tvf.fused_swiglu_mlp_block_reference(*a)
                         faulty_w = w1.clone()     # value half shifted by one column
                         faulty_w[hidden:] = torch.roll(w1[hidden:], 1, dims=0)
-                        faulty = lambda a=args, w=faulty_w: \
-                            tvf.fused_swiglu_mlp_block_reference(*a[:3], w, *a[4:])
-                        fault = "value half shifted by one column"
+                        # gate and value halves swapped: silu(value) gate, what
+                        # a pairing error in the gated epilogue would give
+                        swapped_w = torch.cat([w1[hidden:], w1[:hidden]])
+                        swapped_b = torch.cat([b1[hidden:], b1[:hidden]])
+                        faults = [
+                            ("value half shifted by one column",
+                             lambda a=args, w=faulty_w:
+                             tvf.fused_swiglu_mlp_block_reference(*a[:3], w, *a[4:])),
+                            ("gate and value halves swapped",
+                             lambda a=args, w=swapped_w, bb=swapped_b:
+                             tvf.fused_swiglu_mlp_block_reference(*a[:3], w, bb, *a[5:]))]
                     else:
                         kernel = lambda a=args: tvf.fused_mlp_block(*a)
                         plain = lambda a=args: tvf.fused_mlp_block_reference(*a)
                         faulty_w = w2.clone()     # the last hidden chunk dropped
                         faulty_w[:, -256:] = 0
-                        faulty = lambda a=args, w=faulty_w: \
-                            tvf.fused_mlp_block_reference(*a[:5], w, *a[6:])
-                        fault = "last 256 hidden columns dropped"
+                        faults = [("last 256 hidden columns dropped",
+                                   lambda a=args, w=faulty_w:
+                                   tvf.fused_mlp_block_reference(*a[:5], w, *a[6:]))]
                     library = lambda a=args: library_mlp(*a, kind == "swiglu")
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
@@ -892,11 +905,14 @@ def vit_kernel_phase(torch, tvf, gpu):
                                          f"{err:.3g} > {tol:.3g}")
                 if not torch.equal(got, kernel()):
                     raise AssertionError(f"vit {kind} {case} {dtype}: two calls differ")
-                fault_err = (got.float() - faulty().float()).abs().max().item()
-                if not fault_err > tol:
-                    raise AssertionError(f"vit {kind} {case} {dtype}: the check "
-                                         f"passes a planted fault ({fault}): "
-                                         f"{fault_err:.3g} <= {tol:.3g}")
+                caught = []
+                for fault, faulty in faults:
+                    fault_err = (got.float() - faulty().float()).abs().max().item()
+                    if not fault_err > tol:
+                        raise AssertionError(f"vit {kind} {case} {dtype}: the check "
+                                             f"passes a planted fault ({fault}): "
+                                             f"{fault_err:.3g} <= {tol:.3g}")
+                    caught.append(f"planted fault ({fault}) err {fault_err:.3g}: caught")
                 del want
                 # device time from the profiler's trace for the small case;
                 # the 64-image cases run for milliseconds, where the time
@@ -912,8 +928,8 @@ def vit_kernel_phase(torch, tvf, gpu):
                 tname = "f32" if dtype == torch.float32 else "bf16"
                 print(f"[kernel] vit_{kind} {case}: B={b} N={n} D={d} heads={heads} "
                       f"H={hidden} {tname}: max_abs_err {err:.3g} (tol {tol:.3g}, "
-                      f"max |out| {peak:.3g}); planted fault ({fault}) err "
-                      f"{fault_err:.3g}: caught; device ms: kernel {dev['ms']:.4f}, "
+                      f"max |out| {peak:.3g}); {'; '.join(caught)}; device ms: "
+                      f"kernel {dev['ms']:.4f}, "
                       f"plain {dev['plain_ms']:.4f}, library calls "
                       f"{dev['library_ms']:.4f}; bound {max(flop_ms, byte_ms):.4f} "
                       f"(operations {flop_ms:.4f}, bytes {byte_ms:.4f}) | {gpu}",

@@ -4,30 +4,34 @@
 // Replaces the TPU kernels of `paths_tpu/kernels/vit_fused.py`:
 //   fused_attn_block        (body `_attn_kernel`):   LN pre-pass, qkv GEMM,
 //                                                    streamed attention, proj GEMM
-//   fused_mlp_block         (body `_mlp_kernel`):    vit_mlp_kernel<T, gelu>
-//   fused_swiglu_mlp_block  (body `_swiglu_kernel`): vit_mlp_kernel<T, swiglu>
+//   fused_mlp_block         (body `_mlp_kernel`):    LN pre-pass, fc1 GEMM +
+//                                                    GELU, fc2 GEMM + residual
+//   fused_swiglu_mlp_block  (body `_swiglu_kernel`): LN pre-pass, fc1 GEMM over
+//                                                    the packed weight + SwiGLU,
+//                                                    fc2 GEMM + residual
 //   fused_block             (body `_block_kernel`):  the attention block's
-//                                                    launches, LN2, fc1, fc2
+//                                                    launches, then the MLP's
 // for x (B, N, D) contiguous in T (f32 or bf16), weights in T in PyTorch's
 // (out, in) layout, so that both operands of every product run along their
 // contiguous axis; LayerNorm scale/bias, biases and LayerScale in f32.
 // Accumulation is f32 throughout. f32 operands are multiplied with FMAs on
-// the CUDA cores (no TF32); in bf16 every product of the attention block and
-// the whole block (qkv, q k^T, P V, out projection, fc1, fc2) runs on the
-// tensor cores, and the MLP kernels' projections go through `wmma`.
+// the CUDA cores (no TF32); in bf16 every product (qkv, q k^T, P V, out
+// projection, fc1, fc2) runs on the tensor cores.
 //
 // Rounding points, as in the TPU kernels: to T after the LayerNorm, after
 // qkv + bias, P before P V (taken against the row's final max), each head's
-// context after the deferred divide, the hidden activation before fc2, and
-// the output; everything else is f32. The whole block rounds where its TPU
-// kernel does: P is divided by its row sum before it is rounded, each head's
-// P V is rounded, and x after the attention half is rounded to T before the
-// second LayerNorm.
+// context after the deferred divide, the hidden activation (after the GELU,
+// or silu(gate) value) before fc2, and the output; everything else is f32.
+// The whole block rounds where its TPU kernel does: P is divided by its row
+// sum before it is rounded, each head's P V is rounded, and x after the
+// attention half is rounded to T before the second LayerNorm. The TPU MLP
+// kernels' `num_chunks` has no counterpart: fc2 sums over the whole hidden
+// width in f32, so only the summation order differs.
 //
-// Design of the attention block and the whole block (pieces in
-// `vit_tiles.cuh`). The TPU kernels keep one image's activation and the
-// block's weights in VMEM; a CUDA block has 227 KB of shared memory and 132
-// of them run at once, so the work is cut by what each product reuses:
+// Design (pieces in `vit_tiles.cuh`). The TPU kernels keep one image's
+// activation and the block's weights in VMEM; a CUDA block has 227 KB of
+// shared memory and 132 of them run at once, so the work is cut by what each
+// product reuses:
 //  * LayerNorm once per row: a pre-pass writes LN(x) rounded to T, the value
 //    the TPU kernel rounds, so that the GEMMs read a plain operand.
 //  * Projections as GEMMs over all B N rows in 128 x 128 output tiles: each
@@ -39,6 +43,15 @@
 //    thread. The epilogue adds the bias and rounds (qkv, into a (B, N, 3D)
 //    scratch), applies bias and GELU (fc1, into a (B, N, H) scratch), or
 //    bias, LayerScale and the residual (out projection, fc2).
+//  * The packed SwiGLU fc1 (2H, D), gate rows first: hidden unit j needs
+//    output columns j and H + j of the product, which a plain tiling puts in
+//    different blocks. Its tiles span 64 hidden units, and each W stage takes
+//    64 gate rows above the same 64 value rows (two TMA boxes from two maps,
+//    one per half, each zero past row H; f32: the row loads do the same), so
+//    the two columns of one unit land in one thread's accumulators, 64
+//    columns apart, and the epilogue writes silu(gate) value in T from
+//    registers. Same products, same shared-memory traffic per operation, no
+//    copy of the weight.
 //  * Attention per (image, head, query tile), q, k, v read from the qkv
 //    scratch: K and V stream through shared memory in tiles of 64 keys, so
 //    any N works (the patch-8 Kaiko models' 785 tokens among them). Two
@@ -49,30 +62,18 @@
 //    in registers, whose accumulator layout is the A operand of P V; a block
 //    takes 128 query rows, so each K and V tile read from L2 serves 128
 //    rows.
-//  * The whole block is a fixed sequence of launches on the caller's stream:
-//    the attention half writes x1 (rounded to T) to device memory, then LN2,
-//    fc1 + GELU into the hidden scratch, fc2 + LayerScale + x1. The TPU
-//    kernel keeps x1 out of HBM; here x1, the context and the hidden
-//    activation cost about 0.1 ms of bytes at UNI, where restreaming 16 MB
-//    of MLP weights for every 16 rows cost far more.
+//  * Each wrapper call is a fixed sequence of launches on the caller's
+//    stream (`attn_half`, `mlp_half`): the whole block writes x after the
+//    attention half (x1, rounded to T) to device memory and runs the MLP
+//    half on it. The TPU kernels keep x1 and the hidden activation out of
+//    HBM; here they cost about 0.1 ms of bytes per UNI block, where
+//    restreaming the MLP weights for small row tiles cost far more.
 //  * No atomics and no split-K: two calls are bitwise equal.
-//
-// The MLP kernels (`vit_mlp_kernel`, shared pieces in `vit_common.cuh`): a
-// block owns 16 rows of the flattened (B N, D) activation, applies the
-// LayerNorm while it stages them, and loops over the hidden dimension in
-// chunks of 256, which takes the place of the TPU kernel's sequential
-// `num_chunks` grid axis: fc1 chunk -> activation in registers -> rounded
-// chunk in shared memory -> its fc2 contribution added to a (16, D) f32
-// accumulator in shared memory; every product goes through the staged
-// 16-row `gemm_tile`. For SwiGLU the thread that owns hidden index j
-// computes both the gate column j and the value column H + j.
 //
 // Bound on the card: at the encoders' shapes (UNI: 12,608 rows, D 1024,
 // hidden 4096) every kernel does hundreds of operations per byte of x and
 // weights, so the operation rate bounds it: the bf16 tensor-core rate for
-// bf16, the f32 CUDA-core rate for f32. The MLP kernels restream the
-// weights from L2 for every 16 rows and use each `wmma` fragment once; moving
-// them onto the GEMM of `vit_tiles.cuh` is the next step.
+// bf16, the f32 CUDA-core rate for f32.
 //
 // Requirements (checked by the Python wrapper): head_dim 64, D % 64 == 0,
 // hidden % 32 == 0, 16-byte aligned contiguous tensors.
@@ -89,35 +90,7 @@ namespace {
 using namespace paths_cuda;
 using namespace paths_cuda::vit;
 
-// ---------------------------------------------------------------- MLP block
-// out = x + ls * (act(LN(x) W1^T + b1) W2^T + b2) for rows r0 .. r0 + 15 of
-// the flattened (R, D) activation.
-template <typename T, int ACT>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
-vit_mlp_kernel(const T* __restrict__ x, const float* __restrict__ ns,
-               const float* __restrict__ nb, const T* __restrict__ w1,
-               const float* __restrict__ b1, const T* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ ls,
-               T* __restrict__ out, int R, int D, int H) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const MlpSmem<T> sm(smem_raw, D);
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.x * kBM;
-  const T* xt = x + static_cast<size_t>(r0) * D;
-  for (int i = t; i < kBM * D; i += kThreads) sm.acc_s[i] = 0.f;
-  ln_stats<T>(xt, R - r0, D, sm.mu_s, sm.rstd_s);
-  const LnRows<T> a_ln{xt, ns, nb, sm.mu_s, sm.rstd_s, R - r0, D};
-  mlp_rows<T, ACT>(a_ln, w1, b1, w2, D, H, sm.acc_s, sm.As, sm.Ws, sm.Hs);
-  for (int i = t; i < kBM * D; i += kThreads) {
-    const int m = i / D, d = i % D;
-    if (r0 + m < R) {
-      const size_t at = static_cast<size_t>(r0 + m) * D + d;
-      out[at] = from_float<T>(to_float(x[at]) + (sm.acc_s[i] + b2[d]) * ls[d]);
-    }
-  }
-}
-
-// ----------------------------------------- attention block and whole block
+// ------------------------------------------------------------------ kernels
 // The pieces of `vit_tiles.cuh` as kernels: LayerNorm pre-pass, GEMM with an
 // epilogue, attention over streamed keys.
 template <typename T>
@@ -127,15 +100,22 @@ vit_ln_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   tiles::layernorm_rows<T>(x, scale, bias, y, R, D);
 }
 
-// bf16: ma and mw are TMA maps of A (M, K) and W (N, K)
+// Output columns of one GEMM tile: half the tile for a gated epilogue.
+template <typename Epi>
+constexpr int kTileN = tiles::kWBN / (tiles::kGlu<Epi> ? 2 : 1);
+static_assert(tiles::kWBN == tiles::kTN, "both GEMMs tile N alike");
+
+// bf16: ma, mw are TMA maps of A (M, K) and W (N, K); gated, mw and mv map
+// the gate and the value half of W (2N, K), else mv is unused
 template <typename Epi>
 __global__ void __launch_bounds__(tiles::kWThreads, 2)
 vit_gemm_kernel(const __grid_constant__ CUtensorMap ma,
                 const __grid_constant__ CUtensorMap mw,
+                const __grid_constant__ CUtensorMap mv,
                 __nv_bfloat16* __restrict__ out, int M, int N, int K, Epi epi) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  tiles::gemm_tma_block(&ma, &mw, out, M, N, K, blockIdx.y * tiles::kWBM,
-                        blockIdx.x * tiles::kWBN, epi, smem_raw);
+  tiles::gemm_tma_block(&ma, &mw, &mv, out, M, N, K, blockIdx.y * tiles::kWBM,
+                        blockIdx.x * kTileN<Epi>, epi, smem_raw);
 }
 
 template <typename Epi>
@@ -144,7 +124,7 @@ vit_gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
                     float* __restrict__ out, int M, int N, int K, Epi epi) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   tiles::gemm_f32_block(a, w, M, N, K, blockIdx.y * tiles::kTM,
-                        blockIdx.x * tiles::kTN, out, epi, smem_raw);
+                        blockIdx.x * kTileN<Epi>, out, epi, smem_raw);
 }
 
 // blockIdx = (query tile, head, image)
@@ -204,24 +184,30 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rows, int K,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// out (M, N) = epi(a (M, K) w (N, K)^T)
+// out (M, N) = epi(a (M, K) w (N, K)^T); with a gated epilogue w is (2N, K),
+// gate rows first, and out (M, N) = epi(a w[:N]^T, a w[N:]^T)
 template <typename T, typename Epi>
 cudaError_t gemm(const T* a, const T* w, T* out, int M, int N, int K, Epi epi,
                  cudaStream_t s) {
+  constexpr int BN = kTileN<Epi>;
+  const dim3 grid((N + BN - 1) / BN, (M + tiles::kWBM - 1) / tiles::kWBM);
   cudaError_t rc;
   if constexpr (tiles::kTensor<T>) {
-    CUtensorMap ma, mw;
+    CUtensorMap ma, mw, mv;
     if ((rc = tensor_map(&ma, a, M, K, tiles::kWBM)) != cudaSuccess) return rc;
-    if ((rc = tensor_map(&mw, w, N, K, tiles::kWBN)) != cudaSuccess) return rc;
+    if ((rc = tensor_map(&mw, w, N, K, BN)) != cudaSuccess) return rc;
+    if constexpr (tiles::kGlu<Epi>) {
+      if ((rc = tensor_map(&mv, w + static_cast<size_t>(N) * K, N, K, BN)) != cudaSuccess)
+        return rc;
+    } else {
+      mv = mw;
+    }
     if ((rc = allow_smem(vit_gemm_kernel<Epi>, tiles::kWSmem)) != cudaSuccess) return rc;
-    const dim3 grid((N + tiles::kWBN - 1) / tiles::kWBN,
-                    (M + tiles::kWBM - 1) / tiles::kWBM);
     vit_gemm_kernel<Epi><<<grid, tiles::kWThreads, tiles::kWSmem, s>>>(
-        ma, mw, out, M, N, K, epi);
+        ma, mw, mv, out, M, N, K, epi);
   } else {
     if ((rc = allow_smem(vit_gemm_f32_kernel<Epi>, tiles::kF32Smem)) != cudaSuccess)
       return rc;
-    const dim3 grid((N + tiles::kTN - 1) / tiles::kTN, (M + tiles::kTM - 1) / tiles::kTM);
     vit_gemm_f32_kernel<Epi><<<grid, tiles::kF32Threads, tiles::kF32Smem, s>>>(
         a, w, out, M, N, K, epi);
   }
@@ -249,9 +235,11 @@ cudaError_t attention(const T* qkv, T* ctx, int B, int N, int D, int heads,
   return cudaGetLastError();
 }
 
-// The tensors of one block, in the order of the C entries. `act` (B, N, D)
-// holds LN(x), then the context, then LN(x1); `qkv` is (B, N, 3D); the whole
-// block also has `x1` (B, N, D) and `hidden` (B, N, H). All in T.
+// The tensors of one block, in the order of `paths_vit_block`. `act`
+// (B, N, D) holds LN(x), then the context, then LN(x1); `qkv` is (B, N, 3D);
+// the whole block also has `x1` (B, N, D), and it and the MLP block have
+// `hidden` (B, N, H). All in T. The MLP block fills the norm2, fc1, fc2 and
+// ls2 fields.
 struct BlockArgs {
   const void* x;
   const float *n1s, *n1b;
@@ -292,60 +280,53 @@ int launch_attn(const BlockArgs& a, cudaStream_t s) {
   return static_cast<int>(attn_half<T, false>(a, static_cast<T*>(a.out), s));
 }
 
-// The whole block as a fixed sequence of launches on the caller's stream:
-// the attention half into x1, LN2, fc1 + GELU into the hidden activation,
-// fc2 + LayerScale + x1.
+// The MLP half: out = x + ls2 (act(LN2(x) W1^T + b1) W2^T + b2) as a
+// LayerNorm pre-pass into `act`, fc1 with the activation's epilogue into
+// `hidden` (B N, H), and fc2 with bias, LayerScale and the residual. SwiGLU
+// reads the packed fc1 (2H, D), gate rows first, through the gated GEMM.
+template <typename T, int ACT>
+cudaError_t mlp_half(const BlockArgs& a, const T* x, T* out, cudaStream_t s) {
+  const int R = a.B * a.N, D = a.D;
+  T* act = static_cast<T*>(a.act);
+  T* hidden = static_cast<T*>(a.hidden);
+  const T* w1 = static_cast<const T*>(a.w1);
+  cudaError_t rc;
+  if ((rc = layernorm<T>(x, a.n2s, a.n2b, act, R, D, s)) != cudaSuccess) return rc;
+  if constexpr (ACT == kSwiglu)
+    rc = gemm<T>(act, w1, hidden, R, a.H, D, tiles::EpiSwiglu{a.b1, a.H}, s);
+  else
+    rc = gemm<T>(act, w1, hidden, R, a.H, D, tiles::EpiGelu<ACT>{a.b1}, s);
+  if (rc != cudaSuccess) return rc;
+  return gemm<T>(hidden, static_cast<const T*>(a.w2), out, R, D, a.H,
+                 tiles::EpiResidual<T>{x, a.b2, a.ls2, D}, s);
+}
+
+template <typename T>
+int dispatch_mlp(int kind, const BlockArgs& a, cudaStream_t s) {
+  if (a.H % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const T* x = static_cast<const T*>(a.x);
+  T* out = static_cast<T*>(a.out);
+  switch (kind) {
+    case kGeluExact:
+      return static_cast<int>(mlp_half<T, kGeluExact>(a, x, out, s));
+    case kGeluTanh:
+      return static_cast<int>(mlp_half<T, kGeluTanh>(a, x, out, s));
+    case kSwiglu:
+      return static_cast<int>(mlp_half<T, kSwiglu>(a, x, out, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The whole block: the attention half into x1, then the MLP half on x1.
 template <typename T, int ACT>
 int launch_block(const BlockArgs& a, cudaStream_t s) {
   if (a.heads * kHD != a.D || a.H % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int R = a.B * a.N, D = a.D;
-  T* act = static_cast<T*>(a.act);
   T* x1 = static_cast<T*>(a.x1);
-  T* hidden = static_cast<T*>(a.hidden);
-  cudaError_t rc;
-  if ((rc = attn_half<T, true>(a, x1, s)) != cudaSuccess) return static_cast<int>(rc);
-  if ((rc = layernorm<T>(x1, a.n2s, a.n2b, act, R, D, s)) != cudaSuccess)
-    return static_cast<int>(rc);
-  if ((rc = gemm<T>(act, static_cast<const T*>(a.w1), hidden, R, a.H, D,
-                    tiles::EpiGelu<ACT>{a.b1}, s)) != cudaSuccess)
-    return static_cast<int>(rc);
-  return static_cast<int>(gemm<T>(hidden, static_cast<const T*>(a.w2),
-                                  static_cast<T*>(a.out), R, D, a.H,
-                                  tiles::EpiResidual<T>{x1, a.b2, a.ls2, D}, s));
-}
-
-template <typename T, int ACT>
-int launch_mlp(const void* x, const float* ns, const float* nb, const void* w1,
-               const float* b1, const void* w2, const float* b2,
-               const float* ls, void* out, int R, int D, int H,
-               cudaStream_t stream) {
-  if (D % kBK != 0 || H % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = MlpSmem<T>::bytes(D);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = allow_smem(vit_mlp_kernel<T, ACT>, smem);
+  const cudaError_t rc = attn_half<T, true>(a, x1, s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  vit_mlp_kernel<T, ACT><<<(R + kBM - 1) / kBM, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), ns, nb, static_cast<const T*>(w1), b1,
-      static_cast<const T*>(w2), b2, ls, static_cast<T*>(out), R, D, H);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_mlp(int act, const void* x, const float* ns, const float* nb,
-                 const void* w1, const float* b1, const void* w2,
-                 const float* b2, const float* ls, void* out, int R, int D,
-                 int H, cudaStream_t s) {
-  switch (act) {
-    case kGeluExact:
-      return launch_mlp<T, kGeluExact>(x, ns, nb, w1, b1, w2, b2, ls, out, R, D, H, s);
-    case kGeluTanh:
-      return launch_mlp<T, kGeluTanh>(x, ns, nb, w1, b1, w2, b2, ls, out, R, D, H, s);
-    case kSwiglu:
-      return launch_mlp<T, kSwiglu>(x, ns, nb, w1, b1, w2, b2, ls, out, R, D, H, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(mlp_half<T, ACT>(a, x1, static_cast<T*>(a.out), s));
 }
 
 template <typename T>
@@ -397,22 +378,35 @@ extern "C" int paths_vit_attn_block(
   }
 }
 
-// act: 0 = exact (erf) GELU, 1 = tanh GELU, 2 = packed SwiGLU (fc1_w is
-// (2H, D), gate rows first). x is (R, D), R = B N.
+// kind: 0 = exact (erf) GELU, 1 = tanh GELU, 2 = packed SwiGLU (fc1_w is
+// (2H, D), gate rows first). Scratch: act of x's shape, hidden (B, N, H).
 extern "C" int paths_vit_mlp_block(
     const void* x, const float* norm_scale, const float* norm_bias,
     const void* fc1_w, const float* fc1_b, const void* fc2_w,
-    const float* fc2_b, const float* ls, void* out, int R, int D, int H,
-    int act, int dtype, void* stream) {
+    const float* fc2_b, const float* ls, void* act, void* hidden, void* out,
+    int B, int N, int D, int H, int kind, int dtype, void* stream) {
+  BlockArgs a{};
+  a.x = x;
+  a.n2s = norm_scale;
+  a.n2b = norm_bias;
+  a.w1 = fc1_w;
+  a.b1 = fc1_b;
+  a.w2 = fc2_w;
+  a.b2 = fc2_b;
+  a.ls2 = ls;
+  a.act = act;
+  a.hidden = hidden;
+  a.out = out;
+  a.B = B;
+  a.N = N;
+  a.D = D;
+  a.H = H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_mlp<float>(act, x, norm_scale, norm_bias, fc1_w, fc1_b,
-                                 fc2_w, fc2_b, ls, out, R, D, H, s);
+      return dispatch_mlp<float>(kind, a, s);
     case 1:
-      return dispatch_mlp<__nv_bfloat16>(act, x, norm_scale, norm_bias, fc1_w,
-                                         fc1_b, fc2_w, fc2_b, ls, out, R, D, H,
-                                         s);
+      return dispatch_mlp<__nv_bfloat16>(kind, a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -441,17 +435,6 @@ extern "C" int paths_vit_block(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// Dynamic shared memory the MLP kernel needs for width D; the most a block
-// may have.
-extern "C" long long paths_vit_mlp_smem_bytes(int D, int dtype) {
-  return static_cast<long long>(dtype == 0 ? MlpSmem<float>::bytes(D)
-                                           : MlpSmem<__nv_bfloat16>::bytes(D));
-}
-
-extern "C" long long paths_vit_max_smem_bytes() {
-  return static_cast<long long>(kMaxSmem);
 }
 
 extern "C" const char* paths_cuda_error_string(int code) {

@@ -30,8 +30,8 @@
 // value lies within 1e-16 of a boundary.
 //
 // Design.
-//  * `gemm_tile_i8` is `gemm_tile` with one byte per element: 16 rows of
-//    codes against NCOLS weight rows, staged through shared memory in chunks
+//  * `gemm_tile_i8` multiplies 16 rows of codes (one byte per element)
+//    against NCOLS weight rows, staged through shared memory in chunks
 //    of 32 along the contraction, the next chunk prefetched into registers.
 //    A chunk is stored as two slabs of 16 columns with a row stride of 48
 //    bytes, so that every `wmma` tile starts on a 32-byte boundary and the
@@ -71,6 +71,8 @@
 //
 // Requirements (checked by the Python wrapper): head_dim 64, D % 64 == 0,
 // H / num_chunks a multiple of 64, 16-byte aligned contiguous tensors.
+
+#include <mma.h>
 
 #include "vit_common.cuh"
 
@@ -171,8 +173,9 @@ __device__ __forceinline__ void quant_rows(Val val, int valid, int D,
   __syncthreads();
 }
 
-// acc[r] += sum over k < K of A(g RM + r, k) * W(c)[k] in int32, with the
-// thread-to-output map of `gemm_tile`. `a_word(m, k)` gives the four codes of
+// acc[r] += sum over k < K of A(g RM + r, k) * W(c)[k] in int32, where
+// thread t owns output column c = t % NCOLS and the RM = 16 NCOLS / 256 rows
+// of group g = t / NCOLS. `a_word(m, k)` gives the four codes of
 // row m at columns k .. k + 3 (k % 4 == 0) packed into an int; `w_row(n)`
 // gives weight row n (K contiguous codes, 16-byte aligned) or nullptr for a
 // row of zeros. K % 32 == 0. As8 holds 2 x 16 x kLD8 bytes, Ws8 2 x NCOLS x

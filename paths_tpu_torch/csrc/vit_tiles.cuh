@@ -1,6 +1,7 @@
-// Tiled pieces of the ViT attention-block and whole-block kernels
-// (`vit_fused.cu`: `fused_attn_block`, `fused_block`): the LayerNorm
-// pre-pass, the GEMMs with their epilogue hooks, and the attention core that
+// Tiled pieces of the fused ViT block kernels (`vit_fused.cu`:
+// `fused_attn_block`, `fused_mlp_block`, `fused_swiglu_mlp_block`,
+// `fused_block`): the LayerNorm pre-pass, the GEMMs with their epilogue
+// hooks (a gated one for the packed SwiGLU), and the attention core that
 // streams K and V in key tiles. The design notes are at the top of
 // `vit_fused.cu`.
 //
@@ -214,6 +215,27 @@ struct EpiResidual {          // resid + (acc + bias) ls
   }
 };
 
+// silu(gate + bg) (value + bv) at hidden column col of fc1 over the packed
+// (2H, K) weight, gate rows first: `gate` is the product with W row col,
+// `val` with W row H + col.
+struct EpiSwiglu {
+  const float* bias;          // (2H): the gate biases, then the value biases
+  int H;
+  __device__ __forceinline__ float operator()(int, int col, float gate,
+                                              float val) const {
+    const float g = gate + bias[col];
+    return g / (1.f + expf(-g)) * (val + bias[H + col]);
+  }
+};
+
+// A GEMM with a gated epilogue computes out (M, N) from W (2N, K): a tile
+// covers half as many output columns, and its W stage holds rows
+// [n0, n0 + BN / 2) of the gate half above the same rows of the value half,
+// so that output column c and its value partner c + BN / 2 of the tile land
+// in one thread's accumulators; the epilogue pairs them there.
+template <typename Epi>
+constexpr bool kGlu = std::is_same<Epi, EpiSwiglu>::value;
+
 // ------------------------------------------------- bf16 GEMM: TMA + wgmma
 // out = epi(A W^T), A (M, K) and W (N, K) row-major bf16, as 128 x 128
 // output tiles. A block is 2 consumer warpgroups and one producer warp. One
@@ -227,7 +249,11 @@ struct EpiResidual {          // resid + (acc + bias) ls
 // registers. Two blocks fit an SM (registers and shared memory), so one
 // block's epilogue runs beside the other's products: the epilogue (GELU of
 // fc1 above all) costs as much as a slab's products and would otherwise
-// idle the tensor cores.
+// idle the tensor cores. With a gated epilogue (`kGlu`) the W slab comes as
+// two 64-row boxes, one from the map `mw` of the gate half and one from the
+// map `mv` of the value half, each with zeros past row N; both land where
+// one 128-row box would (64 rows of 128 bytes are whole 1024-byte swizzle
+// atoms), so the stage's bytes and the operand descriptors do not change.
 constexpr int kWBM = 128, kWBN = 128, kWBK = 64;
 constexpr int kWStages = 3;
 constexpr int kWThreads = 288;   // warpgroups 0, 1: consumers; warp 8: producer
@@ -341,6 +367,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
 template <typename Epi>
 __device__ __forceinline__ void gemm_tma_block(const CUtensorMap* ma,
                                                const CUtensorMap* mw,
+                                               const CUtensorMap* mv,
                                                __nv_bfloat16* __restrict__ out,
                                                int M, int N, int K, int m0,
                                                int n0, Epi epi,
@@ -371,6 +398,8 @@ __device__ __forceinline__ void gemm_tma_block(const CUtensorMap* ma,
         unsigned char* sa = ring + s * kWStageBytes;
         tma_load_2d(sa, ma, &full[s], kt * kWBK, m0);
         tma_load_2d(sa + kWABytes, mw, &full[s], kt * kWBK, n0);
+        if constexpr (kGlu<Epi>)
+          tma_load_2d(sa + kWABytes + kWBN / 2 * 128, mv, &full[s], kt * kWBK, n0);
       }
     }
     return;
@@ -396,19 +425,30 @@ __device__ __forceinline__ void gemm_tma_block(const CUtensorMap* ma,
   wgmma_wait<0>();
 
   // acc[4 j + e]: row 16 w + g (e 0, 1) or + 8 (e 2, 3), column 8 j + 2 tq
-  // + e % 2, as an `mma.sync` accumulator fragment per 8 columns
+  // + e % 2, as an `mma.sync` accumulator fragment per 8 columns; gated, the
+  // value partner of column 8 j + .. (j < 8) is acc[4 (j + 8) + e]
   const int w = tw / 32, lane = tw % 32, g = lane / 4, tq = lane % 4;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = m0 + c * 64 + w * 16 + g + half * 8;
     if (row >= M) continue;
+    __nv_bfloat16* orow = out + static_cast<size_t>(row) * N;
+    if constexpr (kGlu<Epi>) {
 #pragma unroll
-    for (int j = 0; j < kWBN / 8; ++j) {
-      const int col = n0 + j * 8 + tq * 2;
-      if (col < N)
-        store2(out + static_cast<size_t>(row) * N + col,
-               epi(row, col, acc[4 * j + 2 * half]),
-               epi(row, col + 1, acc[4 * j + 2 * half + 1]));
+      for (int j = 0; j < kWBN / 16; ++j) {
+        const int col = n0 + j * 8 + tq * 2, e = 4 * j + 2 * half;
+        if (col < N)
+          store2(orow + col, epi(row, col, acc[e], acc[e + kWBN / 4]),
+                 epi(row, col + 1, acc[e + 1], acc[e + 1 + kWBN / 4]));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kWBN / 8; ++j) {
+        const int col = n0 + j * 8 + tq * 2;
+        if (col < N)
+          store2(orow + col, epi(row, col, acc[4 * j + 2 * half]),
+                 epi(row, col + 1, acc[4 * j + 2 * half + 1]));
+      }
     }
   }
 }
@@ -420,7 +460,9 @@ __device__ __forceinline__ void gemm_tma_block(const CUtensorMap* ma,
 // rows (16 values of the contraction) through a ring of kStages `cp.async`
 // stages; rows are 80 bytes apart in shared memory, so that float4 reads of 8
 // neighbouring rows fall on distinct banks. Rows past M or N are read as
-// zeros; K % 16 == 0.
+// zeros; K % 16 == 0. Gated (`kGlu`), the tile covers 64 output columns: W
+// tile rows r < 64 are gate rows n0 + r, rows r >= 64 value rows
+// N + n0 + r - 64, so a thread's columns j and j + 4 are partners.
 constexpr int kTM = 128, kTN = 128;
 constexpr int kBK = 16;
 constexpr int kPitch = 80;
@@ -446,13 +488,20 @@ __device__ __forceinline__ void gemm_f32_block(const float* __restrict__ A,
     for (int i = 0; i < kTM * 4 / kF32Threads; ++i) {
       const int c = t + i * kF32Threads;
       const int r = c / 4, piece = c % 4;
-      const int ar = m0 + r, wr = n0 + r;
+      const int ar = m0 + r;
+      int wr = n0 + r;
+      bool w_in = wr < N;
+      if constexpr (kGlu<Epi>) {
+        const int hr = n0 + r % (kTN / 2);
+        w_in = hr < N;
+        wr = r < kTN / 2 ? hr : N + hr;
+      }
       cp_async16(sa + r * kPitch + piece * 16,
                  A + static_cast<size_t>(ar < M ? ar : 0) * K + k0 + piece * 4,
                  ar < M);
       cp_async16(sw + r * kPitch + piece * 16,
-                 W + static_cast<size_t>(wr < N ? wr : 0) * K + k0 + piece * 4,
-                 wr < N);
+                 W + static_cast<size_t>(w_in ? wr : 0) * K + k0 + piece * 4,
+                 w_in);
     }
   };
 
@@ -502,10 +551,19 @@ __device__ __forceinline__ void gemm_f32_block(const float* __restrict__ A,
   for (int i = 0; i < 8; ++i) {
     const int row = m0 + ty * 8 + i;
     if (row >= M) continue;
+    float* orow = out + static_cast<size_t>(row) * N;
+    if constexpr (kGlu<Epi>) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N) out[static_cast<size_t>(row) * N + col] = epi(row, col, acc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx + 16 * j;
+        if (col < N) orow[col] = epi(row, col, acc[i][j], acc[i][j + 4]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + tx + 16 * j;
+        if (col < N) orow[col] = epi(row, col, acc[i][j]);
+      }
     }
   }
 }

@@ -29,10 +29,10 @@ A CUDA tensor goes to the kernels or the call raises; a CPU tensor goes to
 the plain versions. The kernels take head_dim 64, D a multiple of 64, a hidden
 width that is a multiple of 32, and any number of tokens: the attention of
 `fused_attn_block` and `fused_block` streams K and V in tiles of 64 keys, so
-the patch-8 Kaiko models (785 tokens) run as the others do. Those two
-wrappers allocate the scratch their launches pass through device memory (LN
-output and context, qkv, and for `fused_block` x after the attention half and
-the hidden activation).
+the patch-8 Kaiko models (785 tokens) run as the others do. Each wrapper
+allocates the scratch its launches pass through device memory: the LN output
+(then the context), qkv, x after the attention half and the hidden
+activation, as far as its block has them.
 """
 from __future__ import annotations
 
@@ -192,10 +192,8 @@ def _vector(x, name, v: Optional[torch.Tensor], length: int) -> torch.Tensor:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "paths_vit_attn_block": ([_P] * 11 + [_I] * 5 + [_P], ctypes.c_int),
-    "paths_vit_mlp_block": ([_P] * 9 + [_I] * 5 + [_P], ctypes.c_int),
+    "paths_vit_mlp_block": ([_P] * 11 + [_I] * 6 + [_P], ctypes.c_int),
     "paths_vit_block": ([_P] * 20 + [_I] * 7 + [_P], ctypes.c_int),
-    "paths_vit_mlp_smem_bytes": ([_I, _I], ctypes.c_longlong),
-    "paths_vit_max_smem_bytes": ([], ctypes.c_longlong),
     "paths_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -204,17 +202,6 @@ _SIGNATURES = {
 def _library() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
     return build.load_with_signatures("vit_fused", _SIGNATURES)
-
-
-def _check_smem(d: int, dtype: torch.dtype) -> None:
-    """Refuse a width whose MLP accumulator needs more shared memory than a
-    block may have."""
-    lib = _library()
-    need, limit = lib.paths_vit_mlp_smem_bytes(d, DTYPES[dtype]), \
-        lib.paths_vit_max_smem_bytes()
-    if need > limit:
-        raise ValueError(f"the accumulator for D {d} in {dtype} needs {need} "
-                         f"bytes of shared memory, a block has {limit}")
 
 
 # ----------------------------------------------------------------- wrappers
@@ -273,19 +260,22 @@ def _mlp(counter, x, norm_scale, norm_bias, fc1_w, fc1_b, fc2_w, fc2_b, ls,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    _check_smem(d, x.dtype)
+    y = torch.empty_like(x)      # LN(x)
+    h = torch.empty((b, n, hidden), dtype=x.dtype, device=x.device)
     build.launch(_library(), "paths_vit_mlp_block", x, x.data_ptr(),
                  ns.data_ptr(), nb.data_ptr(), fc1_w.data_ptr(), b1.data_ptr(),
-                 fc2_w.data_ptr(), b2.data_ptr(), lsv.data_ptr(),
-                 out.data_ptr(), b * n, d, hidden, ACTS[act], DTYPES[x.dtype])
+                 fc2_w.data_ptr(), b2.data_ptr(), lsv.data_ptr(), y.data_ptr(),
+                 h.data_ptr(), out.data_ptr(), b, n, d, hidden, ACTS[act],
+                 DTYPES[x.dtype])
     counter.launches += 1
     return out
 
 
 def fused_mlp_block(x, norm_scale, norm_bias, fc1_w, fc1_b, fc2_w, fc2_b,
                     ls=None, *, exact_gelu: bool = True) -> torch.Tensor:
-    """Kernel #5; see the module docstring. Each launch adds one to
-    `fused_mlp_block.launches`."""
+    """Kernel #5; see the module docstring. Each call adds one to
+    `fused_mlp_block.launches` (one call runs the LayerNorm, fc1 and fc2
+    kernels on the same stream)."""
     if x.device.type == "cpu":
         return fused_mlp_block_reference(x, norm_scale, norm_bias, fc1_w,
                                          fc1_b, fc2_w, fc2_b, ls,
@@ -296,8 +286,9 @@ def fused_mlp_block(x, norm_scale, norm_bias, fc1_w, fc1_b, fc2_w, fc2_b,
 
 def fused_swiglu_mlp_block(x, norm_scale, norm_bias, fc1_w, fc1_b, fc2_w,
                            fc2_b, ls=None) -> torch.Tensor:
-    """Kernel #6; see the module docstring. Each launch adds one to
-    `fused_swiglu_mlp_block.launches`."""
+    """Kernel #6; see the module docstring. Each call adds one to
+    `fused_swiglu_mlp_block.launches` (one call runs the LayerNorm, the fc1
+    kernel over the packed weight with the SwiGLU epilogue, and fc2)."""
     if x.device.type == "cpu":
         return fused_swiglu_mlp_block_reference(x, norm_scale, norm_bias,
                                                 fc1_w, fc1_b, fc2_w, fc2_b, ls)

@@ -276,6 +276,31 @@ def test_vit_swiglu_kernel_matches_plain(card, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("swiglu,shape", [
+    # hidden 160: a multiple of 32 but not of the 64 hidden units of a gated
+    # fc1 tile, so the last tile's gate and value boxes run past H
+    (True, (3, 131, 128, 2, 160)),
+    # D 4096: a (16, D) f32 accumulator in shared memory would take 256 KB,
+    # more than a block has; the GEMMs do not depend on D
+    (False, (2, 20, 4096, 64, 512)), (True, (2, 20, 4096, 64, 512))],
+    ids=["swiglu-h160", "gelu-d4096", "swiglu-d4096"])
+def test_vit_mlp_kernels_at_ragged_hidden_and_wide_d(card, swiglu, shape, dtype):
+    b, n, d, heads, hidden = shape
+    p = _vit_args(b, n, d, hidden, 2 if swiglu else 1, dtype, card)
+    args = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+            p["fc2_b"], p["ls"])
+    kernel, plain = (tvf.fused_swiglu_mlp_block, tvf.fused_swiglu_mlp_block_reference) \
+        if swiglu else (tvf.fused_mlp_block, tvf.fused_mlp_block_reference)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _vit_close(got, plain(*args), dtype)
+    assert torch.equal(got, kernel(*args))
+
+
+@pytest.mark.cuda
 def test_vit_kernels_refuse_what_they_do_not_take(card):
     p = _vit_args(2, 20, 128, 256, 1, torch.float32, card)
     attn = (p["x"], p["ns"], p["nb"], p["qkv_w"], p["qkv_b"], p["proj_w"],

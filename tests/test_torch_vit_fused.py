@@ -111,12 +111,14 @@ def test_mlp_block_plain_matches_pallas(dtype, ls, exact_gelu):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("ls", [True, False])
-@pytest.mark.parametrize("num_chunks", [1, 2])
-def test_swiglu_block_plain_matches_pallas(dtype, ls, num_chunks):
+@pytest.mark.parametrize("num_chunks,hidden", [(1, 256), (2, 256), (1, 96), (2, 96)],
+                         ids=["1", "2", "1-h96", "2-h96"])
+def test_swiglu_block_plain_matches_pallas(dtype, ls, num_chunks, hidden):
     """The JAX kernel's `num_chunks` is a TPU tuning knob: the port's result
-    must not depend on it."""
+    must not depend on it. A hidden width of 96 is no multiple of the CUDA
+    kernel's 64-unit gate/value tiles."""
     jd, td = DTYPES[dtype]
-    p = _inputs(2, 13, 32, 256, 2, seed=4, ls=ls)
+    p = _inputs(2, 13, 32, hidden, 2, seed=4, ls=ls)
     want = np.asarray(jvf.fused_swiglu_mlp_block(
         _j(p["x"], jd), _j(p["ns"], jnp.float32), _j(p["nb"], jnp.float32),
         _j(p["fc1_w"], jd), _j(p["fc1_b"], jnp.float32), _j(p["fc2_w"], jd),
