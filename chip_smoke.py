@@ -33,10 +33,12 @@ Phases, each printing its own lines:
      that the check must fail, their times, a
      yardstick made of PyTorch library calls, and their bounds; then the
      whole-block kernel and the int8 attention, GELU-MLP and packed-SwiGLU-MLP
-     block kernels at the same shapes (the whole block and the int8 attention
-     also at Kaiko-B/8), the int8 ones with a check that allows
-     for codes on the other side of a rounding boundary and three planted
-     faults that it must fail;
+     block kernels at the same shapes (the whole block, the int8 attention and
+     the int8 GELU MLP also at Kaiko-B/8), the int8 ones with a check that
+     allows for codes on the other side of a rounding boundary and three
+     planted faults that it must fail, and the int8 attention and SwiGLU
+     blocks' device time per piece (LN-quant, each GEMM, attention,
+     quantisation) with their share of the bound;
   6. preprocess: two synthetic blob-on-white slides go through
      `paths_tpu_torch.cli.preprocess` with UNI at full width and depth in
      bf16 on the fused route and again on the plain route; the grids must
@@ -198,19 +200,27 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, attempts: int = 3) -> float:
     """Mean device time of one call: the summed time of the kernels it
-    launched, from the profiler's CUDA trace."""
+    launched, from the profiler's CUDA trace. A trace that holds no kernel
+    at all is taken again, up to `attempts` times: on the H100 one trace of
+    20 calls of a kernel launched through ctypes once came back empty, though
+    the kernel ran (its result was checked) and the next case's trace held
+    its kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(attempts):
+        fn()
         torch.cuda.synchronize()
-    return kernel_us(prof) / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = kernel_us(prof)
+        if us > 0:
+            break
+    return us / 1e3 / iters
 
 
 def kernel_us(prof) -> float:
@@ -969,6 +979,53 @@ def rounding_half_up(tvi):
         tvi._round = rne
 
 
+# The pieces of the staged int8 kernels by a fragment of their kernel's
+# name, in launch order: the first fragment that a kernel's name holds names
+# its piece (any other kernel's time counts as "other"). Launches per call:
+# one each, but #10's fc1 and quantiser run once per row slab ("slab").
+I8_PIECES = {
+    "attn_i8": (("ln_quant_rows", "LN-quant", 1), ("EpiQkvI8", "qkv GEMM", 1),
+                ("attn_i8_", "attention", 1), ("quant_rows", "quantise", 1),
+                ("EpiResidualI8", "proj GEMM", 1)),
+    "swiglu_i8": (("ln_quant_rows", "LN-quant", 1), ("EpiSwigluI8", "fc1 GEMM", "slab"),
+                  ("quant_rows", "quantise", "slab"), ("EpiResidualI8", "fc2 GEMM", 1)),
+}
+
+
+def piece_ms(fn, pieces, slabs: int, iters: int = 3):
+    """(device ms of one call per piece, share of the call's launches the
+    trace recorded). Each kernel goes to the first piece whose fragment its
+    name holds; a piece's time is the mean of its recorded launches times its
+    launches per call. The profiler's trace of a few back-to-back calls can
+    lack some of their launches (the share it held is returned), so the mean
+    per launch is what it gives."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per_call = {label: slabs if n == "slab" else n for _, label, n in pieces}
+    total, count = dict.fromkeys(per_call, 0.0), dict.fromkeys(per_call, 0)
+    other = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.is_user_annotation:
+            continue
+        label = next((lb for key, lb, _ in pieces if key in e.key), None)
+        if label is None:
+            other += e.self_device_time_total / 1e3 / iters
+            continue
+        total[label] += e.self_device_time_total
+        count[label] += e.count
+    ms = {label: total[label] / count[label] / 1e3 * per_call[label]
+          if count[label] else float("nan") for label in per_call}
+    ms["other"] = other
+    return ms, sum(count.values()) / (iters * sum(per_call.values()))
+
+
 def vit_new_bound(kind, b, n, d, hidden, dtype_bytes):
     """(operation-limited ms, byte-limited ms) of kernels #7-#10 on x
     (b, n, d). Int8 projections at the int8 tensor-core rate, the attention's
@@ -1073,7 +1130,7 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
     main_rows = {}
     shapes = (("uni", 64, 197, 1024, 16, 4096, ("block", "attn_i8", "mlp_i8")),
               ("virchow2", 64, 261, 1280, 20, 6912, ("attn_i8", "swiglu_i8")),
-              ("kaiko-b8", 64, 785, 768, 12, 3072, ("block", "attn_i8")))
+              ("kaiko-b8", 64, 785, 768, 12, 3072, ("block", "attn_i8", "mlp_i8")))
     for case, b, n, d, heads, hidden, kinds in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             tname = "f32" if dtype == torch.float32 else "bf16"
@@ -1256,6 +1313,16 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
                     "library_ms": library})
                 flop_ms, byte_ms = vit_new_bound(kind, b, n, d, hidden, x.element_size())
                 lib = "none" if dev["library_ms"] is None else f"{dev['library_ms']:.4f}"
+                bound_ms = max(flop_ms, byte_ms)
+                piece_note = ""
+                if kind in I8_PIECES:
+                    pieces, recorded = piece_ms(lambda: kernel_fn(*args, **kw),
+                                                I8_PIECES[kind],
+                                                math.ceil(b * n / tvi.MLP_SLAB_ROWS))
+                    piece_note = "; device ms per piece: " + ", ".join(
+                        f"{label} {t:.4f}" for label, t in pieces.items()) + \
+                        f" (sum {sum(pieces.values()):.4f}; the trace held " \
+                        f"{recorded:.2f} of the launches)"
                 print(f"[kernel] vit_{kind} {case}: B={b} N={n} D={d} heads={heads} "
                       f"H={hidden} {tname}: {share:.4f} of {b * n} rows outside the "
                       f"tight bar {tight:.3g} (allowed {I8_FLIP_SHARE}), worst row "
@@ -1267,8 +1334,9 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
                       f"{chunk_note}; planted faults, all caught: {fault_note}; device "
                       f"ms: kernel {dev['ms']:.4f}, plain {dev['plain_ms']:.4f}, "
                       f"library calls (_int_mm) {lib}; bound "
-                      f"{max(flop_ms, byte_ms):.4f} (operations {flop_ms:.4f}, bytes "
-                      f"{byte_ms:.4f}) | {gpu}", flush=True)
+                      f"{bound_ms:.4f} (operations {flop_ms:.4f}, bytes "
+                      f"{byte_ms:.4f}), share of the bound "
+                      f"{bound_ms / dev['ms']:.4f}{piece_note} | {gpu}", flush=True)
                 main_case = "virchow2" if kind == "swiglu_i8" else "uni"
                 if case == main_case and dtype == torch.bfloat16:
                     main_rows[kind] = dict(err=worst, flop_ms=flop_ms,
@@ -1572,7 +1640,7 @@ def preprocess_phase(torch, tfa, tvf, gpu):
     del model_i8
 
     # -- Virchow2, full width and depth, bf16, through from_name on every route
-    feats, ms, vcounts = {}, {}, {}
+    feats, ms, vcounts, vpeak = {}, {}, {}, {}
     for impl in kernel_impls + ("xla",):
         enc, dim, _ = from_name("virchow2", block_impl=impl, seed=0)
         if dim != 2560:
@@ -1581,7 +1649,9 @@ def preprocess_phase(torch, tfa, tvf, gpu):
         feats[impl] = torch.cat([enc(b) for b in two_batches]).cpu().numpy()
         torch.cuda.synchronize()
         vcounts[impl] = vit_counts(tvf)
+        torch.cuda.reset_peak_memory_stats()
         ms[impl] = cuda_ms(lambda: enc(two_batches[0]), iters=2, warmup=0)
+        vpeak[impl] = torch.cuda.max_memory_allocated() / 2**20
         del enc
     vdepth = vit.VIRCHOW2.depth
     pair = vit_expect(tvf, fused_attn_block=2 * vdepth,
@@ -1609,10 +1679,12 @@ def preprocess_phase(torch, tfa, tvf, gpu):
               f"{bars[impl]})"
               + (f", lowest cosine {vcos:.6f}" if impl == "int8" else "")
               + f"; encode of one batch {ms[impl]:.1f} ms, plain route "
-              f"{ms['xla']:.1f} ms | {gpu}", flush=True)
+              f"{ms['xla']:.1f} ms; peak memory over the timed batches "
+              f"{vpeak[impl]:.0f} MiB (encoder resident; plain route "
+              f"{vpeak['xla']:.0f} MiB) | {gpu}", flush=True)
     # -- Kaiko-B/8 (patch 8: 785 tokens), full width and depth, bf16, one
     # batch through from_name on every route: the kernels' streamed key tiles
-    # (#4, #7) and device-memory K and V (#8)
+    # (#4, #7, #8)
     kfeats, kms, kcounts = {}, {}, {}
     for impl in kernel_impls + ("xla",):
         enc, dim, _ = from_name("kaiko-vitb8", block_impl=impl, seed=0)

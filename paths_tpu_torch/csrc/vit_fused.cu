@@ -81,8 +81,6 @@
 // C interface (loaded through ctypes): the launch entries return the
 // cudaError_t of the first launch that failed (0 on success).
 
-#include <cudaTypedefs.h>
-
 #include "vit_tiles.cuh"
 
 namespace {
@@ -100,23 +98,7 @@ vit_ln_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   tiles::layernorm_rows<T>(x, scale, bias, y, R, D);
 }
 
-// Output columns of one GEMM tile: half the tile for a gated epilogue.
-template <typename Epi>
-constexpr int kTileN = tiles::kWBN / (tiles::kGlu<Epi> ? 2 : 1);
 static_assert(tiles::kWBN == tiles::kTN, "both GEMMs tile N alike");
-
-// bf16: ma, mw are TMA maps of A (M, K) and W (N, K); gated, mw and mv map
-// the gate and the value half of W (2N, K), else mv is unused
-template <typename Epi>
-__global__ void __launch_bounds__(tiles::kWThreads, 2)
-vit_gemm_kernel(const __grid_constant__ CUtensorMap ma,
-                const __grid_constant__ CUtensorMap mw,
-                const __grid_constant__ CUtensorMap mv,
-                __nv_bfloat16* __restrict__ out, int M, int N, int K, Epi epi) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  tiles::gemm_tma_block(&ma, &mw, &mv, out, M, N, K, blockIdx.y * tiles::kWBM,
-                        blockIdx.x * kTileN<Epi>, epi, smem_raw);
-}
 
 template <typename Epi>
 __global__ void __launch_bounds__(tiles::kF32Threads, 2)
@@ -124,7 +106,7 @@ vit_gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
                     float* __restrict__ out, int M, int N, int K, Epi epi) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   tiles::gemm_f32_block(a, w, M, N, K, blockIdx.y * tiles::kTM,
-                        blockIdx.x * kTileN<Epi>, out, epi, smem_raw);
+                        blockIdx.x * tiles::kTileN<Epi>, out, epi, smem_raw);
 }
 
 // blockIdx = (query tile, head, image)
@@ -155,63 +137,22 @@ cudaError_t layernorm(const T* x, const float* scale, const float* bias, T* y,
   return cudaGetLastError();
 }
 
-// A TMA map of a (rows, K) row-major bf16 matrix, read in boxes of 64
-// columns x box_rows rows with the 128-byte swizzle; zeros past its edges.
-// The driver's encoder is reached through the runtime, so the library links
-// no libcuda.
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rows, int K,
-                       int box_rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-        cudaEnableDefault, &found);
-    if (rc != cudaSuccess) return rc;
-    if (found != cudaDriverEntryPointSuccess || encode == nullptr)
-      return cudaErrorNotSupported;
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
-  const cuuint32_t box[2] = {tiles::kWBK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                            const_cast<void*>(ptr), dims, strides, box, step,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // out (M, N) = epi(a (M, K) w (N, K)^T); with a gated epilogue w is (2N, K),
 // gate rows first, and out (M, N) = epi(a w[:N]^T, a w[N:]^T)
 template <typename T, typename Epi>
 cudaError_t gemm(const T* a, const T* w, T* out, int M, int N, int K, Epi epi,
                  cudaStream_t s) {
-  constexpr int BN = kTileN<Epi>;
-  const dim3 grid((N + BN - 1) / BN, (M + tiles::kWBM - 1) / tiles::kWBM);
-  cudaError_t rc;
   if constexpr (tiles::kTensor<T>) {
-    CUtensorMap ma, mw, mv;
-    if ((rc = tensor_map(&ma, a, M, K, tiles::kWBM)) != cudaSuccess) return rc;
-    if ((rc = tensor_map(&mw, w, N, K, BN)) != cudaSuccess) return rc;
-    if constexpr (tiles::kGlu<Epi>) {
-      if ((rc = tensor_map(&mv, w + static_cast<size_t>(N) * K, N, K, BN)) != cudaSuccess)
-        return rc;
-    } else {
-      mv = mw;
-    }
-    if ((rc = allow_smem(vit_gemm_kernel<Epi>, tiles::kWSmem)) != cudaSuccess) return rc;
-    vit_gemm_kernel<Epi><<<grid, tiles::kWThreads, tiles::kWSmem, s>>>(
-        ma, mw, mv, out, M, N, K, epi);
+    return tiles::gemm_tma<T>(a, w, out, M, N, K, epi, s);
   } else {
-    if ((rc = allow_smem(vit_gemm_f32_kernel<Epi>, tiles::kF32Smem)) != cudaSuccess)
-      return rc;
+    constexpr int BN = tiles::kTileN<Epi>;
+    const dim3 grid((N + BN - 1) / BN, (M + tiles::kTM - 1) / tiles::kTM);
+    const cudaError_t rc = allow_smem(vit_gemm_f32_kernel<Epi>, tiles::kF32Smem);
+    if (rc != cudaSuccess) return rc;
     vit_gemm_f32_kernel<Epi><<<grid, tiles::kF32Threads, tiles::kF32Smem, s>>>(
         a, w, out, M, N, K, epi);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 // ctx (B, N, D) from qkv (B, N, 3D), every head

@@ -1,27 +1,31 @@
 // Int8 fused ViT encoder-block kernels for Hopper (sm_90a), forward only.
 //
 // Replaces the TPU kernels of `paths_tpu/kernels/vit_int8.py`:
-//   fused_attn_block_i8        (body `_attn_kernel_i8`):   vit_attn_i8_kernel + vit_proj_i8_kernel
+//   fused_attn_block_i8        (body `_attn_kernel_i8`):   LN-quant, qkv s8 GEMM,
+//                                                          streamed attention,
+//                                                          quantise, proj s8 GEMM
 //   fused_mlp_block_i8         (body `_mlp_kernel_i8`):    vit_mlp_i8_kernel<T, gelu>
-//   fused_swiglu_mlp_block_i8  (body `_swiglu_kernel_i8`): vit_mlp_i8_kernel<T, swiglu>
+//   fused_swiglu_mlp_block_i8  (body `_swiglu_kernel_i8`): LN-quant, per row slab
+//                                                          gated s8 fc1 GEMM +
+//                                                          SwiGLU and quantise,
+//                                                          fc2 s8 GEMM + residual
 // for x (B, N, D) contiguous in T (f32 or bf16). The four projections (qkv,
 // out, fc1, fc2) multiply int8 activations with int8 weights into int32 on
-// the tensor cores (`wmma` 16x16x16, `signed char`); weights are (out, in)
-// int8 with one f32 scale per output channel, quantised once on the host;
-// LayerNorm scale/bias, biases and LayerScale are f32. The attention itself
-// (q k^T, softmax, P V) runs in T on the CUDA cores (`attn_head`,
-// `vit_common.cuh`).
+// the tensor cores; weights are (out, in) int8 with one f32 scale per output
+// channel, quantised once on the host; LayerNorm scale/bias, biases and
+// LayerScale are f32. The attention itself (q k^T, softmax, P V) runs in T.
 //
 // Arithmetic, as in the TPU kernels. Activations are quantised per row:
 // s = max|y| * (1/127), s = 1 for a row of zeros, code = clip(rint(y / s),
 // -127, 127), with a true division and round-half-even. What is quantised is
 // f32: the LayerNorm output (not rounded to T), each row of the context
-// c_h / l (not rounded), and the hidden activation. A product is rescaled as
-// float(acc) * row scale * channel scale + bias, every operation rounded on
-// its own (no fused multiply-add), so that a plain PyTorch version can repeat
-// it to the bit. The fc2 sum of one hidden chunk is converted to f32 once.
-// GELU is the rational erf of the TPU kernels (Abramowitz-Stegun 7.1.26), not
-// `erff`; SwiGLU is gate / (1 + exp(-gate)) * value.
+// c_h / l (not rounded), and the hidden activation, per row and per chunk of
+// H / num_chunks columns. A product is rescaled as float(acc) * row scale *
+// channel scale + bias, every operation rounded on its own (no fused
+// multiply-add), so that a plain PyTorch version can repeat it to the bit;
+// with several chunks the fc2 sums of the chunks are added in f32, chunk by
+// chunk. GELU is the rational erf of the TPU kernels (Abramowitz-Stegun
+// 7.1.26), not `erff`; SwiGLU is gate / (1 + exp(-gate)) * value.
 //
 // Quantisation is discontinuous, so a LayerNorm summed in another order could
 // move an activation across a rounding boundary and with it a whole output
@@ -29,52 +33,66 @@
 // rounded to f32 once: two implementations then agree on every code unless a
 // value lies within 1e-16 of a boundary.
 //
-// Design.
-//  * `gemm_tile_i8` multiplies 16 rows of codes (one byte per element)
-//    against NCOLS weight rows, staged through shared memory in chunks
-//    of 32 along the contraction, the next chunk prefetched into registers.
-//    A chunk is stored as two slabs of 16 columns with a row stride of 48
-//    bytes, so that every `wmma` tile starts on a 32-byte boundary and the
-//    fragment loads are free of bank conflicts. Integer sums are exact in any
-//    order.
-//  * The codes of a 16-row tile (16 x D bytes) and its row scales are made
-//    once per tile and kept in shared memory.
-//  * `num_chunks` is part of the function here, not a tuning knob: the hidden
-//    activation's row scale is the abs-max over one chunk of H / num_chunks
-//    columns. The kernel streams the hidden dimension in pieces of 256
-//    columns and cannot know that scale before the chunk's last piece, and
-//    16 rows of a whole chunk do not fit shared memory in f32. So fc1 runs
-//    twice per chunk: a first pass finds each row's abs-max, a second
-//    recomputes the same values (integer sums and a fixed f32 epilogue: bit
-//    for bit the same), quantises them and feeds fc2. That is 1.5 times the
-//    operations of the GELU block and 5/3 of the SwiGLU block. The fc2 sum of
-//    a chunk stays in an int32 (16, D) tile in shared memory; with more than
-//    one chunk an f32 tile beside it takes the rescaled sums.
-//  * Attention: one block per (image, head) (`attn_head` in
-//    `vit_common.cuh`) computes that head's K and V for all tokens, then
-//    walks the queries 16 rows at a time, the scores of 16 rows against all
-//    keys in shared memory (so P is taken against the row's final max). K and
-//    V stay in shared memory where they fit (N up to about 300 in f32, 510 in
-//    bf16 at the encoders' widths); beyond that (the patch-8 Kaiko models' 785 tokens)
-//    they go to a device-memory scratch of the block's own, from which the
-//    score and P V loops read them back through L1/L2. The per-head context
-//    leaves in f32 (B, N, D) through device memory, and a second kernel
-//    quantises each row of it and computes the out projection, LayerScale
-//    and the residual.
+// Design of #8 and #10 (pieces in `vit_tiles.cuh`). The work is cut as the
+// bf16 blocks of `vit_fused.cu` cut it, with int8 operands:
+//  * LN-quant once per row (`ln_quant_rows_kernel`, one warp per row, the row
+//    read once into registers): the f64 LayerNorm, the row's abs-max and its
+//    codes, (M, D) int8 plus one scale per row, so that every GEMM reads a
+//    plain operand. `quant_rows_kernel` (a warp or a block per row span, the
+//    span read once into registers) does the same for f32 rows.
+//  * Projections as s8 GEMMs over all B N rows in 128 x 128 output tiles
+//    (`tiles::gemm_tma<signed char>`): TMA brings slabs of 128 codes, two
+//    consumer warpgroups multiply them with `wgmma` m64n128k32 into s32, and
+//    each staged weight byte feeds 128 rows. The epilogues rescale from the
+//    accumulators: qkv + bias rounded to T into a (B, N, 3D) scratch;
+//    out / fc2 + bias, LayerScale and the residual into out; the packed fc1
+//    (gate rows first, gated tile: 64 gate rows above the same 64 value rows)
+//    into silu(gate) value in f32.
+//  * Attention: #4's streamed-key tiles read q, k, v from the qkv scratch
+//    (any N, so the patch-8 Kaiko models' 785 tokens), with the context
+//    stored in f32, unrounded; `quant_rows_kernel` then quantises it.
+//  * The MLP's hidden activation goes through device memory in f32 (its row
+//    scale is the abs-max over a chunk, known only once the chunk is
+//    complete), a slab of at most `slab` rows (the wrapper's choice) at a
+//    time: per slab the gated fc1 writes h (slab, H) f32 and
+//    `quant_rows_kernel` turns it into codes and a scale per row and chunk.
+//    fc2 then runs once over all rows (per slab its D / 128 column tiles
+//    would leave most of the card idle). That bounds the f32 scratch at
+//    slab x H x 4 bytes; the codes take one byte per hidden value of every
+//    row. With more than one chunk, fc2 is the CHUNKED GEMM: its consumers
+//    add each chunk's rescaled sum to an f32 total at the chunk's boundary.
+//  * No split-K; the abs-maxes are plain reductions within a warp: two calls
+//    are bitwise equal.
+//
+// Design of #9 (`vit_mlp_i8_kernel<T, gelu>`, unchanged). `gemm_tile_i8`
+// multiplies 16 rows of codes (one byte per element) against NCOLS weight
+// rows with `wmma` 16x16x16, staged through shared memory in chunks of 32
+// along the contraction, the next chunk prefetched into registers. The codes
+// of a 16-row tile and its row scales are made once per tile and kept in
+// shared memory. The kernel streams the hidden dimension in pieces of 256
+// columns and cannot know a chunk's hidden scale before the chunk's last
+// piece, so fc1 runs twice per chunk: a first pass finds each row's abs-max,
+// a second recomputes the same values (bit for bit), quantises them and feeds
+// fc2 (1.5 times the operations of the block). The fc2 sum of a chunk stays
+// in an int32 (16, D) tile in shared memory; with more than one chunk an f32
+// tile beside it takes the rescaled sums.
 //
 // Bound on the card: the projections at the int8 tensor-core rate, the
-// attention's two products at T's rate. This version is far from it: 16-row
-// tiles restream the weights from L2, the f64 LayerNorm and quantisation of a
-// row are redone for each of its heads, and q k^T and P V run on the CUDA
-// cores. The attention block of `vit_fused.cu` shows the way out (one
-// LayerNorm pass, GEMMs over all rows, tensor-core attention).
+// attention's two products at T's rate (bf16 tensor cores; f32 FMAs). #9's
+// 16-row tiles restream its weights from L2 once per 16 rows; #8 and #10 on
+// the GEMM above do not.
 //
 // Requirements (checked by the Python wrapper): head_dim 64, D % 64 == 0,
 // H / num_chunks a multiple of 64, 16-byte aligned contiguous tensors.
+//
+// C interface (loaded through ctypes): the launch entries return the
+// cudaError_t of the first launch that failed (0 on success).
 
 #include <mma.h>
 
-#include "vit_common.cuh"
+#include <algorithm>
+
+#include "vit_tiles.cuh"
 
 namespace {
 
@@ -144,11 +162,11 @@ __device__ __forceinline__ int quant_code(float y, float s) {
   return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(y, s)), -127.f), 127.f));
 }
 
-// Codes (16 x D bytes) and row scales of 16 rows, one warp per row in turn:
+// #9: codes (16 x D bytes) and row scales of 16 rows, one warp per row in turn:
 // `val(m, k)` gives the f32 value of row m < valid; the other rows become
 // zeros with scale 1. D % 4 == 0. Ends with a barrier.
 template <typename Val>
-__device__ __forceinline__ void quant_rows(Val val, int valid, int D,
+__device__ __forceinline__ void quant_tile(Val val, int valid, int D,
                                            signed char* yq, float* ys) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int m = warp; m < kBM; m += kThreads / 32) {
@@ -291,114 +309,6 @@ struct QuantSmem {
   }
 };
 
-// ---------------------------------------------------- attention, per head
-// The q, k, v projection of 16 token rows through int8: codes of the f32
-// LayerNorm output against the int8 weight, rescaled in f32.
-template <typename T>
-struct QkvInt8 {
-  const T* xb;
-  const float* ns;
-  const float* nb;
-  const signed char* wq;   // (3D, D)
-  const float* ws;         // (3D,)
-  const float* bias;       // (3D,)
-  int N, D;
-  QuantSmem sm;
-
-  __device__ QkvInt8(const T* xb_, const float* ns_, const float* nb_,
-                     const signed char* wq_, const float* ws_,
-                     const float* bias_, int N_, int D_, unsigned char* smem)
-      : xb(xb_), ns(ns_), nb(nb_), wq(wq_), ws(ws_), bias(bias_), N(N_), D(D_),
-        sm(smem, D_) {}
-
-  __device__ __forceinline__ void prepare(int r0) {
-    const T* xt = xb + static_cast<size_t>(r0) * D;
-    __syncthreads();   // the previous tile's codes are no longer read
-    ln_stats64<T>(xt, N - r0, D, sm.mu_s, sm.rstd_s);
-    quant_rows(LnRows64<T>{xt, ns, nb, sm.mu_s, sm.rstd_s, D}, N - r0, D, sm.yq,
-               sm.ys);
-  }
-  template <int NCOLS, typename RowOf>
-  __device__ __forceinline__ void product(float (&out)[kBM * NCOLS / kThreads],
-                                          RowOf row_of) {
-    constexpr int RM = kBM * NCOLS / kThreads;
-    int acc[RM];
-#pragma unroll
-    for (int r = 0; r < RM; ++r) acc[r] = 0;
-    const signed char* yq = sm.yq;
-    const int d = D;
-    gemm_tile_i8<NCOLS>(acc, D, [&](int m, int k) {
-      return *reinterpret_cast<const int*>(yq + m * d + k);
-    }, [&](int n) -> const signed char* {
-      return wq + static_cast<size_t>(row_of(n)) * d;
-    }, sm.As8, sm.Ws8);
-    const int col = row_of(threadIdx.x % NCOLS), g = threadIdx.x / NCOLS;
-    const float cs = ws[col], b = bias[col];
-#pragma unroll
-    for (int r = 0; r < RM; ++r) out[r] = rescale(acc[r], sm.ys[g * RM + r], cs, b);
-  }
-};
-
-// ctx[b, :, h 64 : (h + 1) 64] of head h = blockIdx.x of image b =
-// blockIdx.y. KV_DEVICE: K and V go to the block's own part of `kv`
-// (`attn_kv_elems<T>(N)` elements per (image, head)) instead of shared memory.
-template <typename T, bool KV_DEVICE>
-__global__ void __launch_bounds__(kThreads)
-vit_attn_i8_kernel(const T* __restrict__ x, const float* __restrict__ ns,
-                   const float* __restrict__ nb,
-                   const signed char* __restrict__ wq,
-                   const float* __restrict__ ws, const float* __restrict__ bqkv,
-                   float* __restrict__ ctx, T* kv, int N, int D) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t image = static_cast<size_t>(b) * N * D;
-  T* kv_head = KV_DEVICE ? kv + (static_cast<size_t>(b) * gridDim.x + h) *
-                                    attn_kv_elems<T>(N)
-                         : nullptr;
-  QkvInt8<T> qkv(x + image, ns, nb, wq, ws, bqkv, N, D,
-                 smem_raw + attn_core_bytes<T>(N, !KV_DEVICE));
-  attn_head<T, float, KV_DEVICE>(qkv, ctx + image, h, N, D, smem_raw, kv_head);
-}
-
-// out = x + ls * (quant(ctx) Wp^T * scales + bp) for rows r0 .. r0 + 15.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-vit_proj_i8_kernel(const float* __restrict__ ctx, const T* __restrict__ x,
-                   const signed char* __restrict__ wq,
-                   const float* __restrict__ ws, const float* __restrict__ bp,
-                   const float* __restrict__ ls, T* __restrict__ out, int R,
-                   int D) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const QuantSmem sm(smem_raw, D);
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.x * kBM, valid = min(kBM, R - r0);
-  const float* ct = ctx + static_cast<size_t>(r0) * D;
-  quant_rows([&](int m, int k) { return ct[static_cast<size_t>(m) * D + k]; },
-             valid, D, sm.yq, sm.ys);
-  for (int d0 = 0; d0 < D; d0 += kThreads) {
-    int o[kBM];
-#pragma unroll
-    for (int r = 0; r < kBM; ++r) o[r] = 0;
-    gemm_tile_i8<kThreads>(o, D, [&](int m, int k) {
-      return *reinterpret_cast<const int*>(sm.yq + m * D + k);
-    }, [&](int n) -> const signed char* {
-      return d0 + n < D ? wq + static_cast<size_t>(d0 + n) * D : nullptr;
-    }, sm.As8, sm.Ws8);
-    const int n = d0 + t;
-    if (n < D) {
-      const float cs = ws[n], bias = bp[n], scale = ls[n];
-#pragma unroll
-      for (int r = 0; r < kBM; ++r) {
-        if (r < valid) {
-          const size_t at = static_cast<size_t>(r0 + r) * D + n;
-          const float proj = __fmul_rn(rescale(o[r], sm.ys[r], cs, bias), scale);
-          out[at] = from_float<T>(__fadd_rn(to_float(x[at]), proj));
-        }
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------- MLP block
 // 0.5 h (1 + erf(h / sqrt 2)) with the rational erf of the TPU kernels, or
 // the tanh form; every operation rounded on its own.
@@ -430,10 +340,10 @@ __device__ __forceinline__ float swiglu_i8(float gate, float val) {
   return __fmul_rn(__fmul_rn(gate, sig), val);
 }
 
-// out = x + ls * (fc2(quant(act(fc1(quant(LN(x)))))) + b2) for rows r0 ..
-// r0 + 15 of the flattened (R, D) activation, the hidden activation quantised
-// per row over each of `chunks` spans of H / chunks columns. w1: (H, D) codes
-// or the packed (2H, D) for SwiGLU, gate rows first; w2: (D, H).
+// #9: out = x + ls * (fc2(quant(gelu(fc1(quant(LN(x)))))) + b2) for rows r0
+// .. r0 + 15 of the flattened (R, D) activation, the hidden activation
+// quantised per row over each of `chunks` spans of H / chunks columns. w1:
+// (H, D) codes; w2: (D, H).
 template <typename T, int ACT>
 __global__ void __launch_bounds__(kThreads)
 vit_mlp_i8_kernel(const T* __restrict__ x, const float* __restrict__ ns,
@@ -457,7 +367,7 @@ vit_mlp_i8_kernel(const T* __restrict__ x, const float* __restrict__ ns,
   const int r0 = blockIdx.x * kBM, valid = min(kBM, R - r0);
   const T* xt = x + static_cast<size_t>(r0) * D;
   ln_stats64<T>(xt, valid, D, sm.mu_s, sm.rstd_s);
-  quant_rows(LnRows64<T>{xt, ns, nb, sm.mu_s, sm.rstd_s, D}, valid, D, sm.yq,
+  quant_tile(LnRows64<T>{xt, ns, nb, sm.mu_s, sm.rstd_s, D}, valid, D, sm.yq,
              sm.ys);
   if (chunks > 1)
     for (int i = t; i < kBM * D; i += kThreads) acc_f[i] = 0.f;
@@ -474,25 +384,10 @@ vit_mlp_i8_kernel(const T* __restrict__ x, const float* __restrict__ ns,
     gemm_tile_i8<kHC>(a1, D, y_word, [&](int n) -> const signed char* {
       return j0 + n < H ? w1q + static_cast<size_t>(j0 + n) * D : nullptr;
     }, sm.As8, sm.Ws8);
-    if (ACT == kSwiglu) {
-      int a2[kBM];
+    const float s1 = live ? w1s[j] : 0.f, bj = live ? b1[j] : 0.f;
 #pragma unroll
-      for (int r = 0; r < kBM; ++r) a2[r] = 0;
-      gemm_tile_i8<kHC>(a2, D, y_word, [&](int n) -> const signed char* {
-        return j0 + n < H ? w1q + static_cast<size_t>(H + j0 + n) * D : nullptr;
-      }, sm.As8, sm.Ws8);
-      const float sg = live ? w1s[j] : 0.f, bg = live ? b1[j] : 0.f;
-      const float sv = live ? w1s[H + j] : 0.f, bv = live ? b1[H + j] : 0.f;
-#pragma unroll
-      for (int r = 0; r < kBM; ++r)
-        hv[r] = live ? swiglu_i8(rescale(a1[r], sm.ys[r], sg, bg),
-                                 rescale(a2[r], sm.ys[r], sv, bv)) : 0.f;
-    } else {
-      const float s1 = live ? w1s[j] : 0.f, bj = live ? b1[j] : 0.f;
-#pragma unroll
-      for (int r = 0; r < kBM; ++r)
-        hv[r] = live ? gelu_i8<ACT>(rescale(a1[r], sm.ys[r], s1, bj)) : 0.f;
-    }
+    for (int r = 0; r < kBM; ++r)
+      hv[r] = live ? gelu_i8<ACT>(rescale(a1[r], sm.ys[r], s1, bj)) : 0.f;
   };
 
   const int span = H / chunks;
@@ -558,65 +453,394 @@ vit_mlp_i8_kernel(const T* __restrict__ x, const float* __restrict__ ns,
   }
 }
 
+// ------------------------------------------- #8 and #10: row quantisers
+constexpr int kRowThreads = 256;
+constexpr int kRowsPerBlock = kRowThreads / 32;   // with one warp per row
+constexpr int kLnPieces = 12;   // 4-value pieces a lane keeps: rows up to 1536
+constexpr int kQuantPieces = 12; // 4-value pieces a thread keeps
+
+// Four values of row p.. as f32 (8 bytes of bf16, 16 of f32).
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&o)[4]) {
+  if constexpr (sizeof(T) == 2) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = to_float(e[i]);
+  } else {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+  }
+}
+
+__device__ __forceinline__ int pack_codes(const float (&v)[4], float s) {
+  return (quant_code(v[0], s) & 0xff) | (quant_code(v[1], s) & 0xff) << 8 |
+         (quant_code(v[2], s) & 0xff) << 16 | (quant_code(v[3], s) & 0xff) << 24;
+}
+
+// codes q (R, D) int8 and scales qs (R) of LN(x), one warp per row: the f64
+// LayerNorm of `ln_stats64` / `LnRows64`, each of its operations rounded on
+// its own, then rounded to f32 once. A row of up to 128 kLnPieces values is
+// read once into registers (lane l keeps columns 4 l + 128 j ..+ 3); a
+// longer one is read again for each pass. D % 4 == 0.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+ln_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, signed char* __restrict__ q,
+                     float* __restrict__ qs, int R, int D) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  if (row >= R) return;
+  const T* xr = x + static_cast<size_t>(row) * D;
+  int* qr = reinterpret_cast<int*>(q + static_cast<size_t>(row) * D);
+  // LN(x) at column k of value xv, rounded to f32 once
+  double mu = 0.0, rstd = 0.0;
+  auto ln = [&](float xv, int k) {
+    const double y = __dmul_rn(__dsub_rn(static_cast<double>(xv), mu), rstd);
+    return static_cast<float>(__dadd_rn(__dmul_rn(y, static_cast<double>(scale[k])),
+                                        static_cast<double>(bias[k])));
+  };
+  float amax = 0.f;
+  if (D <= 128 * kLnPieces) {
+    float v[kLnPieces][4];
+    double s = 0.0;
+#pragma unroll
+    for (int j = 0; j < kLnPieces; ++j) {
+      if (4 * lane + 128 * j < D) {
+        load4(xr + 4 * lane + 128 * j, v[j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s += static_cast<double>(v[j][i]);
+      }
+    }
+    mu = warp_sum64(s) / D;
+    double var = 0.0;
+#pragma unroll
+    for (int j = 0; j < kLnPieces; ++j)
+      if (4 * lane + 128 * j < D) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const double d = static_cast<double>(v[j][i]) - mu;
+          var += d * d;
+        }
+      }
+    rstd = 1.0 / sqrt(warp_sum64(var) / D + 1e-6);
+#pragma unroll
+    for (int j = 0; j < kLnPieces; ++j)
+      if (4 * lane + 128 * j < D) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[j][i] = ln(v[j][i], 4 * lane + 128 * j + i);
+          amax = fmaxf(amax, fabsf(v[j][i]));
+        }
+      }
+    const float sc = quant_scale(warp_max(amax));
+#pragma unroll
+    for (int j = 0; j < kLnPieces; ++j)
+      if (4 * lane + 128 * j < D) qr[lane + 32 * j] = pack_codes(v[j], sc);
+    if (lane == 0) qs[row] = sc;
+    return;
+  }
+  double s = 0.0;
+  for (int k = 4 * lane; k < D; k += 128) {
+    float v[4];
+    load4(xr + k, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s += static_cast<double>(v[i]);
+  }
+  mu = warp_sum64(s) / D;
+  double var = 0.0;
+  for (int k = 4 * lane; k < D; k += 128) {
+    float v[4];
+    load4(xr + k, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const double d = static_cast<double>(v[i]) - mu;
+      var += d * d;
+    }
+  }
+  rstd = 1.0 / sqrt(warp_sum64(var) / D + 1e-6);
+  for (int k = 4 * lane; k < D; k += 128) {
+    float v[4];
+    load4(xr + k, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(ln(v[i], k + i)));
+  }
+  const float sc = quant_scale(warp_max(amax));
+  for (int k = 4 * lane; k < D; k += 128) {
+    float v[4];
+    load4(xr + k, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = ln(v[i], k + i);
+    qr[k / 4] = pack_codes(v, sc);
+  }
+  if (lane == 0) qs[row] = sc;
+}
+
+// codes q (R, D) int8 of the f32 rows y (R, D), quantised per row over each
+// span of `span` columns, with the scales qs (R, D / span) row-major; TPS
+// threads per row span (a warp, or the whole block for a long span). A span
+// of up to 4 TPS kQuantPieces values is read once into registers (thread t
+// keeps columns 4 t + 4 TPS j .. + 3); a longer one is read twice.
+// span % 4 == 0, 16-byte aligned rows.
+template <int TPS>
+__global__ void __launch_bounds__(kRowThreads)
+quant_rows_kernel(const float* __restrict__ y, signed char* __restrict__ q,
+                  float* __restrict__ qs, long long segs, int D, int span) {
+  constexpr int STEP = 4 * TPS;
+  __shared__ float part[kRowThreads / 32];
+  const int t = threadIdx.x % TPS, spans = D / span;
+  const long long seg =
+      static_cast<long long>(blockIdx.x) * (kRowThreads / TPS) + threadIdx.x / TPS;
+  if (seg >= segs) return;   // whole warps: TPS is 32 or the block
+  const size_t at = static_cast<size_t>(seg / spans) * D + seg % spans * span;
+  const float* yr = y + at;
+  int* qr = reinterpret_cast<int*>(q + at);
+  const bool cached = span <= STEP * kQuantPieces;
+  float v[kQuantPieces][4];
+  float amax = 0.f;
+  if (cached) {
+#pragma unroll
+    for (int j = 0; j < kQuantPieces; ++j)
+      if (4 * t + STEP * j < span) {
+        load4(yr + 4 * t + STEP * j, v[j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(v[j][i]));
+      }
+  } else {
+    for (int k = 4 * t; k < span; k += STEP) {
+      float u[4];
+      load4(yr + k, u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(u[i]));
+    }
+  }
+  amax = warp_max(amax);
+  if constexpr (TPS > 32) {
+    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = amax;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < TPS / 32; ++w) amax = fmaxf(amax, part[w]);
+  }
+  const float sc = quant_scale(amax);
+  if (cached) {
+#pragma unroll
+    for (int j = 0; j < kQuantPieces; ++j)
+      if (4 * t + STEP * j < span) qr[t + TPS * j] = pack_codes(v[j], sc);
+  } else {
+    for (int k = 4 * t; k < span; k += STEP) {
+      float u[4];
+      load4(yr + k, u);
+      qr[k / 4] = pack_codes(u, sc);
+    }
+  }
+  if (t == 0) qs[seg] = sc;
+}
+
+// ---------------------------------------------- #8 and #10: GEMM epilogues
+// float(acc) * row scale * channel scale, each product rounded: the int32 sum
+// converts to the nearest float, as the plain version's exact sum does.
+__device__ __forceinline__ float dequant(int acc, float row_s, float chan_s) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), row_s), chan_s);
+}
+
+// qkv: dequant + bias (the GEMM rounds it to T)
+struct EpiQkvI8 {
+  const float* rs;     // (M) row scales
+  const float* cs;     // (N) channel scales
+  const float* bias;   // (N)
+  __device__ __forceinline__ float operator()(int row, int col, int acc) const {
+    return __fadd_rn(dequant(acc, rs[row], cs[col]), bias[col]);
+  }
+};
+
+// out projection and fc2: resid + (sum + bias) ls, where sum is the dequantised
+// product, or with `chunks` > 1 (the CHUNKED GEMM) the f32 sum of the
+// products of the chunks of `span` columns, each with its own row scale
+template <typename T>
+struct EpiResidualI8 {
+  const T* resid;      // (M, ld)
+  const float* rs;     // (M, chunks) row scales
+  const float* cs;     // (N) channel scales
+  const float* bias;   // (N)
+  const float* ls;     // (N)
+  int ld, chunks, span;
+  __device__ __forceinline__ float chunk(int row, int col, int c, int acc) const {
+    return dequant(acc, rs[static_cast<size_t>(row) * chunks + c], cs[col]);
+  }
+  __device__ __forceinline__ float finish(int row, int col, float sum) const {
+    return __fadd_rn(to_float(resid[static_cast<size_t>(row) * ld + col]),
+                     __fmul_rn(__fadd_rn(sum, bias[col]), ls[col]));
+  }
+  __device__ __forceinline__ float operator()(int row, int col, int acc) const {
+    return finish(row, col, chunk(row, col, 0, acc));
+  }
+};
+
+// packed fc1 (2H, D), gate rows first: swiglu_i8 of the dequantised gate
+// (column col) and value (column H + col), each with its bias
+struct EpiSwigluI8 {
+  static constexpr bool kGated = true;
+  const float* rs;     // (M) row scales
+  const float* cs;     // (2H) channel scales
+  const float* bias;   // (2H)
+  int H;
+  __device__ __forceinline__ float operator()(int row, int col, int gate,
+                                              int val) const {
+    const float r = rs[row];
+    return swiglu_i8(__fadd_rn(dequant(gate, r, cs[col]), bias[col]),
+                     __fadd_rn(dequant(val, r, cs[H + col]), bias[H + col]));
+  }
+};
+
+// ------------------------------------------------- #8: streamed attention
+// #4's attention tiles, the context stored in f32; blockIdx = (query tile,
+// head, image)
+__global__ void __launch_bounds__(tiles::kAttnThreadsBf16)
+attn_i8_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ ctx,
+                    int N, int D) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  tiles::attn_tile_bf16<false, float>(qkv, ctx, blockIdx.z, blockIdx.y,
+                                      blockIdx.x * tiles::kQTBf16, N, D, smem_raw);
+}
+
+__global__ void __launch_bounds__(tiles::kAttnThreadsF32)
+attn_i8_f32_kernel(const float* __restrict__ qkv, float* __restrict__ ctx, int N,
+                   int D) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  tiles::attn_tile_f32<false>(qkv, ctx, blockIdx.z, blockIdx.y,
+                              blockIdx.x * tiles::kQT, N, D, smem_raw);
+}
+
 // ------------------------------------------------------------------ launch
 template <typename T>
-size_t attn_i8_smem(int N, int D, bool kv_in_smem) {
-  return attn_core_bytes<T>(N, kv_in_smem) + QuantSmem::bytes(D);
-}
-
-// K and V stay in shared memory where they fit beside the rest.
-template <typename T>
-bool kv_in_smem(int N, int D) {
-  return attn_i8_smem<T>(N, D, true) <= kMaxSmem;
-}
-
-template <typename T>
-size_t attn_i8_kv_bytes(int B, int N, int D, int heads) {
-  return kv_in_smem<T>(N, D) ? 0
-                             : static_cast<size_t>(B) * heads *
-                                   attn_kv_elems<T>(N) * sizeof(T);
-}
-
-size_t mlp_i8_smem(int D, int chunks) {
-  return QuantSmem::bytes(D) + 128 + align_up(kBM * kLDHQ) +
-         static_cast<size_t>(chunks > 1 ? 2 : 1) * kBM * D * sizeof(int);
-}
-
-template <typename T, bool KV_DEVICE>
-cudaError_t launch_attn_core(const void* x, const float* ns, const float* nb,
-                             const signed char* wq, const float* ws,
-                             const float* bqkv, float* ctx, void* kv, int B,
-                             int N, int D, int heads, size_t smem,
-                             cudaStream_t stream) {
-  const cudaError_t rc = allow_smem(vit_attn_i8_kernel<T, KV_DEVICE>, smem);
-  if (rc != cudaSuccess) return rc;
-  vit_attn_i8_kernel<T, KV_DEVICE><<<dim3(heads, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), ns, nb, wq, ws, bqkv, ctx, static_cast<T*>(kv), N, D);
+cudaError_t ln_quant(const T* x, const float* ns, const float* nb, signed char* q,
+                     float* qs, int R, int D, cudaStream_t s) {
+  ln_quant_rows_kernel<T><<<(R + kRowsPerBlock - 1) / kRowsPerBlock, kRowThreads, 0,
+                            s>>>(x, ns, nb, q, qs, R, D);
   return cudaGetLastError();
 }
 
+// a warp per span where a warp's registers hold it (the context's D), the
+// block per span for the hidden activation's longer spans
+cudaError_t quant(const float* y, signed char* q, float* qs, int R, int D, int span,
+                  cudaStream_t s) {
+  const long long segs = static_cast<long long>(R) * (D / span);
+  if (span <= 4 * 32 * kQuantPieces)
+    quant_rows_kernel<32><<<static_cast<unsigned>((segs + kRowsPerBlock - 1) / kRowsPerBlock),
+                            kRowThreads, 0, s>>>(y, q, qs, segs, D, span);
+  else
+    quant_rows_kernel<kRowThreads><<<static_cast<unsigned>(segs), kRowThreads, 0, s>>>(
+        y, q, qs, segs, D, span);
+  return cudaGetLastError();
+}
+
+// ctx (B, N, D) f32 from qkv (B, N, 3D) in T, every head
 template <typename T>
-int launch_attn_i8(const void* x, const float* ns, const float* nb,
-                   const signed char* wq, const float* ws, const float* bqkv,
-                   const signed char* pq, const float* ps, const float* bp,
-                   const float* ls, float* ctx, void* kv, void* out, int B,
-                   int N, int D, int heads, cudaStream_t stream) {
-  if (heads * kHD != D || D % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool in_smem = kv_in_smem<T>(N, D);
-  const size_t smem_a = attn_i8_smem<T>(N, D, in_smem), smem_p = QuantSmem::bytes(D);
-  if (smem_a > kMaxSmem || (!in_smem && kv == nullptr))
+cudaError_t attention_f32_ctx(const T* qkv, float* ctx, int B, int N, int D,
+                              int heads, cudaStream_t s) {
+  constexpr int QT = tiles::kTensor<T> ? tiles::kQTBf16 : tiles::kQT;
+  const dim3 grid((N + QT - 1) / QT, heads, B);
+  cudaError_t rc;
+  if constexpr (tiles::kTensor<T>) {
+    if ((rc = allow_smem(attn_i8_bf16_kernel, tiles::kAttnSmemBf16)) != cudaSuccess)
+      return rc;
+    attn_i8_bf16_kernel<<<grid, tiles::kAttnThreadsBf16, tiles::kAttnSmemBf16, s>>>(
+        qkv, ctx, N, D);
+  } else {
+    if ((rc = allow_smem(attn_i8_f32_kernel, tiles::kAttnSmemF32)) != cudaSuccess)
+      return rc;
+    attn_i8_f32_kernel<<<grid, tiles::kAttnThreadsF32, tiles::kAttnSmemF32, s>>>(
+        qkv, ctx, N, D);
+  }
+  return cudaGetLastError();
+}
+
+// The tensors of one int8 block call, in the order of its C entry. Scratch:
+// codes (B N, D) int8 and scales (B N) f32 (the LayerNorm's, then the
+// context's); #8: qkv (B, N, 3D) in T and ctx (B, N, D) f32; #10: hidden
+// (slab, H) f32, and the hidden codes (B N, H) int8 and scales (B N, chunks)
+// f32.
+struct I8Args {
+  const void* x;
+  const float *ns, *nb;
+  const signed char* w1q;   // qkv or fc1
+  const float *w1s, *b1;
+  const signed char* w2q;   // proj or fc2
+  const float *w2s, *b2, *ls;
+  signed char* codes;
+  float* scales;
+  void* qkv;
+  float* ctx;
+  float* hidden;
+  signed char* hcodes;
+  float* hscales;
+  void* out;
+  int B, N, D, heads, H, chunks, slab;
+};
+
+// #8: LN-quant, qkv GEMM, attention, quantise the context, out-projection
+// GEMM with LayerScale and the residual: five launches
+template <typename T>
+int launch_attn_i8(const I8Args& a, cudaStream_t s) {
+  const int R = a.B * a.N, D = a.D;
+  if (a.heads * kHD != D || D % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const T* x = static_cast<const T*>(a.x);
+  T* qkv = static_cast<T*>(a.qkv);
+  cudaError_t rc;
+  if ((rc = ln_quant<T>(x, a.ns, a.nb, a.codes, a.scales, R, D, s)) != cudaSuccess)
+    return static_cast<int>(rc);
+  if ((rc = tiles::gemm_tma<signed char>(a.codes, a.w1q, qkv, R, 3 * D, D,
+                                         EpiQkvI8{a.scales, a.w1s, a.b1}, s)) != cudaSuccess)
+    return static_cast<int>(rc);
+  if ((rc = attention_f32_ctx<T>(qkv, a.ctx, a.B, a.N, D, a.heads, s)) != cudaSuccess)
+    return static_cast<int>(rc);
+  if ((rc = quant(a.ctx, a.codes, a.scales, R, D, D, s)) != cudaSuccess)
+    return static_cast<int>(rc);
+  return static_cast<int>(tiles::gemm_tma<signed char>(
+      a.codes, a.w2q, static_cast<T*>(a.out), R, D, D,
+      EpiResidualI8<T>{x, a.scales, a.w2s, a.b2, a.ls, D, 1, D}, s));
+}
+
+// #10: LN-quant over all rows; per slab of a.slab rows the gated fc1 GEMM
+// (SwiGLU into hidden, f32) and the hidden activation's codes per row and
+// chunk; then one fc2 GEMM over all rows with LayerScale and the residual
+// (CHUNKED where there is more than one chunk): 2 + 2 launches per slab.
+// fc2 has only D / 128 column tiles, so it runs over all rows at once: per
+// slab it would fill a fraction of the card's blocks.
+template <typename T>
+int launch_swiglu_i8(const I8Args& a, cudaStream_t s) {
+  const int R = a.B * a.N, D = a.D, H = a.H;
+  if (D % 64 != 0 || a.chunks < 1 || H % a.chunks != 0 || (H / a.chunks) % 64 != 0 ||
+      a.slab < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = allow_smem(vit_proj_i8_kernel<T>, smem_p);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  rc = in_smem ? launch_attn_core<T, false>(x, ns, nb, wq, ws, bqkv, ctx, kv, B,
-                                            N, D, heads, smem_a, stream)
-               : launch_attn_core<T, true>(x, ns, nb, wq, ws, bqkv, ctx, kv, B,
-                                           N, D, heads, smem_a, stream);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int R = B * N;
-  vit_proj_i8_kernel<T><<<(R + kBM - 1) / kBM, kThreads, smem_p, stream>>>(
-      ctx, static_cast<const T*>(x), pq, ps, bp, ls, static_cast<T*>(out), R, D);
-  return static_cast<int>(cudaGetLastError());
+  const int span = H / a.chunks;
+  const T* x = static_cast<const T*>(a.x);
+  cudaError_t rc;
+  if ((rc = ln_quant<T>(x, a.ns, a.nb, a.codes, a.scales, R, D, s)) != cudaSuccess)
+    return static_cast<int>(rc);
+  for (int r0 = 0; r0 < R; r0 += a.slab) {
+    const int rows = std::min(a.slab, R - r0);
+    if ((rc = tiles::gemm_tma<signed char>(
+             a.codes + static_cast<size_t>(r0) * D, a.w1q, a.hidden, rows, H, D,
+             EpiSwigluI8{a.scales + r0, a.w1s, a.b1, H}, s)) != cudaSuccess)
+      return static_cast<int>(rc);
+    if ((rc = quant(a.hidden, a.hcodes + static_cast<size_t>(r0) * H,
+                    a.hscales + static_cast<size_t>(r0) * a.chunks, rows, H, span,
+                    s)) != cudaSuccess)
+      return static_cast<int>(rc);
+  }
+  const EpiResidualI8<T> epi{x, a.hscales, a.w2s, a.b2, a.ls, D, a.chunks, span};
+  T* out = static_cast<T*>(a.out);
+  rc = a.chunks > 1
+           ? tiles::gemm_tma<signed char, true>(a.hcodes, a.w2q, out, R, D, H, epi, s)
+           : tiles::gemm_tma<signed char>(a.hcodes, a.w2q, out, R, D, H, epi, s);
+  return static_cast<int>(rc);
+}
+
+// #9: its block's shared memory, launch and activations
+size_t mlp_i8_smem(int D, int chunks) {
+  return QuantSmem::bytes(D) + 128 + align_up(kBM * kLDHQ) +
+         static_cast<size_t>(chunks > 1 ? 2 : 1) * kBM * D * sizeof(int);
 }
 
 template <typename T, int ACT>
@@ -650,9 +874,6 @@ int dispatch_mlp_i8(int act, const void* x, const float* ns, const float* nb,
     case kGeluTanh:
       return launch_mlp_i8<T, kGeluTanh>(x, ns, nb, w1q, w1s, b1, w2q, w2s, b2,
                                          ls, out, R, D, H, chunks, s);
-    case kSwiglu:
-      return launch_mlp_i8<T, kSwiglu>(x, ns, nb, w1q, w1s, b1, w2q, w2s, b2,
-                                       ls, out, R, D, H, chunks, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -660,34 +881,50 @@ int dispatch_mlp_i8(int act, const void* x, const float* ns, const float* nb,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (x and out). Weight codes are int8 (out, in),
-// weight scales, norm scale/bias, biases and LayerScale f32. ctx is f32
-// scratch of x's shape; kv is scratch of `paths_vit_attn_i8_kv_bytes` bytes
-// (none when that is 0: K and V fit shared memory).
+// dtype: 0 = f32, 1 = bf16 (x, qkv and out). Weight codes are int8 (out,
+// in), weight scales, norm scale/bias, biases and LayerScale f32. Scratch:
+// codes (B N, D) int8, scales (B N) f32, qkv (B, N, 3D) in x's dtype, ctx
+// (B, N, D) f32.
 extern "C" int paths_vit_attn_block_i8(
     const void* x, const float* norm_scale, const float* norm_bias,
     const signed char* qkv_q, const float* qkv_s, const float* qkv_b,
     const signed char* proj_q, const float* proj_s, const float* proj_b,
-    const float* ls, float* ctx, void* kv, void* out, int B, int N, int D,
-    int heads, int dtype, void* stream) {
+    const float* ls, signed char* codes, float* scales, void* qkv, float* ctx,
+    void* out, int B, int N, int D, int heads, int dtype, void* stream) {
+  I8Args a{};
+  a.x = x;
+  a.ns = norm_scale;
+  a.nb = norm_bias;
+  a.w1q = qkv_q;
+  a.w1s = qkv_s;
+  a.b1 = qkv_b;
+  a.w2q = proj_q;
+  a.w2s = proj_s;
+  a.b2 = proj_b;
+  a.ls = ls;
+  a.codes = codes;
+  a.scales = scales;
+  a.qkv = qkv;
+  a.ctx = ctx;
+  a.out = out;
+  a.B = B;
+  a.N = N;
+  a.D = D;
+  a.heads = heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_attn_i8<float>(x, norm_scale, norm_bias, qkv_q, qkv_s, qkv_b,
-                                   proj_q, proj_s, proj_b, ls, ctx, kv, out, B,
-                                   N, D, heads, s);
+      return launch_attn_i8<float>(a, s);
     case 1:
-      return launch_attn_i8<__nv_bfloat16>(x, norm_scale, norm_bias, qkv_q,
-                                           qkv_s, qkv_b, proj_q, proj_s, proj_b,
-                                           ls, ctx, kv, out, B, N, D, heads, s);
+      return launch_attn_i8<__nv_bfloat16>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// act: 0 = exact (rational erf) GELU, 1 = tanh GELU, 2 = packed SwiGLU
-// (fc1 is (2H, D), gate rows first). x is (R, D), R = B N; the hidden
-// activation is quantised over `chunks` spans of H / chunks columns.
+// act: 0 = exact (rational erf) GELU, 1 = tanh GELU. x is (R, D), R = B N;
+// the hidden activation is quantised over `chunks` spans of H / chunks
+// columns.
 extern "C" int paths_vit_mlp_block_i8(
     const void* x, const float* norm_scale, const float* norm_bias,
     const signed char* fc1_q, const float* fc1_s, const float* fc1_b,
@@ -709,21 +946,50 @@ extern "C" int paths_vit_mlp_block_i8(
   }
 }
 
-// Shared memory of the attention kernel for N tokens at width D: with K and
-// V in it where they fit, else without them.
-extern "C" long long paths_vit_attn_i8_smem_bytes(int N, int D, int dtype) {
-  return static_cast<long long>(
-      dtype == 0 ? attn_i8_smem<float>(N, D, kv_in_smem<float>(N, D))
-                 : attn_i8_smem<__nv_bfloat16>(N, D, kv_in_smem<__nv_bfloat16>(N, D)));
-}
-
-// Bytes of device memory K and V of every (image, head) need when they do
-// not fit shared memory, else 0.
-extern "C" long long paths_vit_attn_i8_kv_bytes(int B, int N, int D, int heads,
-                                                int dtype) {
-  return static_cast<long long>(
-      dtype == 0 ? attn_i8_kv_bytes<float>(B, N, D, heads)
-                 : attn_i8_kv_bytes<__nv_bfloat16>(B, N, D, heads));
+// The packed SwiGLU MLP block (fc1 (2H, D), gate rows first), its f32 hidden
+// activation made a slab of `slab` rows at a time; x is (R, D), R = B N, the
+// hidden activation quantised over `chunks` spans of H / chunks columns.
+// Scratch: codes (R, D) int8, scales (R) f32, hidden (min(slab, R), H) f32,
+// hcodes (R, H) int8, hscales (R, chunks) f32.
+extern "C" int paths_vit_swiglu_mlp_block_i8(
+    const void* x, const float* norm_scale, const float* norm_bias,
+    const signed char* fc1_q, const float* fc1_s, const float* fc1_b,
+    const signed char* fc2_q, const float* fc2_s, const float* fc2_b,
+    const float* ls, signed char* codes, float* scales, float* hidden,
+    signed char* hcodes, float* hscales, void* out, int R, int D, int H,
+    int chunks, int slab, int dtype, void* stream) {
+  I8Args a{};
+  a.x = x;
+  a.ns = norm_scale;
+  a.nb = norm_bias;
+  a.w1q = fc1_q;
+  a.w1s = fc1_s;
+  a.b1 = fc1_b;
+  a.w2q = fc2_q;
+  a.w2s = fc2_s;
+  a.b2 = fc2_b;
+  a.ls = ls;
+  a.codes = codes;
+  a.scales = scales;
+  a.hidden = hidden;
+  a.hcodes = hcodes;
+  a.hscales = hscales;
+  a.out = out;
+  a.B = 1;
+  a.N = R;
+  a.D = D;
+  a.H = H;
+  a.chunks = chunks;
+  a.slab = slab;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_swiglu_i8<float>(a, s);
+    case 1:
+      return launch_swiglu_i8<__nv_bfloat16>(a, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" long long paths_vit_mlp_i8_smem_bytes(int D, int chunks) {

@@ -1,11 +1,12 @@
-// Tiled pieces of the fused ViT block kernels (`vit_fused.cu`:
-// `fused_attn_block`, `fused_mlp_block`, `fused_swiglu_mlp_block`,
-// `fused_block`): the LayerNorm pre-pass, the GEMMs with their epilogue
-// hooks (a gated one for the packed SwiGLU), and the attention core that
-// streams K and V in key tiles. The design notes are at the top of
-// `vit_fused.cu`.
+// Tiled pieces of the ViT block kernels (`vit_fused.cu`: `fused_attn_block`,
+// `fused_mlp_block`, `fused_swiglu_mlp_block`, `fused_block`; `vit_int8.cu`:
+// `fused_attn_block_i8`, `fused_swiglu_mlp_block_i8`): the LayerNorm
+// pre-pass, the GEMMs with their epilogue hooks (a gated one for the packed
+// SwiGLU), and the attention core that streams K and V in key tiles. The
+// design notes are at the top of `vit_fused.cu` and `vit_int8.cu`.
 //
 // Tensor cores. The bf16 projections use `wgmma` (m64n128k16, f32
+// accumulation) and the int8 ones `wgmma` on s8 codes (m64n128k32, s32
 // accumulation) on tiles that TMA brings in, with a producer warp and
 // mbarriers in place of block-wide barriers (an `mma.sync` GEMM over the same
 // tiles, fed by `cp.async`, reached about half its rate on the H100). The
@@ -17,6 +18,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include <type_traits>
 
@@ -87,6 +89,11 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // Two f32 values rounded to bf16, stored as a pair.
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Two f32 values stored as a pair, unrounded.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 template <typename T>
@@ -186,8 +193,10 @@ __device__ __forceinline__ void layernorm_rows(const T* __restrict__ x,
 }
 
 // ----------------------------------------------------------- GEMM epilogues
-// The f32 value stored at (row, col) of out (M, N) for the accumulator `acc`;
-// the caller rounds it to T.
+// The f32 value stored at (row, col) of out (M, N) for the accumulator `acc`
+// (f32, or s32 for the int8 GEMM); the caller rounds it to the output type.
+// A gated epilogue has `static constexpr bool kGated = true` and takes two
+// accumulators.
 struct EpiBias {              // acc + bias
   const float* bias;
   __device__ __forceinline__ float operator()(int, int col, float acc) const {
@@ -219,6 +228,7 @@ struct EpiResidual {          // resid + (acc + bias) ls
 // (2H, K) weight, gate rows first: `gate` is the product with W row col,
 // `val` with W row H + col.
 struct EpiSwiglu {
+  static constexpr bool kGated = true;
   const float* bias;          // (2H): the gate biases, then the value biases
   int H;
   __device__ __forceinline__ float operator()(int, int col, float gate,
@@ -233,19 +243,26 @@ struct EpiSwiglu {
 // [n0, n0 + BN / 2) of the gate half above the same rows of the value half,
 // so that output column c and its value partner c + BN / 2 of the tile land
 // in one thread's accumulators; the epilogue pairs them there.
+template <typename Epi, typename = void>
+struct IsGated : std::false_type {};
 template <typename Epi>
-constexpr bool kGlu = std::is_same<Epi, EpiSwiglu>::value;
+struct IsGated<Epi, std::void_t<decltype(Epi::kGated)>>
+    : std::bool_constant<Epi::kGated> {};
+template <typename Epi>
+constexpr bool kGlu = IsGated<Epi>::value;
 
-// ------------------------------------------------- bf16 GEMM: TMA + wgmma
-// out = epi(A W^T), A (M, K) and W (N, K) row-major bf16, as 128 x 128
-// output tiles. A block is 2 consumer warpgroups and one producer warp. One
-// thread of the producer streams 64-column slabs of A (128 x 64) and W
-// (128 x 64) by TMA into a ring of kWStages stages (128-byte swizzle; zeros
-// past the edges of M, N and K), each stage guarded by a "full" and an
-// "empty" mbarrier. Each consumer warpgroup multiplies 64 rows of the tile
-// with `wgmma.m64n128k16` (4 per slab, operands read from shared memory
-// through descriptors), keeps one group of products in flight, releases a
-// stage once its products are done, and applies the epilogue from
+// ------------------------------------------- GEMM: TMA + wgmma, bf16 or int8
+// out = epi(A W^T), A (M, K) and W (N, K) row-major, both bf16 or both int8
+// codes, as 128 x 128 output tiles. A block is 2 consumer warpgroups and one
+// producer warp. One thread of the producer streams slabs of one 128-byte
+// swizzle row -- 64 columns of bf16, 128 of int8 -- of A (128 rows) and W
+// (128 rows) by TMA into a ring of kWStages stages (128-byte swizzle; zeros
+// past the edges of M, N and K: code 0 for int8), each stage guarded by a
+// "full" and an "empty" mbarrier. Each consumer warpgroup multiplies 64 rows
+// of the tile with `wgmma` (bf16: m64n128k16 into f32; int8: m64n128k32
+// into s32), 4 per slab of 32 bytes of K each, operands read from shared
+// memory through descriptors; it keeps one group of products in flight,
+// releases a stage once its products are done, and applies the epilogue from
 // registers. Two blocks fit an SM (registers and shared memory), so one
 // block's epilogue runs beside the other's products: the epilogue (GELU of
 // fc1 above all) costs as much as a slab's products and would otherwise
@@ -254,13 +271,26 @@ constexpr bool kGlu = std::is_same<Epi, EpiSwiglu>::value;
 // map `mv` of the value half, each with zeros past row N; both land where
 // one 128-row box would (64 rows of 128 bytes are whole 1024-byte swizzle
 // atoms), so the stage's bytes and the operand descriptors do not change.
-constexpr int kWBM = 128, kWBN = 128, kWBK = 64;
+//
+// CHUNKED (int8): the contraction is cut into spans of `epi.span` columns,
+// each with a row scale of A of its own (the int8 MLP's hidden activation is
+// quantised per chunk). At each span boundary -- a multiple of 32 columns,
+// so between two k32 steps, possibly inside a slab -- a consumer waits for
+// its products, adds `epi.chunk(row, col, c, acc)` to an f32 sum per output
+// and clears the accumulators; the epilogue then stores
+// `epi.finish(row, col, sum)`. The sums double the accumulator registers, so
+// a chunked block has an SM to itself.
+constexpr int kWBM = 128, kWBN = 128;
 constexpr int kWStages = 3;
 constexpr int kWThreads = 288;   // warpgroups 0, 1: consumers; warp 8: producer
-constexpr int kWABytes = kWBM * kWBK * 2;
-constexpr int kWStageBytes = kWABytes + kWBN * kWBK * 2;
+constexpr int kWABytes = kWBM * 128;
+constexpr int kWStageBytes = kWABytes + kWBN * 128;
 // the ring (1024-byte aligned, as the swizzle wants), then 2 kWStages barriers
 constexpr size_t kWSmem = 1024 + kWStages * kWStageBytes + 2 * kWStages * 8;
+
+// Columns of K in one slab: one 128-byte swizzle row.
+template <typename In>
+constexpr int kSlabCols = 128 / static_cast<int>(sizeof(In));
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -312,9 +342,10 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Descriptor of a K-major bf16 operand in shared memory written by TMA with
-// the 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.
-// Stepping 16 columns along K adds 32 bytes to the start address.
+// Descriptor of a K-major operand (bf16 or int8) in shared memory written by
+// TMA with the 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes
+// apart. One wgmma step along K (16 bf16 or 32 int8 columns) adds 32 bytes
+// to the start address.
 __device__ __forceinline__ unsigned long long sw128_desc(const void* p) {
   const unsigned long long addr = smem_u32(p);
   return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
@@ -364,21 +395,92 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       : "l"(da), "l"(db), "n"(1));
 }
 
-template <typename Epi>
+// d (64 x 128, s32) += A (64 x 32) B (32 x 128), both s8 codes in shared
+// memory behind the descriptors da and db. The s8 form has no transpose or
+// operand-scale immediates: both operands are K-major, as the codes and the
+// weights (rows, K) are. int32 sums of codes are exact in any order.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64],
+                                                   unsigned long long da,
+                                                   unsigned long long db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "n"(1));
+}
+
+// The wgmma of an operand type: bf16 into f32 (k16) or int8 codes into s32
+// (k32); either takes 32 bytes of K.
+template <typename In>
+struct Wgmma;
+
+template <>
+struct Wgmma<__nv_bfloat16> {
+  using Acc = float;
+  __device__ __forceinline__ static void mma(float (&d)[64], unsigned long long da,
+                                             unsigned long long db) {
+    wgmma_m64n128k16(d, da, db);
+  }
+};
+
+template <>
+struct Wgmma<signed char> {
+  using Acc = int;
+  __device__ __forceinline__ static void mma(int (&d)[64], unsigned long long da,
+                                             unsigned long long db) {
+    wgmma_m64n128k32_s8(d, da, db);
+  }
+};
+
+// Pins the accumulators at this point of the instruction stream: the
+// compiler may not move their reads or writes across it (an async wgmma
+// writes them behind its back).
+template <typename Acc>
+__device__ __forceinline__ void fence_acc(Acc (&acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if constexpr (std::is_same<Acc, int>::value)
+      asm volatile("" : "+r"(acc[i])::"memory");
+    else
+      asm volatile("" : "+f"(acc[i])::"memory");
+  }
+}
+
+template <typename In, bool CHUNKED = false, typename Out, typename Epi>
 __device__ __forceinline__ void gemm_tma_block(const CUtensorMap* ma,
                                                const CUtensorMap* mw,
                                                const CUtensorMap* mv,
-                                               __nv_bfloat16* __restrict__ out,
-                                               int M, int N, int K, int m0,
-                                               int n0, Epi epi,
-                                               unsigned char* smem_raw) {
+                                               Out* __restrict__ out, int M,
+                                               int N, int K, int m0, int n0,
+                                               Epi epi, unsigned char* smem_raw) {
+  static_assert(!(CHUNKED && kGlu<Epi>), "a chunked GEMM has no gated epilogue");
+  using Acc = typename Wgmma<In>::Acc;
+  constexpr int BK = kSlabCols<In>;
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<size_t>(smem_raw) + 1023) / 1024 * 1024);
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(ring + kWStages * kWStageBytes);
   unsigned long long* empty = full + kWStages;
   const int t = threadIdx.x, wg = t / 128, tw = t % 128;
-  const int KT = (K + kWBK - 1) / kWBK;
+  const int KT = (K + BK - 1) / BK;
   if (t == 0) {
     for (int s = 0; s < kWStages; ++s) {
       mbar_init(&full[s], 1);
@@ -396,19 +498,50 @@ __device__ __forceinline__ void gemm_tma_block(const CUtensorMap* ma,
         if (kt >= kWStages) mbar_wait(&empty[s], ((kt / kWStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], kWStageBytes);
         unsigned char* sa = ring + s * kWStageBytes;
-        tma_load_2d(sa, ma, &full[s], kt * kWBK, m0);
-        tma_load_2d(sa + kWABytes, mw, &full[s], kt * kWBK, n0);
+        tma_load_2d(sa, ma, &full[s], kt * BK, m0);
+        tma_load_2d(sa + kWABytes, mw, &full[s], kt * BK, n0);
         if constexpr (kGlu<Epi>)
-          tma_load_2d(sa + kWABytes + kWBN / 2 * 128, mv, &full[s], kt * kWBK, n0);
+          tma_load_2d(sa + kWABytes + kWBN / 2 * 128, mv, &full[s], kt * BK, n0);
       }
     }
     return;
   }
 
   const int c = wg;   // rows 64 c .. 64 c + 63 of the tile
-  float acc[kWBN / 2];
+  // acc[4 j + e]: row 16 w + g (e 0, 1) or + 8 (e 2, 3), column 8 j + 2 tq
+  // + e % 2, as an `mma.sync` accumulator fragment per 8 columns; gated, the
+  // value partner of column 8 j + .. (j < 8) is acc[4 (j + 8) + e]
+  const int w = tw / 32, lane = tw % 32, g = lane / 4, tq = lane % 4;
+  Acc acc[kWBN / 2];
 #pragma unroll
-  for (int i = 0; i < kWBN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kWBN / 2; ++i) acc[i] = 0;
+  float sum[CHUNKED ? kWBN / 2 : 1];
+  int chunk = 0;
+  // CHUNKED: the finished chunk's products into the sums; accumulators cleared
+  auto flush = [&] {
+    if constexpr (CHUNKED) {
+      fence_acc(acc);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + c * 64 + w * 16 + g + half * 8;
+#pragma unroll
+        for (int j = 0; j < kWBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * half + e, col = n0 + j * 8 + tq * 2 + e;
+            if (row < M && col < N)
+              sum[i] = __fadd_rn(sum[i], epi.chunk(row, col, chunk, acc[i]));
+            acc[i] = 0;
+          }
+      }
+      fence_acc(acc);   // the zeros are written before the next wgmma.fence
+      ++chunk;
+    }
+  };
+  if constexpr (CHUNKED) {
+#pragma unroll
+    for (int i = 0; i < kWBN / 2; ++i) sum[i] = 0.f;
+  }
   for (int kt = 0; kt < KT; ++kt) {
     const int s = kt % kWStages;
     mbar_wait(&full[s], (kt / kWStages) & 1);
@@ -416,23 +549,30 @@ __device__ __forceinline__ void gemm_tma_block(const CUtensorMap* ma,
     const unsigned char* sw = ring + s * kWStageBytes + kWABytes;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWBK / 16; ++kk)
-      wgmma_m64n128k16(acc, sw128_desc(sa + kk * 32), sw128_desc(sw + kk * 32));
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (CHUNKED) {
+        const int k = kt * BK + kk * (BK / 4);
+        if (k > 0 && k < K && k % epi.span == 0) {   // a chunk ends here
+          wgmma_commit();
+          wgmma_wait<0>();
+          flush();
+          wgmma_fence();
+        }
+      }
+      Wgmma<In>::mma(acc, sw128_desc(sa + kk * 32), sw128_desc(sw + kk * 32));
+    }
     wgmma_commit();
     wgmma_wait<1>();   // the products of slab kt - 1 are done: release it
     if (kt > 0 && tw == 0) mbar_arrive(&empty[(kt - 1) % kWStages]);
   }
   wgmma_wait<0>();
+  flush();
 
-  // acc[4 j + e]: row 16 w + g (e 0, 1) or + 8 (e 2, 3), column 8 j + 2 tq
-  // + e % 2, as an `mma.sync` accumulator fragment per 8 columns; gated, the
-  // value partner of column 8 j + .. (j < 8) is acc[4 (j + 8) + e]
-  const int w = tw / 32, lane = tw % 32, g = lane / 4, tq = lane % 4;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = m0 + c * 64 + w * 16 + g + half * 8;
     if (row >= M) continue;
-    __nv_bfloat16* orow = out + static_cast<size_t>(row) * N;
+    Out* orow = out + static_cast<size_t>(row) * N;
     if constexpr (kGlu<Epi>) {
 #pragma unroll
       for (int j = 0; j < kWBN / 16; ++j) {
@@ -444,13 +584,91 @@ __device__ __forceinline__ void gemm_tma_block(const CUtensorMap* ma,
     } else {
 #pragma unroll
       for (int j = 0; j < kWBN / 8; ++j) {
-        const int col = n0 + j * 8 + tq * 2;
-        if (col < N)
-          store2(orow + col, epi(row, col, acc[4 * j + 2 * half]),
-                 epi(row, col + 1, acc[4 * j + 2 * half + 1]));
+        const int col = n0 + j * 8 + tq * 2, e = 4 * j + 2 * half;
+        if (col < N) {
+          if constexpr (CHUNKED)
+            store2(orow + col, epi.finish(row, col, sum[e]),
+                   epi.finish(row, col + 1, sum[e + 1]));
+          else
+            store2(orow + col, epi(row, col, acc[e]), epi(row, col + 1, acc[e + 1]));
+        }
       }
     }
   }
+}
+
+// Output columns of one GEMM tile: half the tile for a gated epilogue.
+template <typename Epi>
+constexpr int kTileN = kWBN / (kGlu<Epi> ? 2 : 1);
+
+// ma, mw: TMA maps of A (M, K) and W (N, K); gated, mw and mv map the gate
+// and the value half of W (2N, K), else mv is unused
+template <typename In, bool CHUNKED, typename Out, typename Epi>
+__global__ void __launch_bounds__(kWThreads, CHUNKED ? 1 : 2)
+gemm_tma_kernel(const __grid_constant__ CUtensorMap ma,
+                const __grid_constant__ CUtensorMap mw,
+                const __grid_constant__ CUtensorMap mv, Out* __restrict__ out,
+                int M, int N, int K, Epi epi) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  gemm_tma_block<In, CHUNKED>(&ma, &mw, &mv, out, M, N, K, blockIdx.y * kWBM,
+                              blockIdx.x * kTileN<Epi>, epi, smem_raw);
+}
+
+// A TMA map of a (rows, K) row-major matrix of bf16 or int8 codes, read in
+// boxes of one slab (kSlabCols<In> columns) x box_rows rows with the 128-byte
+// swizzle; zeros past its edges. K * sizeof(In) % 16 == 0.
+// `cuTensorMapEncodeTiled` is found through the runtime's entry-point query,
+// so the libraries link no libcuda.
+template <typename In>
+inline cudaError_t tensor_map(CUtensorMap* map, const In* ptr, int rows, int K,
+                              int box_rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+        cudaEnableDefault, &found);
+    if (rc != cudaSuccess) return rc;
+    if (found != cudaDriverEntryPointSuccess || encode == nullptr)
+      return cudaErrorNotSupported;
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(In)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kSlabCols<In>),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, sizeof(In) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<In*>(ptr), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// out (M, N) = epi(a (M, K) w (N, K)^T) on stream s; with a gated epilogue w
+// is (2N, K), gate rows first, and out (M, N) = epi(a w[:N]^T, a w[N:]^T)
+template <typename In, bool CHUNKED = false, typename Out, typename Epi>
+cudaError_t gemm_tma(const In* a, const In* w, Out* out, int M, int N, int K,
+                     Epi epi, cudaStream_t s) {
+  constexpr int BN = kTileN<Epi>;
+  const dim3 grid((N + BN - 1) / BN, (M + kWBM - 1) / kWBM);
+  CUtensorMap ma, mw, mv;
+  cudaError_t rc;
+  if ((rc = tensor_map(&ma, a, M, K, kWBM)) != cudaSuccess) return rc;
+  if ((rc = tensor_map(&mw, w, N, K, BN)) != cudaSuccess) return rc;
+  if constexpr (kGlu<Epi>) {
+    if ((rc = tensor_map(&mv, w + static_cast<size_t>(N) * K, N, K, BN)) != cudaSuccess)
+      return rc;
+  } else {
+    mv = mw;
+  }
+  rc = vit::allow_smem(gemm_tma_kernel<In, CHUNKED, Out, Epi>, kWSmem);
+  if (rc != cudaSuccess) return rc;
+  gemm_tma_kernel<In, CHUNKED, Out, Epi><<<grid, kWThreads, kWSmem, s>>>(
+      ma, mw, mv, out, M, N, K, epi);
+  return cudaGetLastError();
 }
 
 // --------------------------------------------------- f32 GEMM: CUDA cores
@@ -620,10 +838,12 @@ __device__ __forceinline__ void load_head_tile(T* dst, int pitch,
 // brought in from L2 serves 128 rows. S (32 x 64 keys per warp) stays in
 // registers as accumulator fragments, whose layout is that of the A operand
 // of P V once packed to bf16 pairs. Shared memory: K tiles 0 and 1, V tiles
-// 0 and 1; Q passes through the V tiles before the first pass.
-template <bool NORM_FIRST>
+// 0 and 1; Q passes through the V tiles before the first pass. The context
+// is stored as CT: rounded to bf16, or unrounded in f32 (the int8 block
+// quantises the f32 context).
+template <bool NORM_FIRST, typename CT = __nv_bfloat16>
 __device__ __forceinline__ void attn_tile_bf16(
-    const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ ctx,
+    const __nv_bfloat16* __restrict__ qkv, CT* __restrict__ ctx,
     int b, int h, int q0, int N, int D, unsigned char* smem) {
   using bf16 = __nv_bfloat16;
   constexpr int TH = kAttnThreadsBf16;
@@ -815,7 +1035,7 @@ __device__ __forceinline__ void attn_tile_bf16(
       }
       const int row = q0 + warp * 32 + mi * 16 + g + r * 8;
       if (row >= N) continue;
-      bf16* dst = ctx + (static_cast<size_t>(b) * N + row) * D + h * kHD + tq * 2;
+      CT* dst = ctx + (static_cast<size_t>(b) * N + row) * D + h * kHD + tq * 2;
 #pragma unroll
       for (int dt = 0; dt < 8; ++dt) {
         float v0 = o[mi][dt][2 * r], v1 = o[mi][dt][2 * r + 1];

@@ -39,11 +39,29 @@ once, so that a different summation order does not move a code.
 
 A CUDA tensor goes to the kernels or the call raises; a CPU tensor goes to the
 plain versions. The kernels take head_dim 64, D a multiple of 64, hidden /
-num_chunks a multiple of 64, and as many tokens as let the scores of 16 query
-rows against all keys fit a block's shared memory (over 2000): one head's K
-and V stay in shared memory where they fit (about 300 tokens in f32, 510 in bf16
-at the encoders' widths) and otherwise go to a device-memory scratch that the
-attention wrapper allocates, so the patch-8 Kaiko models (785 tokens) run.
+num_chunks a multiple of 64, and any number of tokens (#8's attention streams
+K and V in key tiles, so the patch-8 Kaiko models' 785 tokens run as the
+others do).
+
+Kernels #8 and #10 are fixed sequences of launches on the current stream,
+through scratch that the wrapper allocates (`attn_i8_scratch_bytes`,
+`swiglu_i8_scratch_bytes`); the plain versions of those pieces
+(`ln_quant_rows_reference`, `quant_rows_reference`, `qkv_i8_reference`,
+`attention_ctx_reference`, `residual_i8_reference`, `swiglu_fc1_i8_reference`)
+chained as the wrappers chain the launches give the whole block's plain
+version to the bit (`attn_i8_chain`, `swiglu_i8_chain`):
+
+  * #8: LN-quant (codes (B N, D) int8 and a scale per row) -> qkv s8 GEMM
+    (+ bias, rounded to the compute dtype, (B, N, 3D)) -> attention (context
+    f32, unrounded, (B, N, D)) -> quantise the context per row (into the same
+    codes and scales) -> out-projection s8 GEMM (+ bias, LayerScale,
+    residual);
+  * #10: LN-quant over all rows, then per slab of `MLP_SLAB_ROWS` rows the
+    gated fc1 s8 GEMM (SwiGLU, hidden (slab, H) f32) -> quantise the hidden
+    activation per row and chunk (into codes (B N, H) int8 and scales
+    (B N, num_chunks)); then one fc2 s8 GEMM over all rows (the chunks' sums
+    added in f32, + bias, LayerScale, residual). The slab bounds the f32
+    hidden scratch, which is what the int8 route saves memory for.
 """
 from __future__ import annotations
 
@@ -65,6 +83,9 @@ from paths_tpu_torch.kernels.vit_fused import (
 )
 
 _INV_127 = 1.0 / 127.0
+# Rows of one slab of kernel #10: its f32 hidden activation goes through
+# device memory a slab at a time (113 MB at Virchow2's hidden width 6912).
+MLP_SLAB_ROWS = 4096
 
 
 # --------------------------------------------------------------- quantising
@@ -284,14 +305,140 @@ def mlp_output_quantum(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq,
     return _code_step(h.abs().max().item(), fc2_wq, ls)
 
 
+# --------------------------------------- plain versions of #8's and #10's pieces
+# The wrappers of kernels #8 and #10 run these steps as launches, through the
+# scratch layouts named here; chained in the same order (`attn_i8_chain`,
+# `swiglu_i8_chain`) they repeat the plain versions above to the bit.
+
+def ln_quant_rows_reference(x, scale, bias):
+    """LN-quant: codes (M, D) int8 and row scales (M,) f32 of the
+    f64-evaluated LayerNorm of the rows of x (M, D)."""
+    yq, ys = _quant_rows(_ln64(x, scale, bias))
+    return yq.to(torch.int8), ys[:, 0]
+
+
+def quant_rows_reference(y, span: int):
+    """Codes (M, D) int8 of the f32 rows y (M, D), quantised per row over each
+    span of `span` columns, and their scales (M, D // span) f32."""
+    m, d = y.shape
+    yq, ys = _quant_rows(y.view(m, d // span, span))
+    return yq.to(torch.int8).view(m, d), ys[..., 0]
+
+
+def _dequant(codes, scales, wq):
+    """float(codes wq^T) * row scale * channel scale; the integer sum exact."""
+    acc = (codes.double() @ wq["q"].double().T).float()
+    return acc * scales[:, None] * wq["s"].float()
+
+
+def qkv_i8_reference(codes, scales, wq, bias, dtype):
+    """The qkv GEMM with its epilogue: the dequantised product + bias,
+    rounded to `dtype`."""
+    return (_dequant(codes, scales, wq) + bias.float()).to(dtype)
+
+
+def swiglu_fc1_i8_reference(codes, scales, wq, bias):
+    """The gated fc1 GEMM over the packed (2H, D) weight, gate rows first:
+    gate * sigmoid(gate) * value in f32, (M, H)."""
+    gate, val = (_dequant(codes, scales, wq) + bias.float()).chunk(2, dim=-1)
+    return (gate * (1.0 / (1.0 + torch.exp(-gate)))) * val
+
+
+def residual_i8_reference(codes, scales, wq, bias, resid, ls):
+    """The out-projection or fc2 GEMM with its epilogue: resid + (sum + bias)
+    ls. `scales` (M, chunks): with one chunk, sum is the dequantised product;
+    with more, the products of the chunks of K / chunks columns, each with its
+    own row scale, added in f32 one chunk after the other onto zeros."""
+    chunks = scales.shape[1]
+    if chunks == 1:
+        total = _dequant(codes, scales[:, 0], wq)
+    else:
+        span = codes.shape[1] // chunks
+        total = torch.zeros(codes.shape[0], wq["q"].shape[0],
+                            dtype=torch.float32, device=codes.device)
+        for c in range(chunks):
+            cols = slice(c * span, (c + 1) * span)
+            total = total + _dequant(codes[:, cols], scales[:, c],
+                                     {"q": wq["q"][:, cols], "s": wq["s"]})
+    return _residual(resid, total + bias.float(), ls)
+
+
+def attention_ctx_reference(qkv, num_heads: int):
+    """The attention piece: per-head softmax attention of the (B, N, 3D) qkv
+    scratch in its dtype, P rounded to it, the division deferred past P V and
+    the context (B, N, D) left in f32."""
+    cd = qkv.dtype
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // num_heads
+    q, k, v = qkv.view(b, n, 3, num_heads, hd).float().unbind(2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(hd))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    c = torch.einsum("bhqk,bkhd->bhqd", p.to(cd).float(), v)
+    return (c / l).permute(0, 2, 1, 3).reshape(b, n, d)
+
+
+def attn_i8_chain(x, norm_scale, norm_bias, qkv_wq, proj_wq, qkv_b, proj_b,
+                  ls=None, *, num_heads: int):
+    """Kernel #8's five launches through the plain versions of their pieces,
+    in the wrapper's order and scratch layouts."""
+    b, n, d = x.shape
+    rows = x.reshape(b * n, d)
+    codes, scales = ln_quant_rows_reference(rows, norm_scale, norm_bias)
+    qkv = qkv_i8_reference(codes, scales, qkv_wq, qkv_b, x.dtype)
+    ctx = attention_ctx_reference(qkv.view(b, n, 3 * d), num_heads)
+    codes, scales = quant_rows_reference(ctx.reshape(b * n, d), d)
+    return residual_i8_reference(codes, scales, proj_wq, proj_b, rows,
+                                 ls).view(b, n, d)
+
+
+def swiglu_i8_chain(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
+                    ls=None, *, num_chunks: int = 1,
+                    slab_rows: int = MLP_SLAB_ROWS):
+    """Kernel #10's launches through the plain versions of their pieces, in
+    the wrapper's order, scratch layouts and row slabs."""
+    b, n, d = x.shape
+    hidden = fc2_wq["q"].shape[1]
+    rows = x.reshape(b * n, d)
+    codes, scales = ln_quant_rows_reference(rows, norm_scale, norm_bias)
+    hq = torch.empty(b * n, hidden, dtype=torch.int8, device=x.device)
+    hs = torch.empty(b * n, num_chunks, dtype=torch.float32, device=x.device)
+    for r0 in range(0, b * n, slab_rows):
+        r1 = min(b * n, r0 + slab_rows)
+        h = swiglu_fc1_i8_reference(codes[r0:r1], scales[r0:r1], fc1_wq, fc1_b)
+        hq[r0:r1], hs[r0:r1] = quant_rows_reference(h, hidden // num_chunks)
+    return residual_i8_reference(hq, hs, fc2_wq, fc2_b, rows, ls).view(b, n, d)
+
+
+def attn_i8_scratch_bytes(b: int, n: int, d: int, dtype) -> int:
+    """Device memory kernel #8's wrapper allocates besides its output: codes
+    (B N, D) int8 and row scales (B N,) f32 (the LayerNorm's, then the
+    context's), qkv (B, N, 3D) in the compute dtype and the context
+    (B, N, D) f32."""
+    m = b * n
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return m * d + 4 * m + 3 * m * d * itemsize + 4 * m * d
+
+
+def swiglu_i8_scratch_bytes(b: int, n: int, d: int, hidden: int,
+                            num_chunks: int, slab_rows: int = MLP_SLAB_ROWS) -> int:
+    """Device memory kernel #10's wrapper allocates besides its output: codes
+    (B N, D) int8 and row scales (B N,) f32 of the LayerNorm, the hidden
+    activation of one row slab (slab, H) f32, and the hidden codes (B N, H)
+    int8 with their scales (B N, num_chunks) f32."""
+    m = b * n
+    return m * d + 4 * m + 4 * min(m, slab_rows) * hidden + m * hidden + \
+        4 * m * num_chunks
+
+
 # ------------------------------------------------------------------ binding
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "paths_vit_attn_block_i8": ([_P] * 13 + [_I] * 5 + [_P], ctypes.c_int),
+    "paths_vit_attn_block_i8": ([_P] * 15 + [_I] * 5 + [_P], ctypes.c_int),
     "paths_vit_mlp_block_i8": ([_P] * 11 + [_I] * 6 + [_P], ctypes.c_int),
-    "paths_vit_attn_i8_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
-    "paths_vit_attn_i8_kv_bytes": ([_I] * 5, ctypes.c_longlong),
+    "paths_vit_swiglu_mlp_block_i8": ([_P] * 16 + [_I] * 6 + [_P], ctypes.c_int),
     "paths_vit_mlp_i8_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "paths_vit_max_smem_bytes": ([], ctypes.c_longlong),
     "paths_cuda_error_string": ([_I], ctypes.c_char_p),
@@ -335,9 +482,10 @@ def _check_smem(need: int, what: str) -> None:
 
 def fused_attn_block_i8(x, norm_scale, norm_bias, qkv_wq, proj_wq, qkv_b,
                         proj_b, ls=None, *, num_heads: int) -> torch.Tensor:
-    """Kernel #8; see the module docstring. Each launch adds one to
-    `fused_attn_block_i8.launches` (one launch runs the per-head attention
-    kernel and the out-projection kernel on the same stream)."""
+    """Kernel #8; see the module docstring. Each call adds one to
+    `fused_attn_block_i8.launches` (one call runs LN-quant, the qkv GEMM, the
+    attention, the context's quantisation and the out-projection GEMM on the
+    same stream)."""
     if x.device.type == "cpu":
         return fused_attn_block_i8_reference(
             x, norm_scale, norm_bias, qkv_wq, proj_wq, qkv_b, proj_b, ls,
@@ -357,31 +505,28 @@ def fused_attn_block_i8(x, norm_scale, norm_bias, qkv_wq, proj_wq, qkv_b,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = _library()
-    dt = DTYPES[x.dtype]
-    _check_smem(lib.paths_vit_attn_i8_smem_bytes(n, d, dt),
-                f"the scores of 16 rows against {n} keys in {x.dtype}")
-    # per-head contexts in f32, read by the projection; K and V of every
-    # (image, head) where they do not fit shared memory
+    # the scratch of `attn_i8_scratch_bytes`
+    codes = torch.empty((b * n, d), dtype=torch.int8, device=x.device)
+    scales = torch.empty(b * n, dtype=torch.float32, device=x.device)
+    qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
     ctx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    kv_bytes = lib.paths_vit_attn_i8_kv_bytes(b, n, d, num_heads, dt)
-    kv = torch.empty(kv_bytes, dtype=torch.uint8, device=x.device) \
-        if kv_bytes else None
-    build.launch(lib, "paths_vit_attn_block_i8", x, x.data_ptr(), ns.data_ptr(),
-                 nb.data_ptr(), qkv_wq["q"].data_ptr(), qkv_wq["s"].data_ptr(),
-                 qb.data_ptr(), proj_wq["q"].data_ptr(),
+    build.launch(_library(), "paths_vit_attn_block_i8", x, x.data_ptr(),
+                 ns.data_ptr(), nb.data_ptr(), qkv_wq["q"].data_ptr(),
+                 qkv_wq["s"].data_ptr(), qb.data_ptr(), proj_wq["q"].data_ptr(),
                  proj_wq["s"].data_ptr(), pb.data_ptr(), lsv.data_ptr(),
-                 ctx.data_ptr(), None if kv is None else kv.data_ptr(),
-                 out.data_ptr(), b, n, d, num_heads, dt)
+                 codes.data_ptr(), scales.data_ptr(), qkv.data_ptr(),
+                 ctx.data_ptr(), out.data_ptr(), b, n, d, num_heads,
+                 DTYPES[x.dtype])
     fused_attn_block_i8.launches += 1
     return out
 
 
-def _mlp_i8(counter, x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
-            ls, act: str, num_chunks: int) -> torch.Tensor:
+def _check_mlp(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b, ls,
+               packed: int, num_chunks: int):
+    """The MLP wrappers' checks; returns the hidden width and the f32
+    vectors (norm scale, norm bias, fc1 bias, fc2 bias, LayerScale)."""
     _check_x(x)
-    b, n, d = x.shape
-    packed = 2 if act == "swiglu" else 1
+    d = x.shape[2]
     if not (isinstance(fc2_wq, dict) and "q" in fc2_wq
             and fc2_wq["q"].dim() == 2):
         raise TypeError("fc2_wq must be a quantized weight {'q', 's'} "
@@ -394,22 +539,9 @@ def _mlp_i8(counter, x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
                          f"{num_chunks} must be a multiple of 64")
     _check_quantized(x, "fc1_wq", fc1_wq, (packed * hidden, d))
     _check_quantized(x, "fc2_wq", fc2_wq, (d, hidden))
-    ns, nb, b1, b2, lsv = [_vector(x, name, v, length) for name, v, length in (
+    return hidden, [_vector(x, name, v, length) for name, v, length in (
         ("norm_scale", norm_scale, d), ("norm_bias", norm_bias, d),
         ("fc1_b", fc1_b, packed * hidden), ("fc2_b", fc2_b, d), ("ls", ls, d))]
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    lib = _library()
-    _check_smem(lib.paths_vit_mlp_i8_smem_bytes(d, num_chunks),
-                f"the accumulators for D {d} with num_chunks {num_chunks}")
-    build.launch(lib, "paths_vit_mlp_block_i8", x, x.data_ptr(), ns.data_ptr(),
-                 nb.data_ptr(), fc1_wq["q"].data_ptr(), fc1_wq["s"].data_ptr(),
-                 b1.data_ptr(), fc2_wq["q"].data_ptr(), fc2_wq["s"].data_ptr(),
-                 b2.data_ptr(), lsv.data_ptr(), out.data_ptr(), b * n, d,
-                 hidden, ACTS[act], num_chunks, DTYPES[x.dtype])
-    counter.launches += 1
-    return out
 
 
 def fused_mlp_block_i8(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
@@ -421,22 +553,61 @@ def fused_mlp_block_i8(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
         return fused_mlp_block_i8_reference(
             x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b, ls,
             exact_gelu=exact_gelu, num_chunks=num_chunks)
-    return _mlp_i8(fused_mlp_block_i8, x, norm_scale, norm_bias, fc1_wq,
-                   fc1_b, fc2_wq, fc2_b, ls,
-                   "gelu" if exact_gelu else "gelu_tanh", num_chunks)
+    hidden, (ns, nb, b1, b2, lsv) = _check_mlp(
+        x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b, ls, 1,
+        num_chunks)
+    b, n, d = x.shape
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _library()
+    _check_smem(lib.paths_vit_mlp_i8_smem_bytes(d, num_chunks),
+                f"the accumulators for D {d} with num_chunks {num_chunks}")
+    build.launch(lib, "paths_vit_mlp_block_i8", x, x.data_ptr(), ns.data_ptr(),
+                 nb.data_ptr(), fc1_wq["q"].data_ptr(), fc1_wq["s"].data_ptr(),
+                 b1.data_ptr(), fc2_wq["q"].data_ptr(), fc2_wq["s"].data_ptr(),
+                 b2.data_ptr(), lsv.data_ptr(), out.data_ptr(), b * n, d,
+                 hidden, ACTS["gelu" if exact_gelu else "gelu_tanh"],
+                 num_chunks, DTYPES[x.dtype])
+    fused_mlp_block_i8.launches += 1
+    return out
 
 
 def fused_swiglu_mlp_block_i8(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq,
                               fc2_b, ls=None, *,
                               num_chunks: int = 1) -> torch.Tensor:
-    """Kernel #10; see the module docstring. Each launch adds one to
-    `fused_swiglu_mlp_block_i8.launches`."""
+    """Kernel #10; see the module docstring. Each call adds one to
+    `fused_swiglu_mlp_block_i8.launches` (one call runs LN-quant, per row
+    slab the gated fc1 GEMM and the hidden activation's quantisation, and
+    the fc2 GEMM, on the same stream)."""
     if x.device.type == "cpu":
         return fused_swiglu_mlp_block_i8_reference(
             x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b, ls,
             num_chunks=num_chunks)
-    return _mlp_i8(fused_swiglu_mlp_block_i8, x, norm_scale, norm_bias,
-                   fc1_wq, fc1_b, fc2_wq, fc2_b, ls, "swiglu", num_chunks)
+    hidden, (ns, nb, b1, b2, lsv) = _check_mlp(
+        x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b, ls, 2,
+        num_chunks)
+    b, n, d = x.shape
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    # the scratch of `swiglu_i8_scratch_bytes`
+    slab = min(b * n, MLP_SLAB_ROWS)
+    codes = torch.empty((b * n, d), dtype=torch.int8, device=x.device)
+    scales = torch.empty(b * n, dtype=torch.float32, device=x.device)
+    h = torch.empty((slab, hidden), dtype=torch.float32, device=x.device)
+    hcodes = torch.empty((b * n, hidden), dtype=torch.int8, device=x.device)
+    hscales = torch.empty((b * n, num_chunks), dtype=torch.float32,
+                          device=x.device)
+    build.launch(_library(), "paths_vit_swiglu_mlp_block_i8", x, x.data_ptr(),
+                 ns.data_ptr(), nb.data_ptr(), fc1_wq["q"].data_ptr(),
+                 fc1_wq["s"].data_ptr(), b1.data_ptr(), fc2_wq["q"].data_ptr(),
+                 fc2_wq["s"].data_ptr(), b2.data_ptr(), lsv.data_ptr(),
+                 codes.data_ptr(), scales.data_ptr(), h.data_ptr(),
+                 hcodes.data_ptr(), hscales.data_ptr(), out.data_ptr(), b * n,
+                 d, hidden, num_chunks, MLP_SLAB_ROWS, DTYPES[x.dtype])
+    fused_swiglu_mlp_block_i8.launches += 1
+    return out
 
 
 fused_attn_block_i8.launches = 0

@@ -478,6 +478,83 @@ def test_vit_swiglu_i8_kernel_matches_plain(card, shape, num_chunks, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,num_chunks", [
+    # chunks of 64 hidden columns: each ends inside a 128-column slab of the
+    # fc2 GEMM, between two of its k32 steps
+    ((3, 50, 128, 2, 512), 8),
+    # 4500 rows: no multiple of the wrapper's row slab (MLP_SLAB_ROWS)
+    ((3, 1500, 128, 2, 512), 1), ((3, 1500, 128, 2, 512), 2)],
+    ids=["chunk64", "ragged-slab", "ragged-slab-2chunks"])
+def test_vit_swiglu_i8_kernel_chunks_and_slabs(card, shape, num_chunks, dtype):
+    b, n, d, heads, hidden = shape
+    assert num_chunks == 8 or (b * n) % tvi.MLP_SLAB_ROWS
+    p = _i8_args(b, n, d, hidden, 2, dtype, card)
+    args = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+            p["fc2_b"], p["ls"])
+    before = tvi.fused_swiglu_mlp_block_i8.launches
+    got = tvi.fused_swiglu_mlp_block_i8(*args, num_chunks=num_chunks)
+    torch.cuda.synchronize()
+    assert tvi.fused_swiglu_mlp_block_i8.launches == before + 1
+    _i8_close(got, tvi.fused_swiglu_mlp_block_i8_reference(
+        *args, num_chunks=num_chunks), dtype,
+        tvi.mlp_output_quantum(*args, swiglu=True))
+    assert torch.equal(got, tvi.fused_swiglu_mlp_block_i8(
+        *args, num_chunks=num_chunks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("swiglu,shape", [
+    # D 2048: LayerNorm rows longer than the LN-quant pass keeps in registers
+    (False, (2, 20, 2048, 32, 512)), (True, (2, 20, 2048, 32, 512)),
+    # hidden 12352: a span longer than the quantiser keeps in registers
+    (True, (2, 20, 128, 2, 12352))], ids=["attn-d2048", "swiglu-d2048", "swiglu-h12352"])
+def test_vit_i8_kernels_at_long_rows(card, swiglu, shape, dtype):
+    b, n, d, heads, hidden = shape
+    p = _i8_args(b, n, d, hidden, 2 if swiglu else 1, dtype, card)
+    if swiglu:
+        args = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+                p["fc2_b"], p["ls"])
+        got = tvi.fused_swiglu_mlp_block_i8(*args)
+        want = tvi.fused_swiglu_mlp_block_i8_reference(*args)
+        quantum = tvi.mlp_output_quantum(*args, swiglu=True)
+    else:
+        args = (p["x"], p["ns"], p["nb"], p["qkv_w"], p["proj_w"], p["qkv_b"],
+                p["proj_b"], p["ls"])
+        got = tvi.fused_attn_block_i8(*args, num_heads=heads)
+        want = tvi.fused_attn_block_i8_reference(*args, num_heads=heads)
+        quantum = tvi.attn_output_quantum(*args)
+    torch.cuda.synchronize()
+    _i8_close(got, want, dtype, quantum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_attn_i8_memory_at_785_tokens(card, dtype):
+    """At Kaiko-B/8's 785 tokens one call allocates its output and the
+    scratch that the wrapper documents (codes, qkv in the compute dtype, the
+    f32 context): no K/V scratch, which took 2 x 788 rows x 72 values per
+    (image, head)."""
+    b, n, d, heads = 4, 785, 768, 12
+    p = _i8_args(b, n, d, 3072, 1, dtype, card)
+    args = (p["x"], p["ns"], p["nb"], p["qkv_w"], p["proj_w"], p["qkv_b"],
+            p["proj_b"], p["ls"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = tvi.fused_attn_block_i8(*args, num_heads=heads)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    allowed = got.numel() * got.element_size() + \
+        tvi.attn_i8_scratch_bytes(b, n, d, dtype)
+    old_kv = b * heads * 2 * 788 * 72 * got.element_size()
+    assert peak <= allowed + (1 << 20) < allowed + old_kv, (peak, allowed)
+    _i8_close(got, tvi.fused_attn_block_i8_reference(*args, num_heads=heads),
+              dtype, tvi.attn_output_quantum(*args))
+
+
+@pytest.mark.cuda
 def test_vit_i8_kernels_refuse_what_they_do_not_take(card):
     p = _i8_args(2, 20, 128, 256, 1, torch.float32, card)
     f = _vit_args(2, 20, 128, 256, 1, torch.float32, card)
@@ -488,7 +565,7 @@ def test_vit_i8_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="quantized weight"):
         tvi.fused_attn_block_i8(p["x"], p["ns"], p["nb"], f["qkv_w"],
                                 *attn[4:], num_heads=2)
-    # 785 tokens: K and V go to device memory, the result is held to the
+    # 785 tokens: K and V stream in key tiles, the result is held to the
     # plain version
     long = _i8_args(1, 785, 128, 256, 1, torch.float32, card)
     args = (long["x"], *attn[1:])

@@ -258,6 +258,101 @@ def test_bf16_plain_version_rounds_where_the_kernel_does():
     assert np.abs(got.float().numpy() - want).max() <= tol
 
 
+# ------------------------- the staged decomposition of kernels #8 and #10
+# The CUDA wrappers of #8 and #10 run a fixed sequence of launches through
+# device-memory scratch; their pieces' plain versions, chained in that order,
+# with those scratch layouts and (for #10) row slabs, must give the whole
+# block's plain version to the bit: every piece does the same integer and f32
+# operations on the same values, whatever the rows around it.
+
+def _chain_case(b, n, d, hidden, packed, dtype, seed):
+    blk = _torch_quantized(_block(d, hidden, packed, seed=seed))
+    x = torch.from_numpy(_x(b, n, d, seed=seed + 1)).to(dtype)
+    return blk, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,heads", [(17, 2), (50, 2), (33, 1)])
+def test_attn_i8_chain_is_the_plain_version(dtype, n, heads):
+    blk, x = _chain_case(3, n, 64 * heads, 128, 1, dtype, seed=n)
+    args = (x, blk["norm1"]["scale"], blk["norm1"]["bias"], blk["attn"]["qkv_w"],
+            blk["attn"]["proj_w"], blk["attn"]["qkv_b"], blk["attn"]["proj_b"],
+            blk["ls1"])
+    want = tvi.fused_attn_block_i8_reference(*args, num_heads=heads)
+    got = tvi.attn_i8_chain(*args, num_heads=heads)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_chunks,slab_rows", [
+    (1, 64), (2, 64),
+    # chunks of 64 columns: each ends inside a 128-column slab of the GEMM
+    (8, 64),
+    (2, tvi.MLP_SLAB_ROWS)], ids=["1chunk", "2chunks", "64col-chunks", "one-slab"])
+def test_swiglu_i8_chain_is_the_plain_version(dtype, num_chunks, slab_rows):
+    # 150 rows: slabs of 64 rows end at 64 and 128, the last holds 22
+    blk, x = _chain_case(3, 50, 64, 512, 2, dtype, seed=11)
+    args = (x, blk["norm2"]["scale"], blk["norm2"]["bias"], blk["mlp"]["fc1_w"],
+            blk["mlp"]["fc1_b"], blk["mlp"]["fc2_w"], blk["mlp"]["fc2_b"],
+            blk["ls2"])
+    want = tvi.fused_swiglu_mlp_block_i8_reference(*args, num_chunks=num_chunks)
+    got = tvi.swiglu_i8_chain(*args, num_chunks=num_chunks, slab_rows=slab_rows)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.fixture
+def _one_thread():
+    """One CPU thread: PyTorch's vectorised and scalar exp may differ in the
+    last bit, and how it cuts a large elementwise op between threads decides
+    which elements take which; on one thread the cut is by rows alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("num_chunks", [1, 2])
+def test_swiglu_i8_chain_crosses_the_wrappers_slab(_one_thread, num_chunks):
+    """The wrapper's own slab size, at a row count that is no multiple of it."""
+    rows = tvi.MLP_SLAB_ROWS + 104
+    blk, x = _chain_case(2, rows // 2, 64, 128, 2, torch.float32, seed=12)
+    args = (x, blk["norm2"]["scale"], blk["norm2"]["bias"], blk["mlp"]["fc1_w"],
+            blk["mlp"]["fc1_b"], blk["mlp"]["fc2_w"], blk["mlp"]["fc2_b"], None)
+    want = tvi.fused_swiglu_mlp_block_i8_reference(*args, num_chunks=num_chunks)
+    got = tvi.swiglu_i8_chain(*args, num_chunks=num_chunks)
+    assert torch.equal(got, want)
+
+
+def test_chain_pieces_keep_the_scratch_layouts():
+    """The pieces' shapes and types are the wrappers' scratch: codes (M, D)
+    int8, one f32 scale per row (and chunk), the f32 context, and the byte
+    counts the wrappers document."""
+    blk, x = _chain_case(2, 9, 128, 256, 2, torch.bfloat16, seed=13)
+    rows = x.reshape(18, 128)
+    codes, scales = tvi.ln_quant_rows_reference(rows, blk["norm1"]["scale"],
+                                                blk["norm1"]["bias"])
+    assert codes.dtype == torch.int8 and codes.shape == (18, 128)
+    assert scales.dtype == torch.float32 and scales.shape == (18,)
+    qkv = tvi.qkv_i8_reference(codes, scales, blk["attn"]["qkv_w"],
+                               blk["attn"]["qkv_b"], x.dtype)
+    assert qkv.dtype == torch.bfloat16 and qkv.shape == (18, 384)
+    ctx = tvi.attention_ctx_reference(qkv.view(2, 9, 384), 2)
+    assert ctx.dtype == torch.float32 and ctx.shape == (2, 9, 128)
+    h = tvi.swiglu_fc1_i8_reference(codes, scales, blk["mlp"]["fc1_w"],
+                                    blk["mlp"]["fc1_b"])
+    hq, hs = tvi.quant_rows_reference(h, 64)
+    assert h.dtype == torch.float32 and h.shape == (18, 256)
+    assert hq.dtype == torch.int8 and hs.shape == (18, 4)
+    assert hq.abs().max() <= 127 and (hq.abs().amax(-1) >= 126).all()
+    assert tvi.attn_i8_scratch_bytes(2, 9, 128, torch.bfloat16) == \
+        18 * 128 + 4 * 18 + 2 * 18 * 384 + 4 * 18 * 128
+    assert tvi.swiglu_i8_scratch_bytes(2, 9, 128, 256, 4) == \
+        18 * 128 + 4 * 18 + 5 * 18 * 256 + 4 * 18 * 4
+    assert tvi.swiglu_i8_scratch_bytes(2, 5000, 128, 256, 1) == \
+        10000 * 128 + 4 * 10000 + 4 * tvi.MLP_SLAB_ROWS * 256 + 10000 * 256 + \
+        4 * 10000
+
+
 # ----------------------------------------------- the route, the converters
 
 @pytest.mark.parametrize("stacked", [False, True])
