@@ -10,7 +10,11 @@ Phases, each printing its own lines:
      the shapes the serving and training paths give it and at one long bag,
      with errors, times, a PyTorch library call's time as a yardstick, and
      the least time the card could take for the same work; the backward
-     kernels are also held to autograd through the plain forward;
+     kernels are also held to autograd through the plain forward; the
+     forward also in bf16 at the ViT flash route's shapes (head_dim 64, the
+     UNI, Virchow2 and Kaiko-B/8 token counts), where it rounds P as the TPU
+     kernel does, with a planted fault (P left unrounded) that the check
+     must fail;
   3. slice: a synthetic feature store and a randomly initialised model of the
      flagship `brca_paths_0` width are served through `ServingSession`; the
      launch counters show the serving path went through the forward kernel,
@@ -36,9 +40,10 @@ Phases, each printing its own lines:
      block kernels at the same shapes (the whole block, the int8 attention and
      the int8 GELU MLP also at Kaiko-B/8), the int8 ones with a check that
      allows for codes on the other side of a rounding boundary and three
-     planted faults that it must fail, and the int8 attention and SwiGLU
-     blocks' device time per piece (LN-quant, each GEMM, attention,
-     quantisation) with their share of the bound;
+     planted faults that it must fail (the int8 GELU MLP also bit for bit
+     its plain version), and the int8 blocks' device time per piece
+     (LN-quant, each GEMM, attention, quantisation) with their share of the
+     bound;
   6. preprocess: two synthetic blob-on-white slides go through
      `paths_tpu_torch.cli.preprocess` with UNI at full width and depth in
      bf16 on the fused route and again on the plain route; the grids must
@@ -46,7 +51,7 @@ Phases, each printing its own lines:
      Virchow2 at full width and depth (fused against plain), one UNI batch on
      the flash route, and one f32 UNI batch with LayerScale 1 (fused against
      plain, with a planted fault), and the encode's time, busy share, memory
-     and profile. The `int8` and `fused1` routes go through the same CLI run,
+     and profile on every route, flash included. The `int8` and `fused1` routes go through the same CLI run,
      the same Virchow2 batches and the same f32 batch. Last, one batch of
      Kaiko-B/8 (patch 8, 785 tokens) through `from_name` on the four routes.
 The line before the last is a JSON object of per-kernel numbers, and the
@@ -76,6 +81,17 @@ PEAK_BYTES = 3.35e12
 # Kernel vs plain on the card: both f32, summed in different orders over up
 # to 4096 keys.
 KERNEL_ATOL = 2e-5
+# The flash forward in bf16 (the ViT flash route) vs plain: both round P to
+# bf16 at the same points, so outputs differ only where f32 summation order
+# or the kernel's fast exp moves a rounding: within torch's bf16 tolerance,
+# and at most this share of the outputs differs at all (a kernel that left P
+# unrounded would differ in about a third of them; measured on the CPU, the
+# plain version differs from the Pallas kernel in 0.03-0.08%).
+FLASH_BF16_CHANGED = 0.01
+# A P whose rounding flips moves its row's outputs by a bf16 step of that P
+# times |v| / l: each output is held to 2 bf16 ulps of its row's largest
+# output (the ViT kernels' bf16 bar, taken per row).
+FLASH_BF16_ULPS = 2
 # Backward kernels vs plain and vs autograd through the plain forward, all
 # f32, held relative to the largest gradient: max |kernel - ref| <= BWD_RTOL
 # * max(1, max |ref|). A gradient sums up to N (4096) terms, and the flash
@@ -282,6 +298,61 @@ def kernel_phase(torch, tfa, gpu):
               f"{call['plain_ms']:.4f}, sdpa {call['library_ms']:.4f}; bound "
               f"{max(flop_ms, byte_ms):.4f} (flops {flop_ms:.4f}, bytes "
               f"{byte_ms:.4f}) | {gpu}", flush=True)
+
+    # the ViT flash route's shapes: bf16, head_dim 64, every token valid,
+    # JAX's key block min(256, 128 ceil(N / 128)); 64 images of UNI,
+    # Virchow2 and Kaiko-B/8
+    for name, b, h, n in (("uni", 64, 16, 197), ("virchow2", 64, 20, 261),
+                          ("kaiko-b8", 64, 12, 785)):
+        block_k = min(256, 128 * -(-n // 128))
+        q, k, v = (torch.randn(b, h, n, 64, generator=gen).cuda().bfloat16()
+                   for _ in range(3))
+        ln = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        out, lse = tfa.masked_flash_attention_fwd(q, k, v, ln, block_k)
+        ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, ln, block_k)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        diff = (out.float() - ref_out.float()).abs()
+        row = ref_out.float().abs().amax(-1, keepdim=True)
+        ulps = (diff / torch.ldexp(torch.ones_like(row),
+                                   torch.frexp(row).exponent - 8)).max().item()
+        err = diff.max().item()
+        changed = (out != ref_out).float().mean().item()
+        # outputs outside torch's elementwise bf16 tolerance (reported)
+        outside = int((diff > 1e-5 + 1.6e-2 * ref_out.float().abs()).sum())
+        if not ulps <= FLASH_BF16_ULPS:
+            raise AssertionError(f"flash kernel {name} bf16: an output differs by "
+                                 f"{ulps:.3g} bf16 ulps of its row's largest")
+        del diff
+        # planted fault: P left unrounded (the port before it rounded P as
+        # the TPU kernel does) must fail the share of changed outputs
+        unrounded = tfa.flash_attention_reference(
+            q.float(), k.float(), v.float(), ln)[0].bfloat16()
+        fault = (out != unrounded).float().mean().item()
+        if not (changed <= FLASH_BF16_CHANGED < fault):
+            raise AssertionError(f"flash kernel {name} bf16: {changed:.4f} of the "
+                                 f"outputs differ (allowed {FLASH_BF16_CHANGED}), "
+                                 f"unrounded P differs in {fault:.4f}")
+        del unrounded, ref_out
+        calls = {
+            "ms": lambda: tfa.masked_flash_attention_fwd(q, k, v, ln, block_k),
+            "plain_ms": lambda: tfa.flash_attention_reference(q, k, v, ln, block_k),
+            "library_ms": lambda: F.scaled_dot_product_attention(q, k, v),
+        }
+        dev = {key: device_ms(fn, 10) for key, fn in calls.items()}
+        flop_ms = 4.0 * b * h * n * n * 64 / PEAK_BF16_FLOPS * 1e3
+        byte_ms = (2.0 * 4 * b * h * n * 64 + 4.0 * b * h * n + 4 * b) / PEAK_BYTES * 1e3
+        print(f"[kernel] flash_attention_fwd vit {name}: B={b} H={h} N={n} D=64 bf16 "
+              f"block_k {block_k}: max_abs_err out={err:.3g}, worst {ulps:.3g} bf16 "
+              f"ulps of its row's largest output (allowed {FLASH_BF16_ULPS}), "
+              f"{outside} of {out.numel()} outputs outside torch's elementwise "
+              f"bf16 tolerance, {changed:.5f} of the outputs differ (allowed "
+              f"{FLASH_BF16_CHANGED}); planted fault (P unrounded) {fault:.4f}: "
+              f"caught; device ms: kernel {dev['ms']:.4f}, plain "
+              f"{dev['plain_ms']:.4f}, sdpa {dev['library_ms']:.4f}; bound "
+              f"{max(flop_ms, byte_ms):.4f} (flops {flop_ms:.4f}, bytes "
+              f"{byte_ms:.4f}), share of the bound "
+              f"{max(flop_ms, byte_ms) / dev['ms']:.4f} | {gpu}", flush=True)
     return cases
 
 
@@ -746,7 +817,7 @@ def step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout):
     busy_us = kernel_us(prof)
     flash_us = {name: sum(e.self_device_time_total for e in prof.key_averages()
                           if e.device_type.name == "CUDA" and name in e.key)
-                for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                for name in ("flash_fwd_", "flash_bwd_dq_kernel",
                              "flash_bwd_dkv_kernel")}
     print(f"[train] warm step of {len(idx)} slides (forward + backward + "
           f"AdamW): {min(walls):.1f} ms wall (of {', '.join(f'{w:.1f}' for w in walls)}) "
@@ -982,11 +1053,14 @@ def rounding_half_up(tvi):
 # The pieces of the staged int8 kernels by a fragment of their kernel's
 # name, in launch order: the first fragment that a kernel's name holds names
 # its piece (any other kernel's time counts as "other"). Launches per call:
-# one each, but #10's fc1 and quantiser run once per row slab ("slab").
+# one each, but #9's and #10's fc1 and quantiser run once per row slab
+# ("slab").
 I8_PIECES = {
     "attn_i8": (("ln_quant_rows", "LN-quant", 1), ("EpiQkvI8", "qkv GEMM", 1),
                 ("attn_i8_", "attention", 1), ("quant_rows", "quantise", 1),
                 ("EpiResidualI8", "proj GEMM", 1)),
+    "mlp_i8": (("ln_quant_rows", "LN-quant", 1), ("EpiGeluI8", "fc1 GEMM", "slab"),
+               ("quant_rows", "quantise", "slab"), ("EpiResidualI8", "fc2 GEMM", 1)),
     "swiglu_i8": (("ln_quant_rows", "LN-quant", 1), ("EpiSwigluI8", "fc1 GEMM", "slab"),
                   ("quant_rows", "quantise", "slab"), ("EpiResidualI8", "fc2 GEMM", 1)),
 }
@@ -1252,6 +1326,12 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
                         f"quanta), {changed:.4f} of the elements differ")
                 if not torch.equal(got, kernel_fn(*args, **kw)):
                     raise AssertionError(f"vit {kind} {case} {tname}: two calls differ")
+                # #9 and #10 run the very pieces their plain versions repeat
+                # to the bit; #9 is held to that
+                bitwise = torch.equal(got, want)
+                if kind == "mlp_i8" and not bitwise:
+                    raise AssertionError(f"vit {kind} {case} {tname}: not bit for bit "
+                                         "its plain version")
                 del want
 
                 faults = {}
@@ -1282,7 +1362,13 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
                 # 3: the hidden scale over the whole row where two chunks are due
                 if chunk_kw is not None:
                     got2 = kernel_fn(*args, **chunk_kw)
-                    sound = i8_mismatch(got2, plain_fn(*args, **chunk_kw), tight)
+                    want2 = plain_fn(*args, **chunk_kw)
+                    sound = i8_mismatch(got2, want2, tight)
+                    bitwise2 = torch.equal(got2, want2)
+                    del want2
+                    if kind == "mlp_i8" and not bitwise2:
+                        raise AssertionError(f"vit {kind} {case} {tname} num_chunks=2: "
+                                             "not bit for bit its plain version")
                     if not i8_passes(*sound, tight, quantum, bf16):
                         raise AssertionError(
                             f"vit {kind} {case} {tname} num_chunks=2: {sound[0]:.4f} "
@@ -1292,7 +1378,7 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
                         *i8_mismatch(got2, plain_fn(*args, **kw), tight), tight, quantum)
                     chunk_note = (f"; num_chunks=2: {sound[0]:.4f} outside, worst "
                                   f"{sound[1]:.3g}, {sound[2]:.4f} of the elements "
-                                  "differ")
+                                  f"differ, bit for bit {bitwise2}")
                     del got2
                 else:
                     chunk_note = ""
@@ -1330,7 +1416,7 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
                       f"{quantum:.3g} (allowed {I8_LOOSE_QUANTA}), {changed:.5f} of the "
                       f"elements differ"
                       + (f" (allowed {I8_BF16_CHANGED})" if bf16 else "")
-                      + f", max |out| {peak:.3g}"
+                      + f", max |out| {peak:.3g}, bit for bit {bitwise}"
                       f"{chunk_note}; planted faults, all caught: {fault_note}; device "
                       f"ms: kernel {dev['ms']:.4f}, plain {dev['plain_ms']:.4f}, "
                       f"library calls (_int_mm) {lib}; bound "
@@ -1529,7 +1615,7 @@ def preprocess_phase(torch, tfa, tvf, gpu):
             model, apply_transform(imgs.float() / 255.0, UNI_TRANSFORM), dtype, impl)
 
     encoders = {impl: encoder(impl) for impl in kernel_impls + ("xla", "flash")}
-    for impl in kernel_impls + ("xla",):
+    for impl in kernel_impls + ("xla", "flash"):
         enc = encoders[impl]
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: enc(two_batches[0]), iters=3, warmup=1)

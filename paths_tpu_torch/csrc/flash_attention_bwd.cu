@@ -7,7 +7,10 @@
 //   * the dk/dv pass (`pallas_call` at :305, body `_flash_bwd_dkv_kernel`):
 //       dv = P^T dO,  dk = scale * (P o (dO v^T - delta))^T q,
 // with P = exp(scale * q k^T - lse) rebuilt from the forward's per-row
-// log-sum-exp, keys k >= lengths[b] masked, and delta = rowsum(dO o O).
+// log-sum-exp, keys k >= lengths[b] masked, and delta = rowsum(dO o O). As
+// the TPU kernels do, dS = P o (dP - delta) is rounded to the input type
+// before dS k and dS^T q (in bf16; in f32 that is no rounding), while dv
+// takes P unrounded.
 // q/out/dout (B, H, Nq, D), k/v (B, H, Nk, D), all contiguous and of one type
 // (f32 or bf16; the math runs in f32), D 32 or 64, lse/delta (B, H, Nq) f32.
 //
@@ -163,7 +166,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s = row_sum<kSplit>(s);
       dp = row_sum<kSplit>(dp);
       const float p = expf(s * sm_scale - row_lse);
-      const float ds = p * (dp - row_delta);
+      const float ds = round_to<T>(p * (dp - row_delta));
 #pragma unroll
       for (int d = 0; d < kSlice; ++d) acc[d] = fmaf(ds, kj[d], acc[d]);
     }
@@ -250,7 +253,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s = row_sum<kSplit>(s);
         dp = row_sum<kSplit>(dp);
         const float p = valid ? expf(s * sm_scale - lse_s[i]) : 0.f;
-        const float ds = p * (dp - delta_s[i]);
+        const float ds = round_to<T>(p * (dp - delta_s[i]));
 #pragma unroll
         for (int d = 0; d < kSlice; ++d) {
           acc_v[d] = fmaf(p, doi[d], acc_v[d]);

@@ -1,6 +1,8 @@
-// Shared pieces of the masked flash-attention kernels (forward and backward):
-// the masking constants of the TPU kernels and 16-byte row moves between
-// global memory (f32 or bf16) and f32 registers or shared memory.
+// Shared pieces of the CUDA kernels: the masking constants of the TPU flash
+// kernels, 16-byte row moves between global memory (f32 or bf16) and f32
+// registers or shared memory, the rounding of an f32 value to the I/O type,
+// and the PTX of `cp.async`, `ldmatrix` and the bf16 `mma.sync` that the
+// flash forward and the ViT attention tiles (`vit_tiles.cuh`) are built of.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +26,13 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// x rounded to T and back: the TPU kernels' `astype(T)` of an f32
+// intermediate before a product (none for f32).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
 // Rows move in 16-byte pieces: 4 f32 or 8 bf16 values each.
 template <typename T>
 struct Piece {
@@ -42,5 +51,72 @@ struct Piece {
     *reinterpret_cast<uint4*>(dst) = raw;
   }
 };
+
+// ------------------------------------------------------------------- PTX
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !valid
+// (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 and packed, the first in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Two f32 values rounded to bf16, stored as a pair.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Two f32 values stored as a pair, unrounded.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
 
 }  // namespace paths_cuda

@@ -4,11 +4,13 @@
 //   fused_attn_block_i8        (body `_attn_kernel_i8`):   LN-quant, qkv s8 GEMM,
 //                                                          streamed attention,
 //                                                          quantise, proj s8 GEMM
-//   fused_mlp_block_i8         (body `_mlp_kernel_i8`):    vit_mlp_i8_kernel<T, gelu>
-//   fused_swiglu_mlp_block_i8  (body `_swiglu_kernel_i8`): LN-quant, per row slab
-//                                                          gated s8 fc1 GEMM +
-//                                                          SwiGLU and quantise,
-//                                                          fc2 s8 GEMM + residual
+//   fused_mlp_block_i8         (body `_mlp_kernel_i8`):    LN-quant, per row slab
+//                                                          s8 fc1 GEMM + GELU
+//                                                          and quantise, fc2 s8
+//                                                          GEMM + residual
+//   fused_swiglu_mlp_block_i8  (body `_swiglu_kernel_i8`): the same with the
+//                                                          gated fc1 GEMM +
+//                                                          SwiGLU
 // for x (B, N, D) contiguous in T (f32 or bf16). The four projections (qkv,
 // out, fc1, fc2) multiply int8 activations with int8 weights into int32 on
 // the tensor cores; weights are (out, in) int8 with one f32 scale per output
@@ -33,7 +35,7 @@
 // rounded to f32 once: two implementations then agree on every code unless a
 // value lies within 1e-16 of a boundary.
 //
-// Design of #8 and #10 (pieces in `vit_tiles.cuh`). The work is cut as the
+// Design (pieces in `vit_tiles.cuh`). The work is cut as the
 // bf16 blocks of `vit_fused.cu` cut it, with int8 operands:
 //  * LN-quant once per row (`ln_quant_rows_kernel`, one warp per row, the row
 //    read once into registers): the f64 LayerNorm, the row's abs-max and its
@@ -45,16 +47,17 @@
 //    consumer warpgroups multiply them with `wgmma` m64n128k32 into s32, and
 //    each staged weight byte feeds 128 rows. The epilogues rescale from the
 //    accumulators: qkv + bias rounded to T into a (B, N, 3D) scratch;
-//    out / fc2 + bias, LayerScale and the residual into out; the packed fc1
-//    (gate rows first, gated tile: 64 gate rows above the same 64 value rows)
-//    into silu(gate) value in f32.
+//    out / fc2 + bias, LayerScale and the residual into out; fc1 + bias into
+//    its GELU in f32 (#9), or the packed fc1 (#10: gate rows first, gated
+//    tile: 64 gate rows above the same 64 value rows) into silu(gate) value
+//    in f32.
 //  * Attention: #4's streamed-key tiles read q, k, v from the qkv scratch
 //    (any N, so the patch-8 Kaiko models' 785 tokens), with the context
 //    stored in f32, unrounded; `quant_rows_kernel` then quantises it.
 //  * The MLP's hidden activation goes through device memory in f32 (its row
 //    scale is the abs-max over a chunk, known only once the chunk is
 //    complete), a slab of at most `slab` rows (the wrapper's choice) at a
-//    time: per slab the gated fc1 writes h (slab, H) f32 and
+//    time: per slab fc1 (GELU or gated SwiGLU) writes h (slab, H) f32 and
 //    `quant_rows_kernel` turns it into codes and a scale per row and chunk.
 //    fc2 then runs once over all rows (per slab its D / 128 column tiles
 //    would leave most of the card idle). That bounds the f32 scratch at
@@ -64,31 +67,17 @@
 //  * No split-K; the abs-maxes are plain reductions within a warp: two calls
 //    are bitwise equal.
 //
-// Design of #9 (`vit_mlp_i8_kernel<T, gelu>`, unchanged). `gemm_tile_i8`
-// multiplies 16 rows of codes (one byte per element) against NCOLS weight
-// rows with `wmma` 16x16x16, staged through shared memory in chunks of 32
-// along the contraction, the next chunk prefetched into registers. The codes
-// of a 16-row tile and its row scales are made once per tile and kept in
-// shared memory. The kernel streams the hidden dimension in pieces of 256
-// columns and cannot know a chunk's hidden scale before the chunk's last
-// piece, so fc1 runs twice per chunk: a first pass finds each row's abs-max,
-// a second recomputes the same values (bit for bit), quantises them and feeds
-// fc2 (1.5 times the operations of the block). The fc2 sum of a chunk stays
-// in an int32 (16, D) tile in shared memory; with more than one chunk an f32
-// tile beside it takes the rescaled sums.
-//
 // Bound on the card: the projections at the int8 tensor-core rate, the
-// attention's two products at T's rate (bf16 tensor cores; f32 FMAs). #9's
-// 16-row tiles restream its weights from L2 once per 16 rows; #8 and #10 on
-// the GEMM above do not.
+// attention's two products at T's rate (bf16 tensor cores; f32 FMAs). Each
+// staged weight byte feeds 128 rows, so the weights cross from L2 once per
+// 128-row tile; the f32 hidden activation crosses device memory twice
+// (written by fc1, read by the quantiser) and its codes twice.
 //
 // Requirements (checked by the Python wrapper): head_dim 64, D % 64 == 0,
 // H / num_chunks a multiple of 64, 16-byte aligned contiguous tensors.
 //
 // C interface (loaded through ctypes): the launch entries return the
 // cudaError_t of the first launch that failed (0 on success).
-
-#include <mma.h>
 
 #include <algorithm>
 
@@ -99,59 +88,11 @@ namespace {
 using namespace paths_cuda;
 using namespace paths_cuda::vit;
 
-constexpr int kLD8 = 48;        // bytes per staged row of one 16-column slab
-constexpr int kLDHQ = kHC + 16; // row stride of the quantised hidden piece
-
 __device__ __forceinline__ double warp_sum64(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-// Mean and 1/sqrt(var + eps) in f64 of the first `valid` of 16 rows at xt.
-// Ends with a barrier.
-template <typename T>
-__device__ __forceinline__ void ln_stats64(const T* xt, int valid, int D,
-                                           double* mu_s, double* rstd_s) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int m = warp; m < kBM; m += kThreads / 32) {
-    double mu = 0.0, rstd = 0.0;
-    if (m < valid) {
-      const T* xr = xt + static_cast<size_t>(m) * D;
-      double s = 0.0;
-      for (int k = lane; k < D; k += 32) s += static_cast<double>(to_float(xr[k]));
-      mu = warp_sum64(s) / D;
-      double v = 0.0;
-      for (int k = lane; k < D; k += 32) {
-        const double d = static_cast<double>(to_float(xr[k])) - mu;
-        v += d * d;
-      }
-      rstd = 1.0 / sqrt(warp_sum64(v) / D + 1e-6);
-    }
-    if (lane == 0) {
-      mu_s[m] = mu;
-      rstd_s[m] = rstd;
-    }
-  }
-  __syncthreads();
-}
-
-// LN(x) of row m at column k: f64 arithmetic, rounded to f32 once.
-template <typename T>
-struct LnRows64 {
-  const T* xt;
-  const float* scale;
-  const float* bias;
-  const double* mu_s;
-  const double* rstd_s;
-  int D;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    const double xv = to_float(xt[static_cast<size_t>(m) * D + k]);
-    return static_cast<float>((xv - mu_s[m]) * rstd_s[m] *
-                                  static_cast<double>(scale[k]) +
-                              static_cast<double>(bias[k]));
-  }
-};
 
 __device__ __forceinline__ float quant_scale(float amax) {
   const float s = __fmul_rn(amax, 0.007874015748031496f);   // max|y| * (1/127)
@@ -162,154 +103,7 @@ __device__ __forceinline__ int quant_code(float y, float s) {
   return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(y, s)), -127.f), 127.f));
 }
 
-// #9: codes (16 x D bytes) and row scales of 16 rows, one warp per row in turn:
-// `val(m, k)` gives the f32 value of row m < valid; the other rows become
-// zeros with scale 1. D % 4 == 0. Ends with a barrier.
-template <typename Val>
-__device__ __forceinline__ void quant_tile(Val val, int valid, int D,
-                                           signed char* yq, float* ys) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int m = warp; m < kBM; m += kThreads / 32) {
-    int* row = reinterpret_cast<int*>(yq + static_cast<size_t>(m) * D);
-    float s = 1.f;
-    if (m < valid) {
-      float amax = 0.f;
-      for (int k = lane; k < D; k += 32) amax = fmaxf(amax, fabsf(val(m, k)));
-      s = quant_scale(warp_max(amax));
-      for (int k = 4 * lane; k < D; k += 128) {
-        int word = 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          word |= (quant_code(val(m, k + i), s) & 0xff) << (8 * i);
-        row[k / 4] = word;
-      }
-    } else {
-      for (int k = 4 * lane; k < D; k += 128) row[k / 4] = 0;
-    }
-    if (lane == 0) ys[m] = s;
-  }
-  __syncthreads();
-}
-
-// acc[r] += sum over k < K of A(g RM + r, k) * W(c)[k] in int32, where
-// thread t owns output column c = t % NCOLS and the RM = 16 NCOLS / 256 rows
-// of group g = t / NCOLS. `a_word(m, k)` gives the four codes of
-// row m at columns k .. k + 3 (k % 4 == 0) packed into an int; `w_row(n)`
-// gives weight row n (K contiguous codes, 16-byte aligned) or nullptr for a
-// row of zeros. K % 32 == 0. As8 holds 2 x 16 x kLD8 bytes, Ws8 2 x NCOLS x
-// kLD8 (at least 2 x 128 x kLD8), both 32-byte aligned. Ends without a
-// barrier; the caller's reads of shared memory must be complete before.
-template <int NCOLS, typename ALoad, typename WRow>
-__device__ __forceinline__ void gemm_tile_i8(int (&acc)[kBM * NCOLS / kThreads],
-                                             int K, ALoad a_word, WRow w_row,
-                                             signed char* As8, signed char* Ws8) {
-  namespace wmma = nvcuda::wmma;
-  constexpr int RM = kBM * NCOLS / kThreads;
-  constexpr int PIECES = NCOLS * 2;              // 16-byte pieces of a W chunk
-  constexpr int WPT = (PIECES + kThreads - 1) / kThreads;
-  constexpr int FR = NCOLS >= 128 ? NCOLS / 128 : 1;   // fragments per warp
-  constexpr int LDC = NCOLS + 8;                 // accumulator tile row stride
-  static_assert(kBM * LDC * sizeof(int) <= 2 * NCOLS * kLD8,
-                "the accumulator tile must fit the weight buffer");
-  const int t = threadIdx.x;
-  const int c = t % NCOLS, g = t / NCOLS;
-  const int n0 = (t / 32) * 16 * FR;             // this warp's first column
-  const bool warp_active = n0 < NCOLS;
-  const bool moves_a = t < kBM * kBK / 4;        // one word of A per thread
-  const int am = t / (kBK / 4), ak = (t % (kBK / 4)) * 4;
-
-  uint4 wreg[WPT];
-  int areg = 0;
-  const signed char* wsrc[WPT];
-#pragma unroll
-  for (int i = 0; i < WPT; ++i) {
-    const int e = t + i * kThreads;
-    const signed char* base = e < PIECES ? w_row(e / 2) : nullptr;
-    wsrc[i] = base ? base + (e % 2) * 16 : nullptr;
-  }
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < WPT; ++i)
-      wreg[i] = wsrc[i] ? *reinterpret_cast<const uint4*>(wsrc[i] + k0)
-                        : make_uint4(0u, 0u, 0u, 0u);
-    if (moves_a) areg = a_word(am, k0 + ak);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> cfrag[FR];
-#pragma unroll
-  for (int f = 0; f < FR; ++f) wmma::fill_fragment(cfrag[f], 0);
-
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();   // the previous chunk has been multiplied
-#pragma unroll
-    for (int i = 0; i < WPT; ++i) {
-      const int e = t + i * kThreads;
-      if (e < PIECES)
-        *reinterpret_cast<uint4*>(Ws8 + ((e % 2) * NCOLS + e / 2) * kLD8) = wreg[i];
-    }
-    if (moves_a)
-      *reinterpret_cast<int*>(As8 + ((ak / 16) * kBM + am) * kLD8 + ak % 16) = areg;
-    __syncthreads();
-    if (k0 + kBK < K) fetch(k0 + kBK);
-
-    if (warp_active) {
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> af;
-        wmma::load_matrix_sync(af, As8 + s * kBM * kLD8, kLD8);
-#pragma unroll
-        for (int f = 0; f < FR; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bf;
-          wmma::load_matrix_sync(bf, Ws8 + (s * NCOLS + n0 + 16 * f) * kLD8, kLD8);
-          wmma::mma_sync(cfrag[f], af, bf, cfrag[f]);
-        }
-      }
-    }
-  }
-  __syncthreads();   // every warp is done with the weight buffer
-  int* Cs = reinterpret_cast<int*>(Ws8);
-  if (warp_active) {
-#pragma unroll
-    for (int f = 0; f < FR; ++f)
-      wmma::store_matrix_sync(Cs + n0 + 16 * f, cfrag[f], LDC, wmma::mem_row_major);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < RM; ++r) acc[r] += Cs[(g * RM + r) * LDC + c];
-}
-
-// float(acc) * row scale * channel scale + bias, each operation rounded.
-__device__ __forceinline__ float rescale(int acc, float row_s, float chan_s,
-                                         float bias) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(acc), row_s), chan_s),
-                   bias);
-}
-
-// Shared memory every int8 product needs: the codes of a 16-row tile and
-// their scales, f64 LayerNorm statistics, and the two staging buffers.
-struct QuantSmem {
-  signed char* yq;    // kBM x D
-  float* ys;          // kBM
-  double* mu_s;       // kBM
-  double* rstd_s;     // kBM
-  signed char* As8;   // 2 x kBM x kLD8
-  signed char* Ws8;   // 2 x 256 x kLD8
-  __device__ QuantSmem(unsigned char* base, int D) {
-    mu_s = reinterpret_cast<double*>(base);
-    rstd_s = mu_s + kBM;
-    ys = reinterpret_cast<float*>(rstd_s + kBM);
-    As8 = reinterpret_cast<signed char*>(base + 384);
-    Ws8 = As8 + 2 * kBM * kLD8;
-    yq = Ws8 + 2 * kThreads * kLD8;
-  }
-  __host__ __device__ static size_t bytes(int D) {
-    return align_up(384 + 2 * kBM * kLD8 + 2 * kThreads * kLD8 +
-                    static_cast<size_t>(kBM) * D);
-  }
-};
-
-// ---------------------------------------------------------------- MLP block
+// ------------------------------------------------------------- activations
 // 0.5 h (1 + erf(h / sqrt 2)) with the rational erf of the TPU kernels, or
 // the tanh form; every operation rounded on its own.
 template <int ACT>
@@ -340,120 +134,7 @@ __device__ __forceinline__ float swiglu_i8(float gate, float val) {
   return __fmul_rn(__fmul_rn(gate, sig), val);
 }
 
-// #9: out = x + ls * (fc2(quant(gelu(fc1(quant(LN(x)))))) + b2) for rows r0
-// .. r0 + 15 of the flattened (R, D) activation, the hidden activation
-// quantised per row over each of `chunks` spans of H / chunks columns. w1:
-// (H, D) codes; w2: (D, H).
-template <typename T, int ACT>
-__global__ void __launch_bounds__(kThreads)
-vit_mlp_i8_kernel(const T* __restrict__ x, const float* __restrict__ ns,
-                  const float* __restrict__ nb,
-                  const signed char* __restrict__ w1q,
-                  const float* __restrict__ w1s, const float* __restrict__ b1,
-                  const signed char* __restrict__ w2q,
-                  const float* __restrict__ w2s, const float* __restrict__ b2,
-                  const float* __restrict__ ls, T* __restrict__ out, int R,
-                  int D, int H, int chunks) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const QuantSmem sm(smem_raw, D);
-  unsigned char* rest = smem_raw + QuantSmem::bytes(D);
-  float* hs = reinterpret_cast<float*>(rest);                   // kBM
-  unsigned* hmax = reinterpret_cast<unsigned*>(hs + kBM);       // kBM
-  signed char* Hq = reinterpret_cast<signed char*>(rest + 128); // kBM x kLDHQ
-  int* acc_i = reinterpret_cast<int*>(rest + 128 + align_up(kBM * kLDHQ));
-  float* acc_f = reinterpret_cast<float*>(acc_i + kBM * D);     // if chunks > 1
-
-  const int t = threadIdx.x, lane = t % 32;
-  const int r0 = blockIdx.x * kBM, valid = min(kBM, R - r0);
-  const T* xt = x + static_cast<size_t>(r0) * D;
-  ln_stats64<T>(xt, valid, D, sm.mu_s, sm.rstd_s);
-  quant_tile(LnRows64<T>{xt, ns, nb, sm.mu_s, sm.rstd_s, D}, valid, D, sm.yq,
-             sm.ys);
-  if (chunks > 1)
-    for (int i = t; i < kBM * D; i += kThreads) acc_f[i] = 0.f;
-
-  auto y_word = [&](int m, int k) {
-    return *reinterpret_cast<const int*>(sm.yq + m * D + k);
-  };
-  // the activation of hidden column j for the 16 rows
-  auto hidden = [&](int j, bool live, float (&hv)[kBM]) {
-    int a1[kBM];
-#pragma unroll
-    for (int r = 0; r < kBM; ++r) a1[r] = 0;
-    const int j0 = j - t;
-    gemm_tile_i8<kHC>(a1, D, y_word, [&](int n) -> const signed char* {
-      return j0 + n < H ? w1q + static_cast<size_t>(j0 + n) * D : nullptr;
-    }, sm.As8, sm.Ws8);
-    const float s1 = live ? w1s[j] : 0.f, bj = live ? b1[j] : 0.f;
-#pragma unroll
-    for (int r = 0; r < kBM; ++r)
-      hv[r] = live ? gelu_i8<ACT>(rescale(a1[r], sm.ys[r], s1, bj)) : 0.f;
-  };
-
-  const int span = H / chunks;
-  for (int c0 = 0; c0 < H; c0 += span) {
-    for (int i = t; i < kBM * D; i += kThreads) acc_i[i] = 0;
-    if (t < kBM) hmax[t] = 0u;
-    __syncthreads();
-    // pass 1: each row's abs-max over the chunk (a max of non-negative
-    // floats is a max of their bit patterns, in any order)
-    for (int hc = c0; hc < c0 + span; hc += kHC) {
-      float hv[kBM];
-      hidden(hc + t, hc + t < c0 + span, hv);
-#pragma unroll
-      for (int r = 0; r < kBM; ++r) {
-        const float m = warp_max(fabsf(hv[r]));
-        if (lane == 0) atomicMax(&hmax[r], __float_as_uint(m));
-      }
-    }
-    __syncthreads();
-    if (t < kBM) hs[t] = quant_scale(__uint_as_float(hmax[t]));
-    __syncthreads();
-    // pass 2: the same values again, quantised, into fc2
-    for (int hc = c0; hc < c0 + span; hc += kHC) {
-      float hv[kBM];
-      hidden(hc + t, hc + t < c0 + span, hv);
-#pragma unroll
-      for (int r = 0; r < kBM; ++r)
-        Hq[r * kLDHQ + t] = static_cast<signed char>(quant_code(hv[r], hs[r]));
-      __syncthreads();   // the quantised piece is complete
-      const int kc = min(kHC, c0 + span - hc);
-      for (int d0 = 0; d0 < D; d0 += kHC) {
-        int o[kBM];
-#pragma unroll
-        for (int r = 0; r < kBM; ++r) o[r] = 0;
-        gemm_tile_i8<kHC>(o, kc, [&](int m, int k) {
-          return *reinterpret_cast<const int*>(Hq + m * kLDHQ + k);
-        }, [&](int n) -> const signed char* {
-          return d0 + n < D ? w2q + static_cast<size_t>(d0 + n) * H + hc : nullptr;
-        }, sm.As8, sm.Ws8);
-        if (d0 + t < D) {
-#pragma unroll
-          for (int r = 0; r < kBM; ++r) acc_i[r * D + d0 + t] += o[r];
-        }
-      }
-    }
-    __syncthreads();
-    if (chunks > 1) {
-      for (int i = t; i < kBM * D; i += kThreads) {
-        const float f2 = __fmul_rn(__fmul_rn(static_cast<float>(acc_i[i]),
-                                             hs[i / D]), w2s[i % D]);
-        acc_f[i] = __fadd_rn(acc_f[i], f2);
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = t; i < valid * D; i += kThreads) {
-    const int m = i / D, d = i % D;
-    const float sum = chunks > 1 ? acc_f[i] : __fmul_rn(
-        __fmul_rn(static_cast<float>(acc_i[i]), hs[m]), w2s[d]);
-    const float branch = __fmul_rn(__fadd_rn(sum, b2[d]), ls[d]);
-    const size_t at = static_cast<size_t>(r0) * D + i;
-    out[at] = from_float<T>(__fadd_rn(to_float(x[at]), branch));
-  }
-}
-
-// ------------------------------------------- #8 and #10: row quantisers
+// ----------------------------------------------------------- row quantisers
 constexpr int kRowThreads = 256;
 constexpr int kRowsPerBlock = kRowThreads / 32;   // with one warp per row
 constexpr int kLnPieces = 12;   // 4-value pieces a lane keeps: rows up to 1536
@@ -478,9 +159,9 @@ __device__ __forceinline__ int pack_codes(const float (&v)[4], float s) {
          (quant_code(v[2], s) & 0xff) << 16 | (quant_code(v[3], s) & 0xff) << 24;
 }
 
-// codes q (R, D) int8 and scales qs (R) of LN(x), one warp per row: the f64
-// LayerNorm of `ln_stats64` / `LnRows64`, each of its operations rounded on
-// its own, then rounded to f32 once. A row of up to 128 kLnPieces values is
+// codes q (R, D) int8 and scales qs (R) of LN(x), one warp per row: the
+// LayerNorm in f64 (mean, then 1/sqrt(var + eps)), each of its operations
+// rounded on its own, then rounded to f32 once. A row of up to 128 kLnPieces values is
 // read once into registers (lane l keeps columns 4 l + 128 j ..+ 3); a
 // longer one is read again for each pass. D % 4 == 0.
 template <typename T>
@@ -636,7 +317,7 @@ quant_rows_kernel(const float* __restrict__ y, signed char* __restrict__ q,
   if (t == 0) qs[seg] = sc;
 }
 
-// ---------------------------------------------- #8 and #10: GEMM epilogues
+// ------------------------------------------------------------ GEMM epilogues
 // float(acc) * row scale * channel scale, each product rounded: the int32 sum
 // converts to the nearest float, as the plain version's exact sum does.
 __device__ __forceinline__ float dequant(int acc, float row_s, float chan_s) {
@@ -673,6 +354,17 @@ struct EpiResidualI8 {
   }
   __device__ __forceinline__ float operator()(int row, int col, int acc) const {
     return finish(row, col, chunk(row, col, 0, acc));
+  }
+};
+
+// fc1 (H, D): gelu_i8 of the dequantised product + bias
+template <int ACT>
+struct EpiGeluI8 {
+  const float* rs;     // (M) row scales
+  const float* cs;     // (H) channel scales
+  const float* bias;   // (H)
+  __device__ __forceinline__ float operator()(int row, int col, int acc) const {
+    return gelu_i8<ACT>(__fadd_rn(dequant(acc, rs[row], cs[col]), bias[col]));
   }
 };
 
@@ -757,9 +449,9 @@ cudaError_t attention_f32_ctx(const T* qkv, float* ctx, int B, int N, int D,
 
 // The tensors of one int8 block call, in the order of its C entry. Scratch:
 // codes (B N, D) int8 and scales (B N) f32 (the LayerNorm's, then the
-// context's); #8: qkv (B, N, 3D) in T and ctx (B, N, D) f32; #10: hidden
-// (slab, H) f32, and the hidden codes (B N, H) int8 and scales (B N, chunks)
-// f32.
+// context's); #8: qkv (B, N, 3D) in T and ctx (B, N, D) f32; #9 and #10:
+// hidden (slab, H) f32, and the hidden codes (B N, H) int8 and scales
+// (B N, chunks) f32.
 struct I8Args {
   const void* x;
   const float *ns, *nb;
@@ -801,14 +493,15 @@ int launch_attn_i8(const I8Args& a, cudaStream_t s) {
       EpiResidualI8<T>{x, a.scales, a.w2s, a.b2, a.ls, D, 1, D}, s));
 }
 
-// #10: LN-quant over all rows; per slab of a.slab rows the gated fc1 GEMM
-// (SwiGLU into hidden, f32) and the hidden activation's codes per row and
-// chunk; then one fc2 GEMM over all rows with LayerScale and the residual
-// (CHUNKED where there is more than one chunk): 2 + 2 launches per slab.
-// fc2 has only D / 128 column tiles, so it runs over all rows at once: per
-// slab it would fill a fraction of the card's blocks.
-template <typename T>
-int launch_swiglu_i8(const I8Args& a, cudaStream_t s) {
+// #9 and #10: LN-quant over all rows; per slab of a.slab rows the fc1 GEMM
+// (`fc1`: the GELU epilogue over W (H, D), or the gated SwiGLU one over the
+// packed W (2H, D); hidden in f32) and the hidden activation's codes per row
+// and chunk; then one fc2 GEMM over all rows with LayerScale and the
+// residual (CHUNKED where there is more than one chunk): 2 + 2 launches per
+// slab. fc2 has only D / 128 column tiles, so it runs over all rows at once:
+// per slab it would fill a fraction of the card's blocks.
+template <typename T, typename Fc1>
+int launch_mlp_i8(const I8Args& a, Fc1 fc1, cudaStream_t s) {
   const int R = a.B * a.N, D = a.D, H = a.H;
   if (D % 64 != 0 || a.chunks < 1 || H % a.chunks != 0 || (H / a.chunks) % 64 != 0 ||
       a.slab < 1)
@@ -820,9 +513,10 @@ int launch_swiglu_i8(const I8Args& a, cudaStream_t s) {
     return static_cast<int>(rc);
   for (int r0 = 0; r0 < R; r0 += a.slab) {
     const int rows = std::min(a.slab, R - r0);
-    if ((rc = tiles::gemm_tma<signed char>(
-             a.codes + static_cast<size_t>(r0) * D, a.w1q, a.hidden, rows, H, D,
-             EpiSwigluI8{a.scales + r0, a.w1s, a.b1, H}, s)) != cudaSuccess)
+    fc1.rs = a.scales + r0;
+    if ((rc = tiles::gemm_tma<signed char>(a.codes + static_cast<size_t>(r0) * D,
+                                           a.w1q, a.hidden, rows, H, D, fc1, s)) !=
+        cudaSuccess)
       return static_cast<int>(rc);
     if ((rc = quant(a.hidden, a.hcodes + static_cast<size_t>(r0) * H,
                     a.hscales + static_cast<size_t>(r0) * a.chunks, rows, H, span,
@@ -837,46 +531,51 @@ int launch_swiglu_i8(const I8Args& a, cudaStream_t s) {
   return static_cast<int>(rc);
 }
 
-// #9: its block's shared memory, launch and activations
-size_t mlp_i8_smem(int D, int chunks) {
-  return QuantSmem::bytes(D) + 128 + align_up(kBM * kLDHQ) +
-         static_cast<size_t>(chunks > 1 ? 2 : 1) * kBM * D * sizeof(int);
-}
-
-template <typename T, int ACT>
-int launch_mlp_i8(const void* x, const float* ns, const float* nb,
-                  const signed char* w1q, const float* w1s, const float* b1,
-                  const signed char* w2q, const float* w2s, const float* b2,
-                  const float* ls, void* out, int R, int D, int H, int chunks,
-                  cudaStream_t stream) {
-  if (D % kBK != 0 || chunks < 1 || H % chunks != 0 || (H / chunks) % 64 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = mlp_i8_smem(D, chunks);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = allow_smem(vit_mlp_i8_kernel<T, ACT>, smem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  vit_mlp_i8_kernel<T, ACT><<<(R + kBM - 1) / kBM, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), ns, nb, w1q, w1s, b1, w2q, w2s, b2, ls,
-      static_cast<T*>(out), R, D, H, chunks);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// #9 with the GELU of `act` (0 exact, 1 tanh)
 template <typename T>
-int dispatch_mlp_i8(int act, const void* x, const float* ns, const float* nb,
-                    const signed char* w1q, const float* w1s, const float* b1,
-                    const signed char* w2q, const float* w2s, const float* b2,
-                    const float* ls, void* out, int R, int D, int H, int chunks,
-                    cudaStream_t s) {
+int launch_gelu_mlp_i8(const I8Args& a, int act, cudaStream_t s) {
   switch (act) {
     case kGeluExact:
-      return launch_mlp_i8<T, kGeluExact>(x, ns, nb, w1q, w1s, b1, w2q, w2s, b2,
-                                          ls, out, R, D, H, chunks, s);
+      return launch_mlp_i8<T>(a, EpiGeluI8<kGeluExact>{nullptr, a.w1s, a.b1}, s);
     case kGeluTanh:
-      return launch_mlp_i8<T, kGeluTanh>(x, ns, nb, w1q, w1s, b1, w2q, w2s, b2,
-                                         ls, out, R, D, H, chunks, s);
+      return launch_mlp_i8<T>(a, EpiGeluI8<kGeluTanh>{nullptr, a.w1s, a.b1}, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The MLP blocks' tensors in the order of their C entries (fc1 (H, D) for
+// #9, packed (2H, D) for #10); x is (R, D), R = B N.
+I8Args mlp_args(const void* x, const float* ns, const float* nb,
+                const signed char* fc1_q, const float* fc1_s, const float* fc1_b,
+                const signed char* fc2_q, const float* fc2_s, const float* fc2_b,
+                const float* ls, signed char* codes, float* scales, float* hidden,
+                signed char* hcodes, float* hscales, void* out, int R, int D,
+                int H, int chunks, int slab) {
+  I8Args a{};
+  a.x = x;
+  a.ns = ns;
+  a.nb = nb;
+  a.w1q = fc1_q;
+  a.w1s = fc1_s;
+  a.b1 = fc1_b;
+  a.w2q = fc2_q;
+  a.w2s = fc2_s;
+  a.b2 = fc2_b;
+  a.ls = ls;
+  a.codes = codes;
+  a.scales = scales;
+  a.hidden = hidden;
+  a.hcodes = hcodes;
+  a.hscales = hscales;
+  a.out = out;
+  a.B = 1;
+  a.N = R;
+  a.D = D;
+  a.H = H;
+  a.chunks = chunks;
+  a.slab = slab;
+  return a;
 }
 
 }  // namespace
@@ -922,35 +621,33 @@ extern "C" int paths_vit_attn_block_i8(
   }
 }
 
-// act: 0 = exact (rational erf) GELU, 1 = tanh GELU. x is (R, D), R = B N;
-// the hidden activation is quantised over `chunks` spans of H / chunks
-// columns.
+// The int8 GELU MLP block, act: 0 = exact (rational erf) GELU, 1 = tanh GELU;
+// and the packed SwiGLU MLP block (fc1 (2H, D), gate rows first). Both make
+// their f32 hidden activation a slab of `slab` rows at a time; x is (R, D),
+// R = B N, the hidden activation quantised over `chunks` spans of H / chunks
+// columns. Scratch: codes (R, D) int8, scales (R) f32, hidden (min(slab, R),
+// H) f32, hcodes (R, H) int8, hscales (R, chunks) f32.
 extern "C" int paths_vit_mlp_block_i8(
     const void* x, const float* norm_scale, const float* norm_bias,
     const signed char* fc1_q, const float* fc1_s, const float* fc1_b,
     const signed char* fc2_q, const float* fc2_s, const float* fc2_b,
-    const float* ls, void* out, int R, int D, int H, int act, int chunks,
-    int dtype, void* stream) {
+    const float* ls, signed char* codes, float* scales, float* hidden,
+    signed char* hcodes, float* hscales, void* out, int R, int D, int H, int act,
+    int chunks, int slab, int dtype, void* stream) {
+  const I8Args a = mlp_args(x, norm_scale, norm_bias, fc1_q, fc1_s, fc1_b, fc2_q,
+                            fc2_s, fc2_b, ls, codes, scales, hidden, hcodes,
+                            hscales, out, R, D, H, chunks, slab);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_mlp_i8<float>(act, x, norm_scale, norm_bias, fc1_q, fc1_s,
-                                    fc1_b, fc2_q, fc2_s, fc2_b, ls, out, R, D,
-                                    H, chunks, s);
+      return launch_gelu_mlp_i8<float>(a, act, s);
     case 1:
-      return dispatch_mlp_i8<__nv_bfloat16>(act, x, norm_scale, norm_bias, fc1_q,
-                                            fc1_s, fc1_b, fc2_q, fc2_s, fc2_b,
-                                            ls, out, R, D, H, chunks, s);
+      return launch_gelu_mlp_i8<__nv_bfloat16>(a, act, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The packed SwiGLU MLP block (fc1 (2H, D), gate rows first), its f32 hidden
-// activation made a slab of `slab` rows at a time; x is (R, D), R = B N, the
-// hidden activation quantised over `chunks` spans of H / chunks columns.
-// Scratch: codes (R, D) int8, scales (R) f32, hidden (min(slab, R), H) f32,
-// hcodes (R, H) int8, hscales (R, chunks) f32.
 extern "C" int paths_vit_swiglu_mlp_block_i8(
     const void* x, const float* norm_scale, const float* norm_bias,
     const signed char* fc1_q, const float* fc1_s, const float* fc1_b,
@@ -958,46 +655,19 @@ extern "C" int paths_vit_swiglu_mlp_block_i8(
     const float* ls, signed char* codes, float* scales, float* hidden,
     signed char* hcodes, float* hscales, void* out, int R, int D, int H,
     int chunks, int slab, int dtype, void* stream) {
-  I8Args a{};
-  a.x = x;
-  a.ns = norm_scale;
-  a.nb = norm_bias;
-  a.w1q = fc1_q;
-  a.w1s = fc1_s;
-  a.b1 = fc1_b;
-  a.w2q = fc2_q;
-  a.w2s = fc2_s;
-  a.b2 = fc2_b;
-  a.ls = ls;
-  a.codes = codes;
-  a.scales = scales;
-  a.hidden = hidden;
-  a.hcodes = hcodes;
-  a.hscales = hscales;
-  a.out = out;
-  a.B = 1;
-  a.N = R;
-  a.D = D;
-  a.H = H;
-  a.chunks = chunks;
-  a.slab = slab;
+  const I8Args a = mlp_args(x, norm_scale, norm_bias, fc1_q, fc1_s, fc1_b, fc2_q,
+                            fc2_s, fc2_b, ls, codes, scales, hidden, hcodes,
+                            hscales, out, R, D, H, chunks, slab);
+  const EpiSwigluI8 fc1{nullptr, fc1_s, fc1_b, H};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_swiglu_i8<float>(a, s);
+      return launch_mlp_i8<float>(a, fc1, s);
     case 1:
-      return launch_swiglu_i8<__nv_bfloat16>(a, s);
+      return launch_mlp_i8<__nv_bfloat16>(a, fc1, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-extern "C" long long paths_vit_mlp_i8_smem_bytes(int D, int chunks) {
-  return static_cast<long long>(mlp_i8_smem(D, chunks));
-}
-
-extern "C" long long paths_vit_max_smem_bytes() {
-  return static_cast<long long>(kMaxSmem);
 }
 
 extern "C" const char* paths_cuda_error_string(int code) {

@@ -1,9 +1,11 @@
 // Tiled pieces of the ViT block kernels (`vit_fused.cu`: `fused_attn_block`,
 // `fused_mlp_block`, `fused_swiglu_mlp_block`, `fused_block`; `vit_int8.cu`:
-// `fused_attn_block_i8`, `fused_swiglu_mlp_block_i8`): the LayerNorm
-// pre-pass, the GEMMs with their epilogue hooks (a gated one for the packed
-// SwiGLU), and the attention core that streams K and V in key tiles. The
-// design notes are at the top of `vit_fused.cu` and `vit_int8.cu`.
+// `fused_attn_block_i8`, `fused_mlp_block_i8`, `fused_swiglu_mlp_block_i8`):
+// head_dim, the LayerNorm epsilon, warp sums and the activations; the
+// LayerNorm pre-pass, the GEMMs with their epilogue hooks (a gated one for
+// the packed SwiGLU), and the attention core that streams K and V in key
+// tiles. The design notes are at the top of `vit_fused.cu` and
+// `vit_int8.cu`.
 //
 // Tensor cores. The bf16 projections use `wgmma` (m64n128k16, f32
 // accumulation) and the int8 ones `wgmma` on s8 codes (m64n128k32, s32
@@ -22,79 +24,47 @@
 
 #include <type_traits>
 
-#include "vit_common.cuh"
+#include "flash_common.cuh"
 
 namespace paths_cuda {
+namespace vit {
+
+constexpr int kHD = 64;         // head_dim
+constexpr float kLnEps = 1e-6f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+enum Act { kGeluExact = 0, kGeluTanh = 1, kSwiglu = 2 };
+
+template <int ACT>
+__device__ __forceinline__ float gelu(float h) {
+  if (ACT == kGeluExact)
+    return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+  const float u = 0.7978845608028654f * (h + 0.044715f * h * h * h);
+  return 0.5f * h * (1.f + tanhf(u));
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace vit
+
 namespace tiles {
 
 using vit::kHD;
-
-// ------------------------------------------------------------------- PTX
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when !valid
-// (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 values rounded to bf16 and packed, the first in the low half.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// Two f32 values rounded to bf16, stored as a pair.
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Two f32 values stored as a pair, unrounded.
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
 
 template <typename T>
 constexpr bool kTensor = std::is_same<T, __nv_bfloat16>::value;

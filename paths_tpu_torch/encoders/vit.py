@@ -219,8 +219,11 @@ def _attn(blk: ViTBlock, w: dict, x: torch.Tensor, num_heads: int,
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))      # (B, H, N, hd)
     if impl == "flash":
         lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)
+        # JAX's key block on this route (`paths_tpu/encoders/vit.py`), which
+        # places the rounding of P in bf16
         o, _ = flash_attention.masked_flash_attention_fwd(
-            q.contiguous(), k.contiguous(), v.contiguous(), lengths)
+            q.contiguous(), k.contiguous(), v.contiguous(), lengths,
+            min(256, 128 * -(-n // 128)))
     else:
         scale = 1.0 / math.sqrt(d // num_heads)
         logits = (q.float() @ k.float().transpose(-1, -2)) * scale

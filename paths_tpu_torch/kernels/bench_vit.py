@@ -1,11 +1,19 @@
-"""Time the ViT block kernels (#4-#10) at the encoders' shapes on one GPU.
+"""Time the ViT block kernels (#4-#10) and the flash forward (#1) at the
+shapes their paths give them on one GPU.
 
     python3 paths_tpu_torch/kernels/bench_vit.py [--root TREE] [--slabs N,N,..]
 
-Each case is one bf16 (or f32) call at 64 images of UNI (197 tokens, D 1024,
-MLP 4096), Virchow2 (261 tokens, D 1280, packed SwiGLU 6912) or Kaiko-B/8
-(785 tokens, D 768, MLP 3072) with random weights from a seed, timed between
-CUDA events over back-to-back calls after a warm-up. `--root` imports the
+Each block case is one bf16 (or f32) call at 64 images of UNI (197 tokens,
+D 1024, MLP 4096), Virchow2 (261 tokens, D 1280, packed SwiGLU 6912) or
+Kaiko-B/8 (785 tokens, D 768, MLP 3072) with random weights from a seed,
+timed between CUDA events over back-to-back calls after a warm-up. The flash
+cases are #1 on the ViT flash route's q, k, v (bf16, head_dim 64, every
+token valid, JAX's key block min(256, 128 ceil(N / 128))) and at the
+flagship aggregator's level-0 and deeper shapes (f32, B 32, 4 heads of 32,
+lengths 1..N from a seed); a call of #1 takes less time than its launch
+from Python, so they are timed as device time from the profiler's trace.
+The key block is passed only where the checkout's wrapper takes one.
+`--root` imports the
 `paths_tpu_torch` package of another checkout (a parent commit, say), so
 that two versions can be timed in turns on one card; cases whose wrapper
 that checkout lacks are skipped. `--slabs` also times kernel #10 at
@@ -16,6 +24,7 @@ name and power limit, as its last line.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -35,7 +44,12 @@ CASES = (  # (kernel, shape, dtype)
     ("attn_i8", "kaiko-b8", "bf16"), ("attn_i8", "uni", "f32"),
     ("mlp_i8", "uni", "bf16"), ("mlp_i8", "kaiko-b8", "bf16"),
     ("swiglu_i8", "virchow2", "bf16"), ("swiglu_i8", "virchow2", "f32"),
+    ("flash", "uni", "bf16"), ("flash", "virchow2", "bf16"),
+    ("flash", "kaiko-b8", "bf16"), ("flash", "level0", "f32"),
+    ("flash", "deeper", "f32"),
 )
+# the flagship aggregator's attention (`models/brca_paths_0`): slides, keys
+FLAGSHIP = {"level0": (32, 257), "deeper": (32, 81)}
 
 
 def card() -> str:
@@ -54,6 +68,43 @@ def cuda_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 50) -> float:
+    """Mean device time of one call: its kernels' time in the profiler's
+    trace over `iters` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / iters
+
+
+def flash_call(torch, tfa, shape, dtype):
+    """#1 on the shape's q, k, v (B, H, N, D) with its lengths."""
+    gen = torch.Generator().manual_seed(7)
+    if shape in FLAGSHIP:
+        b, n = FLAGSHIP[shape]
+        h, d = 4, 32
+        lengths = torch.randint(1, n + 1, (b,), generator=gen, dtype=torch.int32)
+        block_k = 128
+    else:
+        b, n, dim, h, _ = SHAPES[shape]
+        d = dim // h
+        lengths = torch.full((b,), n, dtype=torch.int32)
+        block_k = min(256, 128 * -(-n // 128))
+    q, k, v = (torch.randn(b, h, n, d, generator=gen).to("cuda", dtype)
+               for _ in range(3))
+    ln = lengths.cuda()
+    fwd = tfa.masked_flash_attention_fwd
+    if "block_k" in inspect.signature(fwd).parameters:
+        return lambda: fwd(q, k, v, ln, block_k=block_k)
+    return lambda: fwd(q, k, v, ln)
 
 
 def make_call(torch, tvf, tvi, kernel, shape, dtype):
@@ -109,6 +160,7 @@ def main() -> int:
         print("bench_vit: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
+    from paths_tpu_torch.kernels import flash_attention as tfa
     from paths_tpu_torch.kernels import vit_fused as tvf
     from paths_tpu_torch.kernels import vit_int8 as tvi
 
@@ -116,6 +168,11 @@ def main() -> int:
     times = {}
     with torch.no_grad():
         for kernel, shape, dt in CASES:
+            if kernel == "flash":
+                fn = flash_call(torch, tfa, shape, dtypes[dt])
+                times[f"{kernel} {shape} {dt}"] = device_ms(torch, fn)
+                del fn
+                continue
             fn = make_call(torch, tvf, tvi, kernel, shape, dtypes[dt])
             times[f"{kernel} {shape} {dt}"] = cuda_ms(torch, fn)
             del fn

@@ -10,20 +10,30 @@ backward kernels), built for sm_90a by `kernels.build` and called through
 ctypes. What bounds each on the card and how its design answers that is
 noted at the top of its source.
 
-`masked_flash_attention_fwd(q, k, v, lengths) -> (out, lse)`, the inference
-entry:
-  q (B, H, Nq, D), k/v (B, H, Nk, D) of one type (f32 or bf16; the kernel
-  computes in f32), D 32 or 64, lengths (B,) int32; keys at index
-  >= lengths[b] are masked for every query. out has q's shape and type, lse
-  is (B, H, Nq) f32. Query rows at or past the length still produce outputs
-  normalised over the valid keys. The raw kernel entries take no inputs that
-  require grad; `masked_flash_attention` is the differentiable entry.
+`masked_flash_attention_fwd(q, k, v, lengths, block_k=512) -> (out, lse)`,
+the inference entry:
+  q (B, H, Nq, D), k/v (B, H, Nk, D) of one type (f32 or bf16; scores, the
+  softmax state and the sums are f32), D 32 or 64, lengths (B,) int32; keys
+  at index >= lengths[b] are masked for every query. out has q's shape and
+  type, lse is (B, H, Nq) f32. Query rows at or past the length still
+  produce outputs normalised over the valid keys. The raw kernel entries take
+  no inputs that require grad; `masked_flash_attention` is the
+  differentiable entry.
+
+Rounding, as the TPU kernels round. In bf16 the forward rounds P = exp(s -
+m) to bf16 before P V, where m is the running max of the valid keys up to
+the end of P's `block_k`-key block (the JAX argument of the same name: the
+TPU kernel walks the keys in blocks of `block_k` and rounds against the max
+it has seen so far), while the row sum l and the lse stay unrounded f32. The
+backward rounds dS to the input type before dS K (dq) and dS^T Q (dk); dv
+takes P unrounded. In f32 every such rounding is none and `block_k` changes
+nothing. The kernel takes `block_k` a multiple of 64, its key tile.
 
 `masked_flash_attention_bwd(q, k, v, lengths, out, lse, dout) -> (dq, dk,
 dv)` launches the dq kernel (which also writes delta = rowsum(dO o O)) and
 then the dk/dv kernel. Keys at or past the length get exactly zero dk/dv.
 
-`masked_flash_attention(q, k, v, lengths) -> out` is a
+`masked_flash_attention(q, k, v, lengths, block_k=512) -> out` is a
 `torch.autograd.Function` (the counterpart of the JAX `custom_vjp` of the
 same name): forward through the forward kernel, backward through the two
 backward kernels; `lengths` gets no gradient, and double backward raises.
@@ -45,6 +55,10 @@ from paths_tpu_torch.kernels import build
 NEG_INF = -1e30
 L_FLOOR = 1e-30
 HEAD_DIMS = (32, 64)
+# the JAX entry's default key block (`paths_tpu/kernels/flash_attention.py`)
+BLOCK_K = 512
+# keys of one tile of the forward kernel: `block_k` is a multiple of it
+KEY_TILE = 64
 # the kernel's I/O types -> the C interface's dtype code; math runs in f32
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,17 +70,39 @@ def _valid_keys(q: torch.Tensor, nk: int, lengths: torch.Tensor):
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, lengths: torch.Tensor):
+                              v: torch.Tensor, lengths: torch.Tensor,
+                              block_k: int = BLOCK_K):
     """Plain PyTorch version of the forward kernel: the same masking, NEG_INF
-    and l floor, computed with whole score matrices. Returns (out, lse)."""
+    and l floor, computed with whole score matrices. Returns (out, lse).
+
+    In bf16, P of a key is taken against the running max m_j at the end of
+    the key's `block_k` block and rounded to bf16; the block's share of the
+    output is then scaled by exp(m_j - m), as the TPU kernel's online
+    rescaling does, and l sums the unrounded P alike. In f32 m_j is the final
+    max m for every key: rounding to f32 is none, so the blocks cannot
+    matter."""
+    if block_k < 1:
+        raise ValueError(f"block_k {block_k} must be positive")
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    nk = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    valid = _valid_keys(q, k.shape[2], lengths)
+    valid = _valid_keys(q, nk, lengths)
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m) * valid
-    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(L_FLOOR)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
+    if q.dtype == torch.float32:
+        m_key = m
+    else:
+        blocks = -(-nk // block_k)
+        padded = torch.nn.functional.pad(s, (0, blocks * block_k - nk),
+                                         value=NEG_INF)
+        m_blocks = padded.unflatten(-1, (blocks, block_k)).amax(dim=-1)
+        m_key = torch.cummax(m_blocks, dim=-1).values.repeat_interleave(
+            block_k, dim=-1)[..., :nk]
+    p = torch.exp(s - m_key) * valid
+    rescale = torch.exp(m_key - m)
+    l_safe = (p * rescale).sum(dim=-1, keepdim=True).clamp_min(L_FLOOR)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float() * rescale,
+                       v.float()) / l_safe
     return out.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
@@ -83,26 +119,28 @@ def _probs(q, k, lengths, lse):
 
 def flash_bwd_dq_reference(q, k, v, lengths, out, lse, dout):
     """Plain version of the dq kernel: (dq, delta) with delta =
-    rowsum(dO o O) (B, H, Nq) f32 and dq = scale * (P o (dO v^T - delta)) k."""
+    rowsum(dO o O) (B, H, Nq) f32 and dq = scale * dS k, dS = P o (dO v^T -
+    delta) rounded to k's type (the TPU kernel's `ds.astype(k.dtype)`)."""
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, lengths, lse)
     do = dout.float()
     delta = (do * out.float()).sum(dim=-1)
     dp = torch.einsum("bhqd,bhkd->bhqk", do, v.float())
-    ds = p * (dp - delta[..., None])
+    ds = (p * (dp - delta[..., None])).to(k.dtype).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * sm_scale
     return dq.to(q.dtype), delta
 
 
 def flash_bwd_dkv_reference(q, k, v, lengths, lse, dout, delta):
-    """Plain version of the dk/dv kernel: dv = P^T dO, dk = scale *
-    (P o (dO v^T - delta))^T q; rows of keys past the length are 0."""
+    """Plain version of the dk/dv kernel: dv = P^T dO with P unrounded, dk =
+    scale * dS^T q with dS = P o (dO v^T - delta) rounded to q's type (the
+    TPU kernel's `ds.astype(q.dtype)`); rows of keys past the length are 0."""
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, lengths, lse)
     do = dout.float()
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
     dp = torch.einsum("bhqd,bhkd->bhqk", do, v.float())
-    ds = p * (dp - delta[..., None])
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
     return dk.to(k.dtype), dv.to(v.dtype)
 
@@ -169,7 +207,7 @@ def _check_like(q, dtype, shape, **tensors) -> None:
 # library -> C entry -> (pointer arguments, int arguments); every entry then
 # takes the softmax scale (float) and the stream, and returns a cudaError_t
 _ENTRIES = {
-    "flash_attention": {"paths_flash_attention_fwd": (6, 6)},
+    "flash_attention": {"paths_flash_attention_fwd": (6, 7)},
     "flash_attention_bwd": {"paths_flash_attention_bwd_dq": (9, 6),
                             "paths_flash_attention_bwd_dkv": (9, 6)},
 }
@@ -207,13 +245,17 @@ def _require_cuda(q: torch.Tensor) -> None:
 
 
 def masked_flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, lengths: torch.Tensor):
+                               v: torch.Tensor, lengths: torch.Tensor,
+                               block_k: int = BLOCK_K):
     """(out, lse); see the module docstring. Each kernel launch adds one to
     `masked_flash_attention_fwd.launches`."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, lengths)
+        return flash_attention_reference(q, k, v, lengths, block_k)
     _require_cuda(q)
     _check(q, k, v, lengths)
+    if block_k < 1 or block_k % KEY_TILE:
+        raise ValueError(f"block_k {block_k}: the kernel takes a positive "
+                         f"multiple of its key tile, {KEY_TILE}")
     b, h, nq, d = q.shape
     nk = k.shape[2]
     out = torch.empty_like(q)
@@ -223,7 +265,7 @@ def masked_flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     _launch("flash_attention", "paths_flash_attention_fwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, h, nq, nk, d, DTYPES[q.dtype],
-            1.0 / math.sqrt(d))
+            block_k, 1.0 / math.sqrt(d))
     masked_flash_attention_fwd.launches += 1
     return out, lse
 
@@ -288,9 +330,9 @@ class _MaskedFlashAttention(torch.autograd.Function):
     versions); the raw entries get detached tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lengths):
+    def forward(ctx, q, k, v, lengths, block_k):
         out, lse = masked_flash_attention_fwd(q.detach(), k.detach(),
-                                              v.detach(), lengths)
+                                              v.detach(), lengths, block_k)
         ctx.save_for_backward(q, k, v, lengths, out, lse)
         return out
 
@@ -301,15 +343,17 @@ class _MaskedFlashAttention(torch.autograd.Function):
         dq, dk, dv = masked_flash_attention_bwd(
             q.detach(), k.detach(), v.detach(), lengths, out.detach(), lse,
             dout.contiguous())
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def masked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor,
+                           block_k: int = BLOCK_K) -> torch.Tensor:
     """Differentiable masked flash attention (the JAX `custom_vjp` of the
     same name): out with q's shape and type; gradients for q, k and v, none
-    for `lengths`; double backward raises."""
-    return _MaskedFlashAttention.apply(q, k, v, lengths)
+    for `lengths`; double backward raises. `block_k` places the forward's
+    rounding of P in bf16 (module docstring)."""
+    return _MaskedFlashAttention.apply(q, k, v, lengths, block_k)
 
 
 masked_flash_attention_fwd.launches = 0

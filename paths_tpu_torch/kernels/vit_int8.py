@@ -43,25 +43,27 @@ num_chunks a multiple of 64, and any number of tokens (#8's attention streams
 K and V in key tiles, so the patch-8 Kaiko models' 785 tokens run as the
 others do).
 
-Kernels #8 and #10 are fixed sequences of launches on the current stream,
-through scratch that the wrapper allocates (`attn_i8_scratch_bytes`,
-`swiglu_i8_scratch_bytes`); the plain versions of those pieces
+Kernels #8, #9 and #10 are fixed sequences of launches on the current
+stream, through scratch that the wrapper allocates (`attn_i8_scratch_bytes`,
+`mlp_i8_scratch_bytes`); the plain versions of those pieces
 (`ln_quant_rows_reference`, `quant_rows_reference`, `qkv_i8_reference`,
-`attention_ctx_reference`, `residual_i8_reference`, `swiglu_fc1_i8_reference`)
-chained as the wrappers chain the launches give the whole block's plain
-version to the bit (`attn_i8_chain`, `swiglu_i8_chain`):
+`attention_ctx_reference`, `residual_i8_reference`, `gelu_fc1_i8_reference`,
+`swiglu_fc1_i8_reference`) chained as the wrappers chain the launches give
+the whole block's plain version to the bit (`attn_i8_chain`, `mlp_i8_chain`,
+`swiglu_i8_chain`):
 
   * #8: LN-quant (codes (B N, D) int8 and a scale per row) -> qkv s8 GEMM
     (+ bias, rounded to the compute dtype, (B, N, 3D)) -> attention (context
     f32, unrounded, (B, N, D)) -> quantise the context per row (into the same
     codes and scales) -> out-projection s8 GEMM (+ bias, LayerScale,
     residual);
-  * #10: LN-quant over all rows, then per slab of `MLP_SLAB_ROWS` rows the
-    gated fc1 s8 GEMM (SwiGLU, hidden (slab, H) f32) -> quantise the hidden
-    activation per row and chunk (into codes (B N, H) int8 and scales
-    (B N, num_chunks)); then one fc2 s8 GEMM over all rows (the chunks' sums
-    added in f32, + bias, LayerScale, residual). The slab bounds the f32
-    hidden scratch, which is what the int8 route saves memory for.
+  * #9 and #10: LN-quant over all rows, then per slab of `MLP_SLAB_ROWS` rows
+    the fc1 s8 GEMM (GELU for #9, gated SwiGLU over the packed weight for
+    #10; hidden (slab, H) f32) -> quantise the hidden activation per row and
+    chunk (into codes (B N, H) int8 and scales (B N, num_chunks)); then one
+    fc2 s8 GEMM over all rows (the chunks' sums added in f32, + bias,
+    LayerScale, residual). The slab bounds the f32 hidden scratch, which is
+    what the int8 route saves memory for.
 """
 from __future__ import annotations
 
@@ -83,8 +85,9 @@ from paths_tpu_torch.kernels.vit_fused import (
 )
 
 _INV_127 = 1.0 / 127.0
-# Rows of one slab of kernel #10: its f32 hidden activation goes through
-# device memory a slab at a time (113 MB at Virchow2's hidden width 6912).
+# Rows of one slab of kernels #9 and #10: their f32 hidden activation goes
+# through device memory a slab at a time (113 MB at Virchow2's hidden width
+# 6912, 67 MB at UNI's 4096).
 MLP_SLAB_ROWS = 4096
 
 
@@ -305,10 +308,11 @@ def mlp_output_quantum(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq,
     return _code_step(h.abs().max().item(), fc2_wq, ls)
 
 
-# --------------------------------------- plain versions of #8's and #10's pieces
-# The wrappers of kernels #8 and #10 run these steps as launches, through the
+# ---------------------------------- plain versions of #8's, #9's and #10's pieces
+# The wrappers of kernels #8-#10 run these steps as launches, through the
 # scratch layouts named here; chained in the same order (`attn_i8_chain`,
-# `swiglu_i8_chain`) they repeat the plain versions above to the bit.
+# `mlp_i8_chain`, `swiglu_i8_chain`) they repeat the plain versions above to
+# the bit.
 
 def ln_quant_rows_reference(x, scale, bias):
     """LN-quant: codes (M, D) int8 and row scales (M,) f32 of the
@@ -335,6 +339,12 @@ def qkv_i8_reference(codes, scales, wq, bias, dtype):
     """The qkv GEMM with its epilogue: the dequantised product + bias,
     rounded to `dtype`."""
     return (_dequant(codes, scales, wq) + bias.float()).to(dtype)
+
+
+def gelu_fc1_i8_reference(codes, scales, wq, bias, exact_gelu: bool = True):
+    """The fc1 GEMM of kernel #9 with its epilogue: the GELU (rational erf,
+    or tanh) of the dequantised product + bias, in f32, (M, H)."""
+    return _gelu(_dequant(codes, scales, wq) + bias.float(), exact_gelu)
 
 
 def swiglu_fc1_i8_reference(codes, scales, wq, bias):
@@ -393,11 +403,10 @@ def attn_i8_chain(x, norm_scale, norm_bias, qkv_wq, proj_wq, qkv_b, proj_b,
                                  ls).view(b, n, d)
 
 
-def swiglu_i8_chain(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
-                    ls=None, *, num_chunks: int = 1,
-                    slab_rows: int = MLP_SLAB_ROWS):
-    """Kernel #10's launches through the plain versions of their pieces, in
-    the wrapper's order, scratch layouts and row slabs."""
+def _mlp_i8_chain(x, norm_scale, norm_bias, fc2_wq, fc2_b, ls, fc1,
+                  num_chunks: int, slab_rows: int):
+    """The launches of kernel #9 or #10 through the plain versions of their
+    pieces, with `fc1(codes, scales)` the fc1 GEMM of one row slab."""
     b, n, d = x.shape
     hidden = fc2_wq["q"].shape[1]
     rows = x.reshape(b * n, d)
@@ -406,9 +415,31 @@ def swiglu_i8_chain(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
     hs = torch.empty(b * n, num_chunks, dtype=torch.float32, device=x.device)
     for r0 in range(0, b * n, slab_rows):
         r1 = min(b * n, r0 + slab_rows)
-        h = swiglu_fc1_i8_reference(codes[r0:r1], scales[r0:r1], fc1_wq, fc1_b)
+        h = fc1(codes[r0:r1], scales[r0:r1])
         hq[r0:r1], hs[r0:r1] = quant_rows_reference(h, hidden // num_chunks)
     return residual_i8_reference(hq, hs, fc2_wq, fc2_b, rows, ls).view(b, n, d)
+
+
+def mlp_i8_chain(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
+                 ls=None, *, exact_gelu: bool = True, num_chunks: int = 1,
+                 slab_rows: int = MLP_SLAB_ROWS):
+    """Kernel #9's launches through the plain versions of their pieces, in
+    the wrapper's order, scratch layouts and row slabs."""
+    return _mlp_i8_chain(
+        x, norm_scale, norm_bias, fc2_wq, fc2_b, ls,
+        lambda c, s: gelu_fc1_i8_reference(c, s, fc1_wq, fc1_b, exact_gelu),
+        num_chunks, slab_rows)
+
+
+def swiglu_i8_chain(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
+                    ls=None, *, num_chunks: int = 1,
+                    slab_rows: int = MLP_SLAB_ROWS):
+    """Kernel #10's launches through the plain versions of their pieces, in
+    the wrapper's order, scratch layouts and row slabs."""
+    return _mlp_i8_chain(
+        x, norm_scale, norm_bias, fc2_wq, fc2_b, ls,
+        lambda c, s: swiglu_fc1_i8_reference(c, s, fc1_wq, fc1_b),
+        num_chunks, slab_rows)
 
 
 def attn_i8_scratch_bytes(b: int, n: int, d: int, dtype) -> int:
@@ -421,12 +452,13 @@ def attn_i8_scratch_bytes(b: int, n: int, d: int, dtype) -> int:
     return m * d + 4 * m + 3 * m * d * itemsize + 4 * m * d
 
 
-def swiglu_i8_scratch_bytes(b: int, n: int, d: int, hidden: int,
-                            num_chunks: int, slab_rows: int = MLP_SLAB_ROWS) -> int:
-    """Device memory kernel #10's wrapper allocates besides its output: codes
-    (B N, D) int8 and row scales (B N,) f32 of the LayerNorm, the hidden
-    activation of one row slab (slab, H) f32, and the hidden codes (B N, H)
-    int8 with their scales (B N, num_chunks) f32."""
+def mlp_i8_scratch_bytes(b: int, n: int, d: int, hidden: int,
+                         num_chunks: int, slab_rows: int = MLP_SLAB_ROWS) -> int:
+    """Device memory the wrapper of kernel #9 or #10 allocates besides its
+    output: codes (B N, D) int8 and row scales (B N,) f32 of the LayerNorm,
+    the hidden activation of one row slab (slab, H) f32, and the hidden codes
+    (B N, H) int8 with their scales (B N, num_chunks) f32. H is the hidden
+    width, half the packed fc1's rows for #10."""
     m = b * n
     return m * d + 4 * m + 4 * min(m, slab_rows) * hidden + m * hidden + \
         4 * m * num_chunks
@@ -437,10 +469,8 @@ def swiglu_i8_scratch_bytes(b: int, n: int, d: int, hidden: int,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "paths_vit_attn_block_i8": ([_P] * 15 + [_I] * 5 + [_P], ctypes.c_int),
-    "paths_vit_mlp_block_i8": ([_P] * 11 + [_I] * 6 + [_P], ctypes.c_int),
+    "paths_vit_mlp_block_i8": ([_P] * 16 + [_I] * 7 + [_P], ctypes.c_int),
     "paths_vit_swiglu_mlp_block_i8": ([_P] * 16 + [_I] * 6 + [_P], ctypes.c_int),
-    "paths_vit_mlp_i8_smem_bytes": ([_I, _I], ctypes.c_longlong),
-    "paths_vit_max_smem_bytes": ([], ctypes.c_longlong),
     "paths_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -469,13 +499,6 @@ def _check_quantized(x, name: str, wq, shape) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and start on a "
                              "16-byte boundary")
-
-
-def _check_smem(need: int, what: str) -> None:
-    limit = _library().paths_vit_max_smem_bytes()
-    if need > limit:
-        raise ValueError(f"{what} needs {need} bytes of shared memory, a "
-                         f"block has {limit}")
 
 
 # ----------------------------------------------------------------- wrappers
@@ -544,11 +567,25 @@ def _check_mlp(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b, ls,
         ("fc1_b", fc1_b, packed * hidden), ("fc2_b", fc2_b, d), ("ls", ls, d))]
 
 
+def _mlp_scratch(x, hidden: int, num_chunks: int):
+    """The scratch of `mlp_i8_scratch_bytes`: codes, scales, one slab of the
+    f32 hidden activation, hidden codes, hidden scales."""
+    m = x.shape[0] * x.shape[1]
+    return (torch.empty((m, x.shape[2]), dtype=torch.int8, device=x.device),
+            torch.empty(m, dtype=torch.float32, device=x.device),
+            torch.empty((min(m, MLP_SLAB_ROWS), hidden), dtype=torch.float32,
+                        device=x.device),
+            torch.empty((m, hidden), dtype=torch.int8, device=x.device),
+            torch.empty((m, num_chunks), dtype=torch.float32, device=x.device))
+
+
 def fused_mlp_block_i8(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
                        ls=None, *, exact_gelu: bool = True,
                        num_chunks: int = 1) -> torch.Tensor:
-    """Kernel #9; see the module docstring. Each launch adds one to
-    `fused_mlp_block_i8.launches`."""
+    """Kernel #9; see the module docstring. Each call adds one to
+    `fused_mlp_block_i8.launches` (one call runs LN-quant, per row slab the
+    fc1 GEMM and the hidden activation's quantisation, and the fc2 GEMM, on
+    the same stream)."""
     if x.device.type == "cpu":
         return fused_mlp_block_i8_reference(
             x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b, ls,
@@ -560,15 +597,14 @@ def fused_mlp_block_i8(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq, fc2_b,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = _library()
-    _check_smem(lib.paths_vit_mlp_i8_smem_bytes(d, num_chunks),
-                f"the accumulators for D {d} with num_chunks {num_chunks}")
-    build.launch(lib, "paths_vit_mlp_block_i8", x, x.data_ptr(), ns.data_ptr(),
-                 nb.data_ptr(), fc1_wq["q"].data_ptr(), fc1_wq["s"].data_ptr(),
-                 b1.data_ptr(), fc2_wq["q"].data_ptr(), fc2_wq["s"].data_ptr(),
-                 b2.data_ptr(), lsv.data_ptr(), out.data_ptr(), b * n, d,
+    scratch = _mlp_scratch(x, hidden, num_chunks)
+    build.launch(_library(), "paths_vit_mlp_block_i8", x, x.data_ptr(),
+                 ns.data_ptr(), nb.data_ptr(), fc1_wq["q"].data_ptr(),
+                 fc1_wq["s"].data_ptr(), b1.data_ptr(), fc2_wq["q"].data_ptr(),
+                 fc2_wq["s"].data_ptr(), b2.data_ptr(), lsv.data_ptr(),
+                 *(t.data_ptr() for t in scratch), out.data_ptr(), b * n, d,
                  hidden, ACTS["gelu" if exact_gelu else "gelu_tanh"],
-                 num_chunks, DTYPES[x.dtype])
+                 num_chunks, MLP_SLAB_ROWS, DTYPES[x.dtype])
     fused_mlp_block_i8.launches += 1
     return out
 
@@ -591,21 +627,13 @@ def fused_swiglu_mlp_block_i8(x, norm_scale, norm_bias, fc1_wq, fc1_b, fc2_wq,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    # the scratch of `swiglu_i8_scratch_bytes`
-    slab = min(b * n, MLP_SLAB_ROWS)
-    codes = torch.empty((b * n, d), dtype=torch.int8, device=x.device)
-    scales = torch.empty(b * n, dtype=torch.float32, device=x.device)
-    h = torch.empty((slab, hidden), dtype=torch.float32, device=x.device)
-    hcodes = torch.empty((b * n, hidden), dtype=torch.int8, device=x.device)
-    hscales = torch.empty((b * n, num_chunks), dtype=torch.float32,
-                          device=x.device)
+    scratch = _mlp_scratch(x, hidden, num_chunks)
     build.launch(_library(), "paths_vit_swiglu_mlp_block_i8", x, x.data_ptr(),
                  ns.data_ptr(), nb.data_ptr(), fc1_wq["q"].data_ptr(),
                  fc1_wq["s"].data_ptr(), b1.data_ptr(), fc2_wq["q"].data_ptr(),
                  fc2_wq["s"].data_ptr(), b2.data_ptr(), lsv.data_ptr(),
-                 codes.data_ptr(), scales.data_ptr(), h.data_ptr(),
-                 hcodes.data_ptr(), hscales.data_ptr(), out.data_ptr(), b * n,
-                 d, hidden, num_chunks, MLP_SLAB_ROWS, DTYPES[x.dtype])
+                 *(t.data_ptr() for t in scratch), out.data_ptr(), b * n, d,
+                 hidden, num_chunks, MLP_SLAB_ROWS, DTYPES[x.dtype])
     fused_swiglu_mlp_block_i8.launches += 1
     return out
 

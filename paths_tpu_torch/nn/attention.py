@@ -89,11 +89,14 @@ class MultiheadAttention(nn.Module):
                        else torch.full((b,), nk, dtype=torch.int32,
                                        device=query.device))
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            # the key block of JAX's call (`paths_tpu/nn/attention.py`):
+            # where bf16 rounds P, it sets the running max P is taken against
+            block_k = 512 if cd == torch.bfloat16 else 128
             if torch.is_grad_enabled() and any(
                     t.requires_grad for t in (q, k, v)):
-                ctx = masked_flash_attention(q, k, v, lengths)
+                ctx = masked_flash_attention(q, k, v, lengths, block_k)
             else:
-                ctx, _ = masked_flash_attention_fwd(q, k, v, lengths)
+                ctx, _ = masked_flash_attention_fwd(q, k, v, lengths, block_k)
         else:
             scale = 1.0 / math.sqrt(d // h)
             logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale

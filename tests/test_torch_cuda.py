@@ -50,17 +50,42 @@ def test_flash_kernel_matches_plain(card, nq, nk, d):
     torch.testing.assert_close(lse, ref_lse, atol=TOL, rtol=0)
 
 
+# bf16: kernel and plain version round P to bf16 at the same points (against
+# the running max at the end of each `block_k` block), so an output differs
+# only where f32 summation order or the kernel's fast exp flips one of those
+# roundings: that moves its row by at most a bf16 step of that P times
+# |v| / l, which can exceed torch's elementwise tolerance on an output near
+# zero. An output is therefore held to torch's bf16 tolerance or 2 bf16 ulps
+# of its row's largest output (the ViT kernels' bf16 bar, per row), and at
+# most FLASH_BF16_CHANGED of the outputs may differ at all (a kernel that
+# rounds P elsewhere differs in about a third of them).
+FLASH_BF16_CHANGED = 0.01
+
+
+def _bf16_changed(got, want):
+    return (got.float() != want.float()).float().mean().item()
+
+
+def _flash_bf16_close(out, ref):
+    diff = (out.float() - ref.float()).abs()
+    row = ref.float().abs().amax(-1, keepdim=True)
+    ulp = torch.ldexp(torch.ones_like(row), torch.frexp(row).exponent - 8)
+    allowed = torch.maximum(1e-5 + 1.6e-2 * ref.float().abs(), 2 * ulp)
+    assert (diff <= allowed).all(), (diff - allowed).max().item()
+    assert _bf16_changed(out, ref) <= FLASH_BF16_CHANGED, _bf16_changed(out, ref)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 64])
 def test_flash_kernel_bf16_matches_plain(card, d):
-    """bf16 in and out, f32 inside: the two differ by the final rounding to
-    bf16, within torch's bf16 tolerance."""
+    """bf16 in and out, P rounded to bf16 before P V as the TPU kernel
+    rounds it, everything else f32: held by `_flash_bf16_close`."""
     q, k, v, ln = _inputs(4, 4, 257, 257, d, [257, 1, 100, 33], card,
                           torch.bfloat16)
     out, lse = tfa.masked_flash_attention_fwd(q, k, v, ln)
     ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, ln)
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    torch.testing.assert_close(out, ref_out)
+    _flash_bf16_close(out, ref_out)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
@@ -72,6 +97,51 @@ def test_flash_kernel_raises_instead_of_falling_back(card):
     q, k, v, ln = _inputs(1, 1, 8, 8, 32, [8], card)
     with pytest.raises(RuntimeError):
         tfa.masked_flash_attention_fwd(q.requires_grad_(True), k, v, ln)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block_k", [(197, 256), (261, 256), (785, 256),
+                                       (785, 512), (197, 512)])
+def test_flash_kernel_bf16_at_vit_shapes(card, n, block_k):
+    """The ViT flash route's shapes (head_dim 64; UNI, Virchow2 and Kaiko-B/8
+    token counts) with one key block or several, lengths 0, 1 and N."""
+    q, k, v, ln = _inputs(4, 4, n, n, 64, [n, 1, 0, n // 3], card,
+                          torch.bfloat16)
+    before = tfa.masked_flash_attention_fwd.launches
+    out, lse = tfa.masked_flash_attention_fwd(q, k, v, ln, block_k)
+    torch.cuda.synchronize()
+    assert tfa.masked_flash_attention_fwd.launches == before + 1
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, ln, block_k)
+    _flash_bf16_close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    assert out[2].abs().max().item() == 0.0      # length 0: no valid key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [81, 257])
+def test_flash_kernel_f32_lengths_0_1_n(card, n):
+    """The flagship's f32 shapes (head_dim 32) with lengths 0, 1 and N, and
+    query rows past Nq's last full tile."""
+    q, k, v, ln = _inputs(3, 4, n, n, 32, [0, 1, n], card)
+    out, lse = tfa.masked_flash_attention_fwd(q, k, v, ln, 128)
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, ln, 128)
+    torch.testing.assert_close(out, ref_out, atol=TOL, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=TOL, rtol=0)
+    assert out[0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refusals(card):
+    """head_dim 48, mixed dtypes and a block_k that is no multiple of the
+    kernel's 64-key tile raise; nothing falls back."""
+    q, k, v, ln = _inputs(1, 2, 16, 16, 48, [16], card, torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.masked_flash_attention_fwd(q, k, v, ln)
+    q, k, v, ln = _inputs(1, 2, 16, 16, 64, [16], card, torch.bfloat16)
+    with pytest.raises(TypeError):
+        tfa.masked_flash_attention_fwd(q, k.float(), v, ln)
+    with pytest.raises(ValueError, match="block_k"):
+        tfa.masked_flash_attention_fwd(q, k, v, ln, 96)
 
 
 @pytest.mark.cuda
@@ -143,6 +213,24 @@ def test_flash_backward_kernels_bf16_match_plain(card, d):
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         _grad_close(g, w, rel=1e-4, rtol=1.6e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(81, 32), (257, 32), (129, 64)])
+def test_flash_backward_bf16_rounds_ds_as_plain(card, n, d):
+    """Kernels #2 and #3 round dS to bf16 before dS k and dS^T q, as the
+    plain versions and the TPU kernels do (dv takes P unrounded): at most
+    FLASH_BF16_CHANGED of the gradients differ at all. With one valid key
+    dq and dk are 0 in exact arithmetic and both sides give rounding noise:
+    that row is held to 1e-4 of zero instead."""
+    args = _bwd_inputs(4, 4, n, n, d, [n, 1, 0, n // 3], card, torch.bfloat16)
+    got = tfa.masked_flash_attention_bwd(*args)
+    want = tfa.flash_attention_backward_reference(*args)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if name != "dv":
+            assert g[1].abs().max().item() <= 1e-4, name
+            g, w = g[[0, 2, 3]], w[[0, 2, 3]]
+        assert _bf16_changed(g, w) <= FLASH_BF16_CHANGED, name
 
 
 @pytest.mark.cuda
@@ -501,6 +589,33 @@ def test_vit_swiglu_i8_kernel_chunks_and_slabs(card, shape, num_chunks, dtype):
         tvi.mlp_output_quantum(*args, swiglu=True))
     assert torch.equal(got, tvi.fused_swiglu_mlp_block_i8(
         *args, num_chunks=num_chunks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,exact_gelu,num_chunks", [
+    # chunks of 64 hidden columns: each ends inside a 128-column slab of the
+    # fc2 GEMM, between two of its k32 steps
+    ((3, 50, 128, 2, 512), True, 8),
+    # 4500 rows: no multiple of the wrapper's row slab (MLP_SLAB_ROWS)
+    ((3, 1500, 128, 2, 512), True, 1), ((3, 1500, 128, 2, 512), True, 2),
+    ((3, 1500, 128, 2, 512), False, 1)],
+    ids=["chunk64", "ragged-slab", "ragged-slab-2chunks", "ragged-slab-tanh"])
+def test_vit_mlp_i8_kernel_chunks_and_slabs(card, shape, exact_gelu,
+                                            num_chunks, dtype):
+    """Kernel #9 runs the pieces its plain version repeats to the bit, so the
+    two are equal bit for bit, across chunks and row slabs."""
+    b, n, d, heads, hidden = shape
+    assert num_chunks == 8 or (b * n) % tvi.MLP_SLAB_ROWS
+    p = _i8_args(b, n, d, hidden, 1, dtype, card)
+    args = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+            p["fc2_b"], p["ls"])
+    kw = dict(exact_gelu=exact_gelu, num_chunks=num_chunks)
+    before = tvi.fused_mlp_block_i8.launches
+    got = tvi.fused_mlp_block_i8(*args, **kw)
+    torch.cuda.synchronize()
+    assert tvi.fused_mlp_block_i8.launches == before + 1
+    assert torch.equal(got, tvi.fused_mlp_block_i8_reference(*args, **kw))
 
 
 @pytest.mark.cuda

@@ -300,6 +300,27 @@ def test_swiglu_i8_chain_is_the_plain_version(dtype, num_chunks, slab_rows):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact_gelu,num_chunks,slab_rows", [
+    (True, 1, 64), (True, 2, 64), (False, 1, 64),
+    # chunks of 64 columns: each ends inside a 128-column slab of the GEMM
+    (True, 8, 64),
+    (True, 2, tvi.MLP_SLAB_ROWS)],
+    ids=["1chunk", "2chunks", "tanh", "64col-chunks", "one-slab"])
+def test_mlp_i8_chain_is_the_plain_version(dtype, exact_gelu, num_chunks,
+                                           slab_rows):
+    """Kernel #9's pieces chained as its wrapper launches them, in its row
+    slabs (150 rows: slabs of 64 end at 64 and 128, the last holds 22)."""
+    blk, x = _chain_case(3, 50, 64, 512, 1, dtype, seed=14)
+    args = (x, blk["norm2"]["scale"], blk["norm2"]["bias"], blk["mlp"]["fc1_w"],
+            blk["mlp"]["fc1_b"], blk["mlp"]["fc2_w"], blk["mlp"]["fc2_b"],
+            blk["ls2"])
+    kw = dict(exact_gelu=exact_gelu, num_chunks=num_chunks)
+    want = tvi.fused_mlp_block_i8_reference(*args, **kw)
+    got = tvi.mlp_i8_chain(*args, **kw, slab_rows=slab_rows)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
 @pytest.fixture
 def _one_thread():
     """One CPU thread: PyTorch's vectorised and scalar exp may differ in the
@@ -346,9 +367,9 @@ def test_chain_pieces_keep_the_scratch_layouts():
     assert hq.abs().max() <= 127 and (hq.abs().amax(-1) >= 126).all()
     assert tvi.attn_i8_scratch_bytes(2, 9, 128, torch.bfloat16) == \
         18 * 128 + 4 * 18 + 2 * 18 * 384 + 4 * 18 * 128
-    assert tvi.swiglu_i8_scratch_bytes(2, 9, 128, 256, 4) == \
+    assert tvi.mlp_i8_scratch_bytes(2, 9, 128, 256, 4) == \
         18 * 128 + 4 * 18 + 5 * 18 * 256 + 4 * 18 * 4
-    assert tvi.swiglu_i8_scratch_bytes(2, 5000, 128, 256, 1) == \
+    assert tvi.mlp_i8_scratch_bytes(2, 5000, 128, 256, 1) == \
         10000 * 128 + 4 * 10000 + 4 * tvi.MLP_SLAB_ROWS * 256 + 10000 * 256 + \
         4 * 10000
 
@@ -520,3 +541,40 @@ def test_wrapper_refuses_unquantized_and_misshapen_weights():
             torch.zeros(192, 64))), (192, 64))
     with pytest.raises(ValueError, match="layout"):
         tvi._check_quantized(x, "qkv_wq", good, (64, 192))
+
+
+@pytest.mark.parametrize("num_chunks", [1, 2])
+def test_mlp_i8_chain_crosses_the_wrappers_slab(_one_thread, num_chunks):
+    """Kernel #9's chain at the wrapper's own slab size, at a row count that
+    is no multiple of it."""
+    rows = tvi.MLP_SLAB_ROWS + 104
+    blk, x = _chain_case(2, rows // 2, 64, 128, 1, torch.float32, seed=15)
+    args = (x, blk["norm2"]["scale"], blk["norm2"]["bias"], blk["mlp"]["fc1_w"],
+            blk["mlp"]["fc1_b"], blk["mlp"]["fc2_w"], blk["mlp"]["fc2_b"], None)
+    want = tvi.fused_mlp_block_i8_reference(*args, num_chunks=num_chunks)
+    got = tvi.mlp_i8_chain(*args, num_chunks=num_chunks)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("packed", [1, 2], ids=["gelu", "swiglu"])
+def test_mlp_i8_scratch_is_what_the_gelu_pieces_take(packed):
+    """Kernel #9's scratch (and #10's, whose fc1 has 2H rows) is the pieces'
+    tensors: LN codes and scales, one slab of the f32 hidden activation, the
+    hidden codes and their per-chunk scales."""
+    b, n, d, hidden, chunks = 2, 9, 128, 256, 4
+    blk, x = _chain_case(b, n, d, hidden, packed, torch.float32, seed=16)
+    rows = x.reshape(b * n, d)
+    codes, scales = tvi.ln_quant_rows_reference(rows, blk["norm2"]["scale"],
+                                                blk["norm2"]["bias"])
+    if packed == 1:
+        h = tvi.gelu_fc1_i8_reference(codes, scales, blk["mlp"]["fc1_w"],
+                                      blk["mlp"]["fc1_b"])
+    else:
+        h = tvi.swiglu_fc1_i8_reference(codes, scales, blk["mlp"]["fc1_w"],
+                                        blk["mlp"]["fc1_b"])
+    hq, hs = tvi.quant_rows_reference(h, hidden // chunks)
+    assert h.dtype == torch.float32 and h.shape == (b * n, hidden)
+    nbytes = sum(t.numel() * t.element_size() for t in (codes, scales, h, hq, hs))
+    assert tvi.mlp_i8_scratch_bytes(b, n, d, hidden, chunks) == nbytes
+    assert tvi.mlp_i8_scratch_bytes(b, n, d, hidden, chunks, slab_rows=8) == \
+        nbytes - 4 * (b * n - 8) * hidden
