@@ -67,6 +67,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 4 bytes from global to shared memory, asynchronously; zero when !valid
+// (src must still be a valid address).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

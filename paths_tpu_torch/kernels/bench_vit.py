@@ -1,7 +1,9 @@
-"""Time the ViT block kernels (#4-#10) and the flash forward (#1) at the
+"""Time the ViT block kernels (#4-#10) and the flash kernels (#1-#3) at the
 shapes their paths give them on one GPU.
 
-    python3 paths_tpu_torch/kernels/bench_vit.py [--root TREE] [--slabs N,N,..]
+    python3 paths_tpu_torch/kernels/bench_vit.py [--root TREE] [--only KINDS]
+        [--slabs N,N,..] [--save-outputs FILE | --compare-outputs FILE]
+        [--sweep-auto]
 
 Each block case is one bf16 (or f32) call at 64 images of UNI (197 tokens,
 D 1024, MLP 4096), Virchow2 (261 tokens, D 1280, packed SwiGLU 6912) or
@@ -10,16 +12,31 @@ timed between CUDA events over back-to-back calls after a warm-up. The flash
 cases are #1 on the ViT flash route's q, k, v (bf16, head_dim 64, every
 token valid, JAX's key block min(256, 128 ceil(N / 128))) and at the
 flagship aggregator's level-0 and deeper shapes (f32, B 32, 4 heads of 32,
-lengths 1..N from a seed); a call of #1 takes less time than its launch
-from Python, so they are timed as device time from the profiler's trace.
-The key block is passed only where the checkout's wrapper takes one.
-`--root` imports the
-`paths_tpu_torch` package of another checkout (a parent commit, say), so
-that two versions can be timed in turns on one card; cases whose wrapper
-that checkout lacks are skipped. `--slabs` also times kernel #10 at
-Virchow2 with each given row-slab size (`vit_int8.MLP_SLAB_ROWS`) and reports
-the peak device memory of the call. Prints one JSON object, with the card's
-name and power limit, as its last line.
+lengths 1..N from a seed). The `flash_bwd` cases time the backward's dq
+kernel (#2) and dk/dv kernel (#3) apart, at those two flagship shapes, at one
+long bag (B 2, N 4096), in bf16 with head_dim 64 at N 257, and at (4, 4,
+129, 64) in f32 and bf16 with lengths 129, 1, 0, 50. A flash call takes less
+time than its launch from Python, so those are timed as device time from the
+profiler's trace. The key block is passed only where the checkout's wrapper
+takes one.
+
+`--root` imports the `paths_tpu_torch` package of another checkout (a
+parent commit, say), so that two versions can be timed in turns on one card;
+cases whose wrapper that checkout lacks are skipped. `--only` keeps the
+cases of the named kinds (`attn`, `flash`, `flash_bwd`, ...).
+`--save-outputs` writes the `flash_bwd` cases' inputs to the backward (out,
+lse) and its results (dq, delta, dk, dv) to a file; `--compare-outputs`
+reads such a file (from another checkout's run on the same card) and reports,
+per case and tensor, how many elements differ in their bits. `--slabs` also
+times kernel #10 at Virchow2 with each given row-slab size
+(`vit_int8.MLP_SLAB_ROWS`) and reports the peak device memory of the call.
+`--sweep-auto` times `MultiheadAttention(128, 4)` in f32 on the `pallas`
+route against the `xla` route, forward alone and forward + backward, in
+turns between CUDA events, over bag lengths 81 .. 4096 (lengths uniform in
+1..N), and names the smallest swept N from which the kernel route wins at
+every larger swept N in both modes (`nn.attention.AUTO_PALLAS_MIN_LEN`).
+Prints one JSON object, with the card's name and power limit, as its last
+line.
 """
 from __future__ import annotations
 
@@ -47,9 +64,19 @@ CASES = (  # (kernel, shape, dtype)
     ("flash", "uni", "bf16"), ("flash", "virchow2", "bf16"),
     ("flash", "kaiko-b8", "bf16"), ("flash", "level0", "f32"),
     ("flash", "deeper", "f32"),
+    ("flash_bwd", "level0", "f32"), ("flash_bwd", "deeper", "f32"),
+    ("flash_bwd", "long", "f32"), ("flash_bwd", "level0-d64", "bf16"),
+    ("flash_bwd", "small-d64", "f32"), ("flash_bwd", "small-d64", "bf16"),
 )
 # the flagship aggregator's attention (`models/brca_paths_0`): slides, keys
 FLAGSHIP = {"level0": (32, 257), "deeper": (32, 81)}
+# the backward's cases: (B, H, N, D); lengths from a seed unless listed
+FLASH_BWD = {"level0": (32, 4, 257, 32), "deeper": (32, 4, 81, 32),
+             "long": (2, 4, 4096, 32), "level0-d64": (32, 4, 257, 64),
+             "small-d64": (4, 4, 129, 64)}
+FLASH_BWD_LENGTHS = {"small-d64": [129, 1, 0, 50]}
+# the `--sweep-auto` bag lengths, and the batch at each
+SWEEP = ((81, 32), (257, 32), (513, 32), (1025, 32), (2049, 2), (4096, 2))
 
 
 def card() -> str:
@@ -107,6 +134,88 @@ def flash_call(torch, tfa, shape, dtype):
     return lambda: fwd(q, k, v, ln)
 
 
+def flash_bwd_calls(torch, tfa, shape, dtype):
+    """(dq call, dk/dv call, the tensors to save): #2 and #3 on the shape's
+    inputs, whose out and lse come from the forward kernel."""
+    b, h, n, d = FLASH_BWD[shape]
+    gen = torch.Generator().manual_seed(11)
+    lengths = torch.randint(1, n + 1, (b,), generator=gen, dtype=torch.int32)
+    if shape in FLASH_BWD_LENGTHS:
+        lengths = torch.tensor(FLASH_BWD_LENGTHS[shape], dtype=torch.int32)
+    q, k, v, dout = (torch.randn(b, h, n, d, generator=gen).to("cuda", dtype)
+                     for _ in range(4))
+    ln = lengths.cuda()
+    out, lse = tfa.masked_flash_attention_fwd(q, k, v, ln)
+    dq, delta = tfa.masked_flash_attention_bwd_dq(q, k, v, ln, out, lse, dout)
+    dk, dv = tfa.masked_flash_attention_bwd_dkv(q, k, v, ln, lse, dout, delta)
+    saved = {"out": out, "lse": lse, "dq": dq, "delta": delta, "dk": dk,
+             "dv": dv}
+    return (lambda: tfa.masked_flash_attention_bwd_dq(q, k, v, ln, out, lse, dout),
+            lambda: tfa.masked_flash_attention_bwd_dkv(q, k, v, ln, lse, dout,
+                                                       delta),
+            {key: t.cpu() for key, t in saved.items()})
+
+
+def bits_differ(a, b) -> int:
+    """Elements of two same-typed tensors whose bit patterns differ."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return -1
+    bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return int((a.view(bits) != b.view(bits)).sum())
+
+
+def sweep_auto(torch, cuda_ms_fn):
+    """`MultiheadAttention(128, 4)` on the kernel route against the plain
+    route, f32, dropout 0: ms per call between CUDA events, forward alone
+    (no grad) and forward + backward (gradients of the input and every
+    weight), in turns xla, pallas, pallas, xla at each swept bag length."""
+    from paths_tpu_torch.nn.attention import MultiheadAttention
+
+    rows = {}
+    for n, b in SWEEP:
+        gen = torch.Generator().manual_seed(n)
+        mha = MultiheadAttention(128, 4, generator=gen).cuda()
+        x = torch.randn(b, n, 128, generator=gen).cuda().requires_grad_(True)
+        dy = torch.randn(b, n, 128, generator=gen).cuda()
+        lengths = torch.randint(1, n + 1, (b,), generator=gen)
+        valid = (torch.arange(n)[None] < lengths[:, None]).cuda()
+        params = [x, *mha.parameters()]
+
+        def fwd(impl):
+            with torch.no_grad():
+                return mha(x, x, x, key_valid=valid, impl=impl)
+
+        def fwd_bwd(impl):
+            y = mha(x, x, x, key_valid=valid, impl=impl)
+            return torch.autograd.grad(y, params, dy)
+
+        iters = 20 if n > 1024 else 50
+        row = {}
+        for mode, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+            turns = {"xla": [], "pallas": []}
+            for impl in ("xla", "pallas", "pallas", "xla", "xla", "pallas"):
+                turns[impl].append(cuda_ms_fn(torch, lambda: fn(impl), iters,
+                                              warmup=5))
+            row[mode] = {impl: sum(t) / len(t) for impl, t in turns.items()}
+            row[mode]["turns"] = turns
+        rows[str(n)] = dict(batch=b, **row)
+        print(f"sweep N={n} B={b}: " + ", ".join(
+            f"{mode} xla {row[mode]['xla']:.4f} pallas {row[mode]['pallas']:.4f} ms"
+            for mode in ("fwd", "fwd_bwd")), flush=True)
+        del mha, x, dy, valid, params
+        torch.cuda.empty_cache()
+    wins = [all(rows[str(n)][m]["pallas"] < rows[str(n)][m]["xla"]
+                for m in ("fwd", "fwd_bwd")) for n, _ in SWEEP]
+    auto_min_len = None
+    for i in range(len(SWEEP) - 1, -1, -1):
+        if not wins[i]:
+            break
+        auto_min_len = SWEEP[i][0]
+    return {"lengths": rows, "auto_min_len": auto_min_len}
+
+
 def make_call(torch, tvf, tvi, kernel, shape, dtype):
     """The kernel's wrapper bound to random inputs, or None where this
     checkout has no such wrapper."""
@@ -153,6 +262,13 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--slabs", default="", help="row-slab sizes for #10")
+    ap.add_argument("--only", default="", help="case kinds to run (comma list)")
+    ap.add_argument("--save-outputs", default="",
+                    help="file for the flash_bwd cases' results")
+    ap.add_argument("--compare-outputs", default="",
+                    help="file of another run's flash_bwd results")
+    ap.add_argument("--sweep-auto", action="store_true",
+                    help="time the attention routes across bag lengths")
     args = ap.parse_args()
     import torch
 
@@ -165,9 +281,22 @@ def main() -> int:
     from paths_tpu_torch.kernels import vit_int8 as tvi
 
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
-    times = {}
+    only = set(filter(None, args.only.split(",")))
+    times, saved, differ = {}, {}, {}
     with torch.no_grad():
         for kernel, shape, dt in CASES:
+            if only and kernel not in only:
+                continue
+            if kernel == "flash_bwd":
+                dq_fn, dkv_fn, tensors = flash_bwd_calls(torch, tfa, shape,
+                                                         dtypes[dt])
+                iters = 10 if FLASH_BWD[shape][2] > 1024 else 50
+                times[f"flash_bwd_dq {shape} {dt}"] = device_ms(torch, dq_fn, iters)
+                times[f"flash_bwd_dkv {shape} {dt}"] = device_ms(torch, dkv_fn, iters)
+                saved[f"{shape} {dt}"] = tensors
+                del dq_fn, dkv_fn
+                torch.cuda.empty_cache()
+                continue
             if kernel == "flash":
                 fn = flash_call(torch, tfa, shape, dtypes[dt])
                 times[f"{kernel} {shape} {dt}"] = device_ms(torch, fn)
@@ -191,8 +320,21 @@ def main() -> int:
             slabs[str(slab)] = {"ms": cuda_ms(torch, fn), "call_peak_mib": peak}
             del fn
             torch.cuda.empty_cache()
+    if args.save_outputs:
+        torch.save(saved, args.save_outputs)
+    if args.compare_outputs:
+        other = torch.load(args.compare_outputs)
+        for case, tensors in saved.items():
+            differ[case] = {key: bits_differ(t, other[case][key])
+                            if case in other else None
+                            for key, t in tensors.items()}
+            print(f"bits differing from {args.compare_outputs}, {case}: "
+                  f"{differ[case]}", flush=True)
+    sweep = sweep_auto(torch, cuda_ms) if args.sweep_auto else None
     print(json.dumps({"root": os.path.abspath(args.root), "card": card(),
-                      "ms": times, "swiglu_i8_slabs": slabs}), flush=True)
+                      "ms": times, "swiglu_i8_slabs": slabs,
+                      "flash_bwd_bits_differing": differ,
+                      "auto_sweep": sweep}), flush=True)
     return 0
 
 

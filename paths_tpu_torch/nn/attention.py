@@ -20,10 +20,23 @@ from paths_tpu_torch.kernels.flash_attention import (
 from paths_tpu_torch.nn.core import dropout, make_linear
 from paths_tpu_torch.ops.masking import NEG_INF
 
-# "auto" engages the flash kernel at and above this many keys, on CUDA only.
-# Not yet measured on this card: the value is a placeholder until the kernel
-# and the plain path are timed against each other across bag lengths.
-AUTO_PALLAS_MIN_LEN = 4096
+# "auto" engages the flash kernels at and above this many keys, on CUDA only:
+# the smallest swept bag length from which the kernel route beat the plain
+# route at every longer one, forward alone and forward + backward
+# (`MultiheadAttention(128, 4)`, f32, `kernels/bench_vit.py --sweep-auto`,
+# on an NVIDIA H100 80GB HBM3 at a 700 W power limit).
+AUTO_PALLAS_MIN_LEN = 81
+
+
+def kernel_route(impl: str, nq: int, nk: int, on_cuda: bool,
+                 dropout_active: bool) -> bool:
+    """Whether `MultiheadAttention` runs through the flash kernels: under
+    "pallas", or under "auto" at >= AUTO_PALLAS_MIN_LEN keys on a CUDA
+    tensor; never for cross-attention (Nq != Nk) or while attention dropout
+    is active, which exists on the plain route only."""
+    want = impl == "pallas" or (
+        impl == "auto" and on_cuda and nk >= AUTO_PALLAS_MIN_LEN)
+    return want and nq == nk and not dropout_active
 
 
 class MultiheadAttention(nn.Module):
@@ -79,11 +92,8 @@ class MultiheadAttention(nn.Module):
 
         q, k, v = heads(self.q, query), heads(self.k, key), heads(self.v, value)
 
-        want_kernel = impl == "pallas" or (
-            impl == "auto" and nk >= AUTO_PALLAS_MIN_LEN and query.is_cuda)
-        use_kernel = (want_kernel and (not training or dropout_rate == 0.0)
-                      and nq == nk)
-        if use_kernel:
+        if kernel_route(impl, nq, nk, query.is_cuda,
+                        training and dropout_rate != 0.0):
             lengths = (key_valid.sum(dim=-1, dtype=torch.int32)
                        if key_valid is not None
                        else torch.full((b,), nk, dtype=torch.int32,

@@ -234,14 +234,75 @@ def test_flash_backward_bf16_rounds_ds_as_plain(card, n, d):
 
 
 @pytest.mark.cuda
-def test_flash_backward_is_deterministic(card):
+@pytest.mark.parametrize("d,dtype", [(32, torch.float32), (64, torch.float32),
+                                     (64, torch.bfloat16)])
+def test_flash_backward_is_deterministic(card, d, dtype):
     """No atomics: two calls give bitwise-equal gradients."""
-    args = _bwd_inputs(8, 4, 257, 257, 32, [257, 1, 100, 33, 0, 256, 2, 7],
-                       card)
+    args = _bwd_inputs(8, 4, 257, 257, d, [257, 1, 100, 33, 0, 256, 2, 7],
+                       card, dtype)
     first = tfa.masked_flash_attention_bwd(*args)
     second = tfa.masked_flash_attention_bwd(*args)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# kernels #2 and #3 work in tiles of 32 rows (query rows or keys) and 32
+# streamed rows: these shapes leave a ragged tile on each side
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk,d", [(31, 31, 32), (33, 33, 32), (95, 95, 32),
+                                     (257, 257, 32), (33, 95, 32),
+                                     (95, 31, 64), (257, 33, 64)])
+def test_flash_backward_tiling(card, nq, nk, d):
+    """N no multiple of 32, Nq != Nk with a ragged tail on either side, and
+    lengths 0, 1, 2, 31, 32, 33 and N (capped at Nk): each gradient against
+    the plain versions, dk and dv exactly 0 at keys past the length, dq
+    exactly 0 for length 0."""
+    lengths = [min(n, nk) for n in (0, 1, 2, 31, 32, 33, nk)]
+    args = _bwd_inputs(len(lengths), 2, nq, nk, d, lengths, card)
+    got = tfa.masked_flash_attention_bwd(*args)
+    want = tfa.flash_attention_backward_reference(*args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        _grad_close(g, w)
+    dq, dk, dv = got
+    for i, n in enumerate(lengths):
+        if n < nk:
+            assert dk[i, :, n:].abs().max().item() == 0.0
+            assert dv[i, :, n:].abs().max().item() == 0.0
+    assert dq[0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(32, torch.float32), (64, torch.bfloat16)])
+def test_flash_backward_never_reads_keys_past_the_length(card, d, dtype):
+    """Padded bag rows may hold anything: with NaN in k and v past the
+    length (and the forward's out and lse from the zero-filled inputs), the
+    backward kernels' results equal those of the zero-filled run."""
+    lengths = [95, 1, 0, 33, 40]
+    q, k, v, ln, out, lse, dout = _bwd_inputs(5, 2, 95, 95, d, lengths, card,
+                                              dtype)
+    past = (torch.arange(95, device=card)[None, :]
+            >= ln[:, None])[:, None, :, None]
+    k_nan, v_nan = k.masked_fill(past, float("nan")), v.masked_fill(past, float("nan"))
+    clean = tfa.masked_flash_attention_bwd(q, k, v, ln, out, lse, dout)
+    dirty = tfa.masked_flash_attention_bwd(q, k_nan, v_nan, ln, out, lse, dout)
+    for a, b in zip(dirty, clean):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(81, 32), (257, 32), (129, 64)])
+def test_flash_backward_one_key_rows_give_exactly_zero(card, n, d):
+    """In f32 a row of length 1 has dq and dk 0 in exact arithmetic, and the
+    kernels give exactly 0: the forward's out is that key's v to the bit,
+    so dP and delta are the same products summed in the same order, and dS
+    = P (dP - delta) is exactly 0."""
+    args = _bwd_inputs(3, 4, n, n, d, [1, n, 1], card)
+    dq, dk, dv = tfa.masked_flash_attention_bwd(*args)
+    for g in (dq, dk):
+        assert g[0].abs().max().item() == 0.0 and g[2].abs().max().item() == 0.0
+    assert dv[0, :, 0].abs().max().item() > 0.0
 
 
 @pytest.mark.cuda
