@@ -28,6 +28,24 @@ Phases, each printing its own lines:
      two runs and one batch's gradients must agree, one step at the
      published dropout 0.05 must launch no kernel (as in the JAX package),
      and one step's time, memory and profile are printed;
+  3b. streaming: the [slice] store served by a session on the streaming
+     engine (requests of 1, 8 and 32 slides, cold then warm, no batch cache),
+     held to the fused session's hazards, with the forward kernel's launches
+     and where a 32-slide request's time goes (level-0 collation, then per
+     level the device-to-host sync, the host gather and the copy back, and
+     the bytes that crossed against the fused request's); one [train] batch
+     through `StreamingEngine.loss_and_grad` against the fused backward (all
+     three kernels launch once per decoder layer per level), its step time
+     beside the fused step's, and one epoch of `cli.train` on the streaming
+     engine held to the fused run's epoch-1 loss;
+  3c. auto: `resolve_engine` picks fused from the card's memory for the
+     [slice] store and streaming below the threshold; lru: a repeated
+     32-slide request served from the device batch cache; cli:
+     `cli.evaluate` and `cli.predict` on the [train] model directory, held to
+     the test metrics `train_loop` logged and to the risk formula, and
+     `cli.train --profile` writing a trace that names the flash kernels;
+     staging: the 32-slide collation and copy into pageable and into
+     page-locked memory, in turns;
   5. ViT block kernels: the fused attention, GELU-MLP and packed-SwiGLU-MLP
      block kernels against their plain versions at the UNI and Virchow2
      shapes (64 images), the attention and GELU-MLP blocks also at
@@ -477,7 +495,9 @@ def serving_phase(torch, tfa, gpu):
         save_state(dirs[impl], model)
 
     t0 = time.perf_counter()
-    sess = ServingSession(dirs["pallas"], device="cuda")
+    # cache_batches=0: the warm pass repeats the cold pass's requests and
+    # must measure the path, not the device batch cache ([lru] measures it)
+    sess = ServingSession(dirs["pallas"], cache_batches=0, device="cuda")
     print(f"[slice] ServingSession (attention_impl=pallas) opened in "
           f"{time.perf_counter() - t0:.1f} s; batch_size {sess.batch_size}, "
           f"pads n0={sess._pads['n0']}", flush=True)
@@ -511,7 +531,7 @@ def serving_phase(torch, tfa, gpu):
     print(f"[slice] flash kernel launches over {batches} forward batches: "
           f"{launches} ({per_forward} per forward)", flush=True)
 
-    plain = ServingSession(dirs["xla"], device="cuda")
+    plain = ServingSession(dirs["xla"], cache_batches=0, device="cuda")
     worst = 0.0
     for req, got in zip(requests, rows):
         want = plain.predict(req)
@@ -524,7 +544,8 @@ def serving_phase(torch, tfa, gpu):
     print(f"[slice] kernel path vs plain attention path: max |hazard diff| "
           f"{worst:.3g} (atol {PRED_ATOL})", flush=True)
     forward_breakdown(torch, sess, gpu)
-    return launches
+    return {"cfg": cfg, "ids": ids, "dirs": dirs, "sess": sess,
+            "requests": requests, "rows": rows, "walls": walls}
 
 
 def forward_breakdown(torch, sess, gpu):
@@ -683,7 +704,8 @@ def training_phase(torch, tfa, gpu):
           f"kernel {finals['pallas']}, plain {finals['xla']}", flush=True)
 
     step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout)
-    return counts["pallas"]
+    return counts["pallas"], {"cfg": cfg, "dirs": dirs, "splits": splits,
+                              "model": model, "runs": runs}
 
 
 @contextlib.contextmanager
@@ -836,6 +858,434 @@ def step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout):
     table = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
     for line in table.splitlines():
         print(f"[train-profile] {line}", flush=True)
+
+
+# Streaming epoch-1 train loss vs the fused run's, relative: JAX's own bar
+# for its streaming engine (`tests/test_streaming.py`). The two runs do the
+# same operations on the same values; only where a level's children are
+# gathered differs.
+STREAM_EPOCH_RTOL = 2e-4
+# cli.evaluate's test loss and metric vs the test entries `train_loop`
+# logged for the same weights: the same forward over the same slides, with
+# other padding (the CLI pads to its batch's own widths).
+CLI_EVAL_RTOL = 1e-6
+# cli.predict's risk vs -sum(cumprod(1 - hazards)) of its own hazards,
+# printed to 6 decimals.
+RISK_ATOL = 1e-4
+
+
+def model_dir_copy(src, name, **changes):
+    """A copy of model directory `src` under WORK with config fields set."""
+    from paths_tpu_torch.config import Config
+
+    dst = os.path.join(WORK, name)
+    shutil.copytree(src, dst)
+    cfg = Config.load(dst, test_mode=True)
+    for key, value in changes.items():
+        setattr(cfg, key, value)
+    cfg.save(dst)
+    return dst
+
+
+@contextlib.contextmanager
+def timed(torch, module, names, log):
+    """While inside, each function `names` of `module` appends (name, ms,
+    args, result) to `log`, its time taken up to a synchronised card."""
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def inner(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.append((name, (time.perf_counter() - t0) * 1e3, args, out))
+            return out
+        return inner
+
+    for n, fn in real.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
+
+
+def shipped_bytes(host: dict, wire_size: int) -> int:
+    """Bytes of a dict of host arrays as they cross to the card: features
+    at the wire dtype's width, the rest as they are."""
+    return sum(v.size * wire_size if k == "fts" else v.nbytes
+               for k, v in host.items())
+
+
+def streaming_serving_phase(torch, tfa, gpu, sl):
+    """The [slice] store and weights served by a streaming session next to
+    the fused one: the same requests cold then warm, no batch cache; the
+    hazards against the fused session's, the forward kernel's launches, and
+    where a 32-slide request's time goes."""
+    import numpy as np
+
+    from paths_tpu_torch.data.dataset import collate_bag0, collate_batch
+    from paths_tpu_torch.engine import streaming
+    from paths_tpu_torch.engine.tables import wire_dtype
+    from paths_tpu_torch.serve import ServingSession
+
+    cfg, ids, requests = sl["cfg"], sl["ids"], sl["requests"]
+    sdir = model_dir_copy(sl["dirs"]["pallas"], "model_streaming",
+                          engine="streaming")
+    t0 = time.perf_counter()
+    sess = ServingSession(sdir, cache_batches=0, device="cuda")
+    print(f"[streaming] ServingSession (engine=streaming, attention_impl="
+          f"pallas) opened in {time.perf_counter() - t0:.1f} s; level-0 pads "
+          f"n0={sess._pads['n0']}", flush=True)
+
+    reset_counts(tfa)
+    rows, walls = [], []
+    for req in requests + requests:     # a cold and a warm pass
+        t0 = time.perf_counter()
+        rows.append(sess.predict(req))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts(tfa)
+    per_forward = cfg.model_config.trans_layers * cfg.num_levels
+    batches = 2 * len(requests)
+    want = {"masked_flash_attention_fwd": per_forward * batches,
+            "masked_flash_attention_bwd_dq": 0,
+            "masked_flash_attention_bwd_dkv": 0}
+    if counts != want:
+        raise AssertionError(f"streaming serving launched {counts}, the code "
+                             f"says {want}")
+    worst = max(abs(x - y) for got, ref in zip(rows, sl["rows"])
+                for a, b in zip(got, ref)
+                for x, y in zip(a["hazards"], b["hazards"]))
+    if not worst <= PRED_ATOL:
+        raise AssertionError(f"streaming vs fused session: hazards differ by "
+                             f"{worst:.3g} > {PRED_ATOL}")
+    for i, (req, wall) in enumerate(zip(requests + requests, walls)):
+        print(f"[streaming] request of {len(req)} slides "
+              f"({'cold' if i < len(requests) else 'warm'}): {wall:.1f} ms "
+              f"wall, fused session {sl['walls'][i]:.1f} ms | {gpu}", flush=True)
+    print(f"[streaming] flash kernel launches over {batches} forward batches: "
+          f"{counts['masked_flash_attention_fwd']} ({per_forward} per "
+          f"forward, no backward); max |hazard diff| vs the fused session "
+          f"{worst:.3g} (atol {PRED_ATOL})", flush=True)
+
+    # where one warm 32-slide request's time goes
+    idx = list(range(len(ids)))
+    ds = sess._dataset
+    wire = wire_dtype(np.float32, cfg.table_dtype).itemsize
+    t0 = time.perf_counter()
+    bag0 = collate_bag0(ds, idx, level0_bucket=cfg.level0_bucket,
+                        pads=sess._pads, device="cuda")
+    torch.cuda.synchronize()
+    l0_ms = (time.perf_counter() - t0) * 1e3
+    l0_bytes = bag0.fts.numel() * wire + bag0.locs.numel() * 4 + bag0.mask.numel()
+    log = []
+    t0 = time.perf_counter()
+    with timed(torch, streaming, ("coords_to_host", "lookup_host",
+                                  "ship_at_wire_dtype"), log), \
+            torch.inference_mode():
+        sess._eng.forward(sess.model, bag0, [ds.slides[i].tables for i in idx])
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {n: [(ms, args, out) for name, ms, args, out in log if name == n]
+               for n in ("coords_to_host", "lookup_host", "ship_at_wire_dtype")}
+    stream_bytes = l0_bytes
+    for lvl, (sync, gather, ship) in enumerate(zip(*by_name.values()), start=1):
+        nbytes = shipped_bytes(gather[2], wire)
+        stream_bytes += nbytes
+        print(f"[streaming] 32-slide request, level {lvl - 1} -> {lvl}: "
+              f"device-to-host sync {sync[0]:.2f} ms, host gather "
+              f"{gather[0]:.2f} ms, copy to the card {ship[0]:.2f} ms "
+              f"({nbytes / 2**20:.2f} MiB) | {gpu}", flush=True)
+    bag, tables = collate_batch(sl["sess"]._dataset, idx,
+                                level0_bucket=cfg.level0_bucket,
+                                pads=sl["sess"]._pads, device="cpu")
+    fused_bytes = (bag.fts.numel() * wire + bag.locs.numel() * 4
+                   + bag.mask.numel()
+                   + sum(t.fts.numel() * wire + 4 * (t.locs.numel()
+                         + t.count.numel() + t.index.numel()
+                         + t.grid_hw.numel()) for t in tables))
+    del bag, tables
+    # lookup_host gathers the slides one after another; the JAX package
+    # spreads them over a pool of 8 threads: both on the level-1 coordinates
+    # of this request, in turns
+    from concurrent.futures import ThreadPoolExecutor
+
+    locs, kvalid, level_tables = by_name["lookup_host"][0][1]
+    one = [lambda j=j: streaming.lookup_host(locs[j:j + 1], kvalid[j:j + 1],
+                                             level_tables[j:j + 1])
+           for j in range(len(idx))]
+    with ThreadPoolExecutor(8) as pool:
+        variants = (("loop", lambda: streaming.lookup_host(locs, kvalid,
+                                                           level_tables)),
+                    ("pool of 8", lambda: list(pool.map(lambda f: f(), one))))
+        gather = {name: [] for name, _ in variants}
+        for name, fn in variants + variants[::-1] + variants:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            gather[name].append((time.perf_counter() - t0) * 100)
+    print(f"[streaming] host gather of one level, 32 slides, ms per call in "
+          f"turns: " + "; ".join(f"{k} {', '.join(f'{t:.2f}' for t in v)}"
+                                 for k, v in gather.items()) + f" | {gpu}",
+          flush=True)
+    print(f"[streaming] 32-slide request: level-0 collate + copy {l0_ms:.1f} "
+          f"ms ({l0_bytes / 2**20:.1f} MiB); forward with the per-level "
+          f"gathers {fwd_ms:.1f} ms (timed pieces synchronised); bytes to the "
+          f"card {stream_bytes / 2**20:.1f} MiB against the fused request's "
+          f"{fused_bytes / 2**20:.1f} MiB | {gpu}", flush=True)
+
+
+def streaming_training_phase(torch, tfa, gpu, tr):
+    """One [train] batch through `StreamingEngine.loss_and_grad` against the
+    fused backward, its kernel launches and step time beside the fused
+    step's; then one epoch of `cli.train` on the streaming engine from the
+    [train] run's initial weights, held to the fused run's epoch-1 loss."""
+    import copy
+
+    from paths_tpu_torch.cli.train import main as train_main
+    from paths_tpu_torch.data.dataset import collate_batch, labels_on, union_pads
+    from paths_tpu_torch.engine.hierarchy import end2end_loss
+    from paths_tpu_torch.engine.streaming import StreamingEngine
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train.loop import (
+        make_optimizer,
+        make_step_fns,
+        optimizer_step,
+    )
+    from paths_tpu_torch.train.state import load_model, save_state
+
+    cfg, splits, runs = tr["cfg"], tr["splits"], tr["runs"]
+    train = splits[0]
+    idx = list(range(cfg.batch_size[0]))
+    pads = union_pads(*(d.global_pads() for d in splits if d is not None))
+    bag, tables = collate_batch(train, idx, level0_bucket=cfg.level0_bucket,
+                                pads=pads, device="cuda")
+    labels = labels_on(train, idx, "cuda")
+    host_tables = [train.slides[i].tables for i in idx]
+    init_dir = os.path.join(WORK, "train_init")   # trained weights ([train])
+
+    model = load_model(init_dir, RecursiveModel(cfg)).cuda()
+    loss, _ = end2end_loss(model, cfg, bag, tables, labels, training=True)
+    loss.backward()
+    want = {n: p.grad.clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+    eng = StreamingEngine(cfg, "cuda")
+    reset_counts(tfa)
+    got_loss, _, got = eng.loss_and_grad(model, bag, host_tables, labels)
+    torch.cuda.synchronize()
+    counts = launch_counts(tfa)
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    if counts != dict.fromkeys(counts, per):
+        raise AssertionError(f"a streaming train step launched {counts}, the "
+                             f"code says {per} of each")
+    rel = abs(got_loss.item() - loss.item()) / abs(loss.item())
+    ratio, name = grad_mismatch(got, want)
+    if not (rel <= LOSS_RTOL and ratio <= 1.0):
+        raise AssertionError(f"streaming vs fused step: loss {rel:.3g} "
+                             f"relative, gradients {ratio:.3g} x the limit at "
+                             f"{name}")
+    print(f"[streaming] one 32-slide train batch, streaming vs fused: loss "
+          f"{rel:.3g} relative (rtol {LOSS_RTOL}), worst |grad diff| "
+          f"{ratio:.3g} x its limit (rtol {GRAD_RTOL}) at {name}; kernel "
+          f"launches {counts} (one forward: JAX's streaming step runs two)",
+          flush=True)
+
+    opt = make_optimizer(cfg, model.parameters())
+    update, _ = make_step_fns(cfg, opt)
+
+    def stream_step():
+        eng.loss_and_grad(model, bag, host_tables, labels)
+        optimizer_step(cfg, opt)
+
+    def fused_step():
+        update(model, bag, tables, labels, None, epoch=1)
+
+    times = {}
+    for label, fn in (("fused", fused_step), ("streaming", stream_step),
+                      ("streaming ", stream_step), ("fused ", fused_step)):
+        times[label] = cuda_ms(fn, iters=5, warmup=1)
+    print(f"[streaming] train step of 32 slides between CUDA events, in turns: "
+          + ", ".join(f"{k.strip()} {v:.2f} ms" for k, v in times.items())
+          + f" | {gpu}", flush=True)
+    del bag, tables
+
+    c = copy.deepcopy(cfg)
+    c.engine, c.num_epochs = "streaming", 1
+    sdir = os.path.join(WORK, "train_streaming")
+    c.save(sdir)
+    save_state(sdir, tr["model"])
+    reset_counts(tfa)
+    t0 = time.perf_counter()
+    stats = train_main(["-m", sdir, "--no-wandb"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(tfa)
+    want = expected_train_launches(c, splits)
+    if counts != want:
+        raise AssertionError(f"streaming cli.train launched {counts}, the code "
+                             f"says {want}")
+    fused = runs["pallas"]["train_loss"][1]
+    rel = abs(stats["train_loss"][1] - fused) / abs(fused)
+    if not rel <= STREAM_EPOCH_RTOL:
+        raise AssertionError(f"streaming epoch-1 train loss "
+                             f"{stats['train_loss'][1]} vs fused {fused}: "
+                             f"{rel:.3g} > {STREAM_EPOCH_RTOL} relative")
+    print(f"[streaming] cli.train engine=streaming, 1 epoch: train_loss "
+          f"{stats['train_loss'][1]:.6f} vs the fused run's {fused:.6f} "
+          f"({rel:.3g} relative, rtol {STREAM_EPOCH_RTOL}); epoch wall "
+          f"{stats['epoch_wall_s'][1]} s (fused {runs['pallas']['epoch_wall_s'][1]}"
+          f" s), run {wall:.1f} s; kernel launches {counts} | {gpu}", flush=True)
+
+
+def auto_phase(sl):
+    """`resolve_engine` on the card for the [slice] store: fused from the
+    card's own memory, streaming when the memory is set below the batch's
+    residency."""
+    import copy
+
+    from paths_tpu_torch.engine import auto
+
+    cfg = copy.deepcopy(sl["cfg"])
+    cfg.engine = "auto"
+    pads = sl["sess"]._pads
+    bs = cfg.batch_size[0]
+    hbm = auto.hbm_bytes("cuda")
+    print(f"[auto] card memory {hbm / 2**30:.2f} GiB; ", end="", flush=True)
+    if auto.resolve_engine(cfg, pads, bs, device="cuda") != "fused":
+        raise AssertionError("engine=auto did not pick fused on the card")
+    need = auto.RESIDENCY_FACTOR * auto.estimate_fused_batch_bytes(cfg, pads, bs)
+    low = int((need + auto.PARAM_RESERVE) / auto.HBM_FRACTION) - (1 << 20)
+    print("[auto] with the memory set below the residency: ", end="", flush=True)
+    if auto.resolve_engine(cfg, pads, bs, hbm=low) != "streaming":
+        raise AssertionError("engine=auto did not pick streaming below the "
+                             "threshold")
+
+
+def lru_phase(torch, tfa, gpu, sl):
+    """A repeated 32-slide request on a fused session with the device batch
+    cache: the hit skips collation and the copy, and still runs the
+    forward through the kernel."""
+    from paths_tpu_torch.serve import ServingSession
+
+    sess = ServingSession(sl["dirs"]["pallas"], cache_batches=4, device="cuda")
+    walls, rows = [], []
+    for _ in range(3):
+        reset_counts(tfa)
+        t0 = time.perf_counter()
+        rows.append(sess.predict(sl["ids"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    per = sl["cfg"].model_config.trans_layers * sl["cfg"].num_levels
+    if tfa.masked_flash_attention_fwd.launches != per or len(sess._batch_cache) != 1:
+        raise AssertionError(f"a cache hit launched {launch_counts(tfa)}; "
+                             f"{len(sess._batch_cache)} batches cached")
+    if not rows[0] == rows[1] == rows[2]:
+        raise AssertionError("a cache hit changed the predictions")
+    print(f"[lru] request of 32 slides with cache_batches=4: miss "
+          f"{walls[0]:.1f} ms, hits {walls[1]:.1f} / {walls[2]:.1f} ms wall; "
+          f"with cache_batches=0 (warm, [slice]) {sl['walls'][-1]:.1f} ms | "
+          f"{gpu}", flush=True)
+
+
+def cli_phase(torch, tfa, gpu, tr):
+    """`cli.evaluate` and `cli.predict` on the model directory [train]
+    trained on the kernel route, and `cli.train --profile` for one epoch."""
+    import copy
+    import csv
+    import glob
+
+    import numpy as np
+
+    from paths_tpu_torch.cli.evaluate import main as eval_main
+    from paths_tpu_torch.cli.predict import main as predict_main
+    from paths_tpu_torch.cli.train import main as train_main
+    from paths_tpu_torch.train.state import save_state
+
+    d = tr["dirs"]["pallas"]
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        logged = json.loads(f.read().splitlines()[-1])
+    t0 = time.perf_counter()
+    out = eval_main(["-m", d, "--split", "test"])
+    eval_s = time.perf_counter() - t0
+    for key in ("test_loss", "test_c-index"):
+        rel = abs(out[key] - logged[key]) / max(abs(logged[key]), 1e-30)
+        if not rel <= CLI_EVAL_RTOL:
+            raise AssertionError(f"cli.evaluate {key} {out[key]} vs train_loop's "
+                                 f"{logged[key]}: {rel:.3g} relative")
+    out_csv = os.path.join(WORK, "predictions.csv")
+    t0 = time.perf_counter()
+    predict_main(["-m", d, "--split", "test", "-o", out_csv])
+    predict_s = time.perf_counter() - t0
+    with open(out_csv, newline="") as f:
+        table = list(csv.reader(f))
+    test = tr["splits"][2]
+    if [r[0] for r in table[1:]] != test.slide_ids:
+        raise AssertionError("cli.predict rows are not the test slides in order")
+    worst = 0.0
+    for r in table[1:]:
+        haz = np.array([float(h) for h in r[2:]])
+        worst = max(worst, abs(float(r[1]) + np.cumprod(1 - haz).sum()))
+    if not worst <= RISK_ATOL:
+        raise AssertionError(f"cli.predict risk vs -sum(cumprod(1 - h)): "
+                             f"{worst:.3g} > {RISK_ATOL}")
+    print(f"[cli] cli.evaluate --split test in {eval_s:.1f} s: {out} (equal to "
+          f"train_loop's logged test entries within {CLI_EVAL_RTOL} relative); "
+          f"cli.predict --split test in {predict_s:.1f} s: {len(table) - 1} "
+          f"rows, worst |risk + sum cumprod(1 - h)| {worst:.3g} | {gpu}",
+          flush=True)
+
+    c = copy.deepcopy(tr["cfg"])
+    c.num_epochs = 1
+    pdir, prof = os.path.join(WORK, "train_profile"), os.path.join(WORK, "prof")
+    c.save(pdir)
+    save_state(pdir, tr["model"])
+    t0 = time.perf_counter()
+    train_main(["-m", pdir, "--no-wandb", "--profile", prof])
+    wall = time.perf_counter() - t0
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"cli.train --profile wrote {traces}")
+    with open(traces[0]) as f:
+        text = f.read()
+    names = ("flash_fwd", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    missing = [n for n in names if n not in text]
+    if missing:
+        raise AssertionError(f"the profile trace names no {missing}")
+    print(f"[cli] cli.train --profile, 1 epoch in {wall:.1f} s: "
+          f"{os.path.basename(traces[0])}, {len(text) / 2**20:.1f} MiB, names "
+          f"{', '.join(names)} | {gpu}", flush=True)
+
+
+def staging_probe(torch, gpu, sl):
+    """The 32-slide fused collation and copy to the card, stacked into
+    pageable memory and into page-locked memory (copied without blocking),
+    in turns."""
+    from paths_tpu_torch.data.dataset import collate_batch
+    from paths_tpu_torch.engine import tables
+
+    sess, idx = sl["sess"], list(range(len(sl["ids"])))
+    pinned = tables.PIN_STAGING
+
+    def collate(pin):
+        tables.PIN_STAGING = pin
+        t0 = time.perf_counter()
+        collate_batch(sess._dataset, idx, level0_bucket=sess.config.level0_bucket,
+                      pads=sess._pads, device="cuda")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    try:
+        first = {pin: collate(pin) for pin in (False, True)}
+        turns = {False: [], True: []}
+        for pin in (False, True, True, False, False, True):
+            turns[pin].append(collate(pin))
+    finally:
+        tables.PIN_STAGING = pinned
+    print(f"[staging] 32-slide collate + copy to the card, in turns: pageable "
+          f"{', '.join(f'{t:.1f}' for t in turns[False])} ms (first "
+          f"{first[False]:.1f}); page-locked {', '.join(f'{t:.1f}' for t in turns[True])}"
+          f" ms (first {first[True]:.1f}, which allocates); the port stages in "
+          f"{'page-locked' if pinned else 'pageable'} memory | {gpu}", flush=True)
 
 
 def vit_wrappers(tvf):
@@ -1867,8 +2317,15 @@ def main() -> int:
     try:
         cases = kernel_phase(torch, tfa, gpu)
         bwd = backward_kernel_phase(torch, tfa, gpu)
-        serving_phase(torch, tfa, gpu)
-        launches = training_phase(torch, tfa, gpu)
+        sl = serving_phase(torch, tfa, gpu)
+        launches, tr = training_phase(torch, tfa, gpu)
+        streaming_serving_phase(torch, tfa, gpu, sl)
+        streaming_training_phase(torch, tfa, gpu, tr)
+        auto_phase(sl)
+        lru_phase(torch, tfa, gpu, sl)
+        cli_phase(torch, tfa, gpu, tr)
+        staging_probe(torch, gpu, sl)
+        del sl, tr
         vit_cases = vit_kernel_phase(torch, tvf, gpu)
         vit_cases.update(vit_new_kernel_phase(torch, tvf, tvi, gpu))
         vit_launches = preprocess_phase(torch, tfa, tvf, gpu)

@@ -1,11 +1,13 @@
 """Training entry point (counterpart of `paths_tpu.cli.train`).
 
-    python -m paths_tpu_torch.cli.train -m models/my_experiment [--no-wandb] [--device cuda]
+    python -m paths_tpu_torch.cli.train -m models/my_experiment [--no-wandb] \
+        [--device cuda] [--profile DIR]
 
 The model directory must contain a `config.json`; checkpoints, metrics and
 train stats are written back into it in the JAX package's layout, and an
 interrupted run resumes from the last saved epoch. Training runs on the card
-unless `--device cpu` is given.
+unless `--device cpu` is given. `--profile DIR` records the whole run with
+`torch.profiler` into a `*.pt.trace.json` under DIR (Perfetto, TensorBoard).
 """
 from __future__ import annotations
 
@@ -27,6 +29,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--no-wandb", action="store_true")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default: cuda)")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="record a torch.profiler trace of the run into "
+                             "DIR (Perfetto/TensorBoard)")
     args = parser.parse_args(argv)
 
     config = Config.load(args.model_dir)
@@ -39,6 +44,12 @@ def main(argv=None) -> dict:
     logger = MetricsLogger(args.model_dir, config.to_dict(),
                            project=args.wandb_project_name,
                            use_wandb="no" if args.no_wandb else "auto")
+    if args.profile:
+        from paths_tpu_torch.profiling import trace
+
+        with trace(args.profile):
+            return train_loop(config, args.model_dir, train, val, test,
+                              logger=logger, device=args.device)
     return train_loop(config, args.model_dir, train, val, test, logger=logger,
                       device=args.device)
 

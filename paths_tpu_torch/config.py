@@ -8,7 +8,7 @@ per-level lists; `lstm=True` requires `hierarchical_ctx=True`; unknown keys
 raise.
 
 Fields that select JAX-side machinery (`mesh_shape`, `seq_attention`,
-`remat`, `prng_impl`, `checkpoint_backend`, the streaming engine) are kept
+`remat`, `prng_impl`, `checkpoint_backend`) are kept
 so that configs stay interchangeable; the port reads only what the serving
 path uses and refuses the values it has not ported yet where it meets them.
 """
@@ -105,8 +105,10 @@ class Config:
     attention_impl: str = "xla"
     # dtype of feature tables / bags on the device ("float32" or "bfloat16")
     table_dtype: str = "float32"
-    # "fused": whole-batch tables resident on the device (the only engine
-    # ported so far)
+    # "fused": whole-batch tables resident on the device; "streaming": the
+    # deeper tables stay on the host and each level's selected children are
+    # gathered there (engine/streaming.py); "auto": pick per run from a
+    # device-memory estimate of the collated tables (engine/auto.py)
     engine: str = "fused"
     # level-0 bags are padded up to a multiple of this
     level0_bucket: int = 256

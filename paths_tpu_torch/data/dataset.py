@@ -28,7 +28,14 @@ import torch
 from paths_tpu_torch.config import Config
 from paths_tpu_torch.data.feature_store import FeatureStore
 from paths_tpu_torch.data.slide import SlidePyramid
-from paths_tpu_torch.engine.tables import bag_widths, stack_dtype, stack_tables
+from paths_tpu_torch.engine.tables import (
+    bag_widths,
+    fill_rows,
+    host_stack_dtype,
+    pin_staging,
+    stack_tables,
+    wire_dtype,
+)
 from paths_tpu_torch.models.batch import PatchBag
 
 MAX_WORKERS = 8
@@ -128,10 +135,15 @@ def _sample(rows: List[dict], n: int, seed: int):
 
 
 def load_splits(props: Sequence[float], seed: int, config: Config,
-                store: Optional[FeatureStore] = None, preload: bool = True):
+                store: Optional[FeatureStore] = None, test_only: bool = False,
+                combined: bool = False, preload: bool = True):
     """Train/val/test SlideDatasets (`paths_tpu.data.dataset.load_splits`).
     `props` is the random-split proportion triple, unused when
-    `config.hipt_splits`; val is None where a HIPT split has none."""
+    `config.hipt_splits`; val is None where a HIPT split has none.
+
+    :param test_only: return only the test split's dataset
+    :param combined: return one dataset of every kept metadata row, before
+        the subtype filter and the split"""
     train_prop, val_prop, test_prop = props
     if abs(train_prop + val_prop + test_prop - 1) >= 1e-4:
         raise ValueError(f"split proportions {props} do not sum to 1")
@@ -141,6 +153,9 @@ def load_splits(props: Sequence[float], seed: int, config: Config,
 
     def dataset(split_rows):
         return labelled_dataset(split_rows, bins, config, store, preload)
+
+    if combined:
+        return dataset(rows)
 
     if config.filter_to_subtypes is not None:
         rows = [r for r in rows if r["oncotree_code"] in config.filter_to_subtypes]
@@ -171,6 +186,8 @@ def load_splits(props: Sequence[float], seed: int, config: Config,
         train, rest = _sample(rows, int(train_prop * len(rows)), seed)
         val, test = _sample(rest, int(val_prop * len(rows)), seed)
 
+    if test_only:
+        return dataset(test)
     return [None if split is None else dataset(split)
             for split in (train, val, test)]
 
@@ -223,6 +240,7 @@ class SlideDataset:
             magnification_factor=config.magnification_factor)
             for sid in self.slide_ids]
         self._global_pads: Optional[dict] = None
+        self._global_pads_l0: Optional[dict] = None
         if preload:
             with ThreadPoolExecutor(min(MAX_WORKERS, os.cpu_count() or 1)) as ex:
                 list(ex.map(lambda s: s.materialize(), self.slides))
@@ -230,25 +248,38 @@ class SlideDataset:
     def __len__(self) -> int:
         return len(self.slides)
 
-    def global_pads(self) -> dict:
+    def global_pads(self, level0_only: bool = False) -> dict:
         """Dataset-wide shape maxima: level-0 bag width, per-level table rows
         and grid dims. Collating every batch to these gives every batch of a
-        width one shape."""
+        width one shape. One pass over the slides; a slide that was not
+        loaded before the pass is unloaded after it unless `cache_slides`.
+
+        :param level0_only: scan only the level-0 bag widths (what the
+            streaming engine pads; its deeper tables stay on the host), so
+            the pass reads one grid per slide instead of all levels"""
         if self._global_pads is not None:
             return self._global_pads
+        if level0_only and self._global_pads_l0 is not None:
+            return self._global_pads_l0
         n0 = 0
         rows = [0] * self.config.num_levels
         grid_hw = [(0, 0)] * self.config.num_levels
         for s in self.slides:
+            was_loaded = s._tables is not None
             n0 = max(n0, s.level0[2])
-            for lvl, t in enumerate(s.tables, start=1):
-                rows[lvl] = max(rows[lvl], t["fts"].shape[0])
-                grid_hw[lvl] = (max(grid_hw[lvl][0], t["index"].shape[0]),
-                                max(grid_hw[lvl][1], t["index"].shape[1]))
-            if not self.cache_slides:
+            if not level0_only:
+                for lvl, t in enumerate(s.tables, start=1):
+                    rows[lvl] = max(rows[lvl], t["fts"].shape[0])
+                    grid_hw[lvl] = (max(grid_hw[lvl][0], t["index"].shape[0]),
+                                    max(grid_hw[lvl][1], t["index"].shape[1]))
+            if not (self.cache_slides or was_loaded):
                 s.unload()
-        self._global_pads = {"n0": n0, "rows": rows, "grid_hw": grid_hw}
-        return self._global_pads
+        pads = {"n0": n0, "rows": rows, "grid_hw": grid_hw}
+        if level0_only:
+            self._global_pads_l0 = pads
+        else:
+            self._global_pads = pads
+        return pads
 
     def labels(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
         """The label columns at `indices` (survival_bin, survival, censored
@@ -352,20 +383,41 @@ def collate_bag0(dataset: SlideDataset, indices: Sequence[int],
     if pads is not None:
         max_n0 = max(max_n0, pads["n0"])
     n0 = _round_up(max_n0, level0_bucket)
-    fts0 = np.zeros((b, n0, mc.patch_embed_dim),
-                    stack_dtype([f.dtype for f, _, _ in l0]))
+    # the features cross at the narrower of storage and table dtype and are
+    # cast to the table dtype on the device, as in stack_tables
+    host_dt = host_stack_dtype([f.dtype for f, _, _ in l0])
+    device = torch.device(device)
+    fts0 = torch.zeros((b, n0, mc.patch_embed_dim),
+                       dtype=wire_dtype(host_dt, dtype),
+                       pin_memory=pin_staging(device))
     locs0 = np.zeros((b, n0, 2), np.int32)
     mask0 = np.zeros((b, n0), bool)
     for i, (f, l, n) in enumerate(l0):
-        fts0[i, :n] = f
+        fill_rows(fts0, i, f)
         locs0[i, :n] = l
         mask0[i, :n] = True
 
     return PatchBag(
-        fts=torch.from_numpy(fts0).to(device).to(dtype),
+        fts=fts0.to(device, non_blocking=True).to(dtype),
         locs=torch.from_numpy(locs0).to(device).long(),
         mask=torch.from_numpy(mask0).to(device),
         parent_inds=torch.arange(n0, device=device).expand(b, n0),
         ctx_slide=torch.zeros((b, 0, ds_dim), dtype=dtype, device=device),
         ctx_patch=torch.zeros((b, n0, 0, dp_dim), dtype=dtype, device=device))
 
+
+def iterate_batches(dataset: SlideDataset, batch_size: int, *,
+                    shuffle: bool = False, seed: int = 0,
+                    level0_bucket: int = 256, pads: Optional[dict] = None,
+                    device="cuda"):
+    """Yield collated (bag0, tables, labels) batches on `device`; shuffling
+    is seeded per call."""
+    order = np.arange(len(dataset))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    for s in range(0, len(order), batch_size):
+        idx = order[s: s + batch_size].tolist()
+        labels = labels_on(dataset, idx, device)
+        bag0, tables = collate_batch(dataset, idx, level0_bucket=level0_bucket,
+                                     pads=pads, device=device)
+        yield bag0, tables, labels

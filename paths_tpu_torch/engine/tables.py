@@ -10,6 +10,7 @@ background cells: the order of the all-background fallback bags.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -66,18 +67,98 @@ def build_level_table(grid: np.ndarray, min_rows: int = 0) -> dict:
             "index": index, "grid_hw": np.array([h, w], np.int32)}
 
 
-def stack_dtype(dtypes: Sequence[np.dtype]) -> np.dtype:
-    """Dtype a batch of host feature arrays stacks at: the widest input."""
-    return max({np.dtype(d) for d in dtypes}, key=lambda d: d.itemsize)
+# Stack batches bound for a card in page-locked memory: on the H100 a
+# 32-slide flagship batch (1.7 GiB of tables) collates and copies in about a
+# third of the pageable time (`chip_smoke.py`'s [staging] line times both).
+PIN_STAGING = True
+
+_warned_mixed_dtypes: set = set()
 
 
-def stack_tables(tables: Sequence[dict], min_rows: int = 0,
-                 pad_rows_to: Optional[int] = None,
-                 pad_grid_to: Optional[tuple] = None,
-                 dtype: torch.dtype = torch.float32,
-                 device="cuda") -> LevelTable:
-    """Pad single-slide tables to common shapes, stack, and place them on
-    `device` with features cast to `dtype` there."""
+def host_stack_dtype(dtypes: Sequence[np.dtype]) -> np.dtype:
+    """Dtype a batch of host feature arrays stacks at: the widest input
+    (whatever the batch order; a resumed preprocess run with a changed
+    --store-dtype can mix f16 and f32 grids).
+
+    The mixed-dtype warning fires once per process per dtype pair and names
+    the collation or lookup call site (stacklevel=2): the streaming engine
+    calls this at every level of every batch."""
+    uniq = {np.dtype(d) for d in dtypes}
+    if len(uniq) > 1:
+        key = tuple(sorted(map(str, uniq)))
+        if key not in _warned_mixed_dtypes:
+            _warned_mixed_dtypes.add(key)
+            warnings.warn(
+                f"feature batch mixes storage dtypes "
+                f"{sorted(map(str, uniq))}; stacking at the widest. "
+                "Re-preprocess with one --store-dtype to reclaim the f16 "
+                "wire/RAM savings.", stacklevel=2)
+    return max(uniq, key=lambda d: d.itemsize)
+
+
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or a name such as
+    "bfloat16" (numpy has no bf16, so a config names it)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and hasattr(torch, dtype):
+        return getattr(torch, dtype)
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+def wire_dtype(host_dtype, target_dtype) -> torch.dtype:
+    """Dtype feature arrays cross the host->device link at: the NARROWER of
+    the storage dtype and the table dtype. An f16 store with f32 tables
+    ships f16 and widens on the device; an f32 store with bf16 tables
+    narrows on the host rather than shipping twice the bytes."""
+    host = as_torch_dtype(host_dtype)
+    if target_dtype is None:
+        return host
+    target = as_torch_dtype(target_dtype)
+    return target if target.itemsize < host.itemsize else host
+
+
+def pin_staging(device) -> bool:
+    """Whether batches bound for `device` are stacked straight into
+    page-locked host memory, from which the copy to the card runs at the
+    link's rate and without the CUDA runtime's own staging pass."""
+    return torch.device(device).type == "cuda" and PIN_STAGING
+
+
+def fill_rows(dst: torch.Tensor, i: int, src: np.ndarray) -> None:
+    """dst[i, :len(src)] = src on the host, cast to dst's dtype (torch casts
+    to bf16, which numpy cannot hold, rounding to nearest even)."""
+    n = src.shape[0]
+    if dst.dtype == torch.bfloat16:
+        dst[i, :n] = torch.from_numpy(np.array(src, np.float32))
+    else:
+        dst.numpy()[i, :n] = src
+
+
+def ship_at_wire_dtype(lk: dict, table_dtype, put) -> dict:
+    """Place a host lookup dict (numpy arrays) on the device with its
+    feature array crossing the link at `wire_dtype(storage, table_dtype)`
+    and arriving at `table_dtype`. The host-side narrowing and the
+    device-side widening are ONE paired dtype decision. `put` maps a dict
+    of host tensors to device tensors."""
+    want = as_torch_dtype(table_dtype)
+    wd = wire_dtype(lk["fts"].dtype, want)
+    host = {k: torch.from_numpy(v) for k, v in lk.items() if k != "fts"}
+    fts = torch.from_numpy(lk["fts"])
+    host["fts"] = fts if fts.dtype == wd else fts.to(wd)
+    dev = put(host)
+    if dev["fts"].dtype != want:
+        dev = {**dev, "fts": dev["fts"].to(want)}
+    return dev
+
+
+def stack_host(tables: Sequence[dict], min_rows: int = 0,
+               pad_rows_to: Optional[int] = None,
+               pad_grid_to: Optional[tuple] = None,
+               dtype=None, pin: bool = False) -> dict:
+    """Pad single-slide tables to common shapes and stack them on the host:
+    a dict of CPU tensors (fts at `wire_dtype(storage, dtype)`, the rest
+    int32), in page-locked memory when `pin`."""
     b = len(tables)
     m = max(max(t["fts"].shape[0] for t in tables), min_rows)
     if pad_rows_to is not None:
@@ -88,7 +169,9 @@ def stack_tables(tables: Sequence[dict], min_rows: int = 0,
         h, w = max(h, pad_grid_to[0]), max(w, pad_grid_to[1])
     d = tables[0]["fts"].shape[1]
 
-    fts = np.zeros((b, m, d), stack_dtype([t["fts"].dtype for t in tables]))
+    host_dt = host_stack_dtype([t["fts"].dtype for t in tables])
+    fts = torch.zeros((b, m, d), dtype=wire_dtype(host_dt, dtype),
+                      pin_memory=pin)
     locs = np.zeros((b, m, 2), np.int32)
     count = np.zeros((b,), np.int32)
     index = np.full((b, h, w), -1, np.int32)
@@ -96,18 +179,31 @@ def stack_tables(tables: Sequence[dict], min_rows: int = 0,
     for i, t in enumerate(tables):
         mi = t["fts"].shape[0]
         hi, wi = t["index"].shape
-        fts[i, :mi] = t["fts"]
+        fill_rows(fts, i, t["fts"])
         locs[i, :mi] = t["locs"]
         count[i] = t["count"]
         index[i, :hi, :wi] = t["index"]
         grid_hw[i] = t["grid_hw"]
+    return {"fts": fts, "locs": torch.from_numpy(locs),
+            "count": torch.from_numpy(count), "index": torch.from_numpy(index),
+            "grid_hw": torch.from_numpy(grid_hw)}
 
-    def put(a):
-        return torch.from_numpy(a).to(device).long()
 
-    return LevelTable(fts=torch.from_numpy(fts).to(device).to(dtype),
-                      locs=put(locs), count=put(count), index=put(index),
-                      grid_hw=put(grid_hw))
+def stack_tables(tables: Sequence[dict], min_rows: int = 0,
+                 pad_rows_to: Optional[int] = None,
+                 pad_grid_to: Optional[tuple] = None,
+                 dtype: torch.dtype = torch.float32,
+                 device="cuda") -> LevelTable:
+    """Pad single-slide tables to common shapes, stack, and place them on
+    `device`: the features cross at `wire_dtype(storage, dtype)` and are
+    cast to `dtype` there; index arrays arrive as int64."""
+    device = torch.device(device)
+    host = stack_host(tables, min_rows, pad_rows_to, pad_grid_to, dtype,
+                      pin=pin_staging(device))
+    dev = {k: v.to(device, non_blocking=True) for k, v in host.items()}
+    return LevelTable(fts=dev["fts"].to(dtype), locs=dev["locs"].long(),
+                      count=dev["count"].long(), index=dev["index"].long(),
+                      grid_hw=dev["grid_hw"].long())
 
 
 def bag_widths(top_k_patches, num_levels: int, n0: int):

@@ -1,25 +1,33 @@
 """Serving session: slide ids in, predictions out (counterpart of the live
-fused branch of `paths_tpu.serve`).
+branches of `paths_tpu.serve`).
 
 A session owns a feature store and a model. Each request is collated into
 statically-shaped batches (the trainer's bucketed collation, store-wide pads
 under `static_shapes`, power-of-two batch widths), placed on the device and
-run through the hierarchical forward. The StableHLO-artifact, streaming and
-multi-device branches of the JAX package are not ported yet.
+run through the hierarchical forward of the model's engine: fused (every
+level's tables on the device), streaming (the level-0 bag on the device, the
+deeper tables gathered on the host level by level) or auto (fused when the
+store's fused batch fits the device's memory). A device-resident LRU keeps
+the last few collated batches, so a repeated request skips collation and the
+copy to the card. The StableHLO-artifact and multi-device branches of the
+JAX package are not ported yet.
 """
 from __future__ import annotations
 
 import os
 import threading
+from collections import OrderedDict
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from paths_tpu_torch.config import Config, power_str
-from paths_tpu_torch.data.dataset import SlideDataset, collate_batch
+from paths_tpu_torch.data.dataset import SlideDataset, collate_bag0, collate_batch
 from paths_tpu_torch.data.feature_store import FeatureStore
+from paths_tpu_torch.engine.auto import resolve_engine
 from paths_tpu_torch.engine.hierarchy import end2end_forward
+from paths_tpu_torch.engine.streaming import StreamingEngine
 from paths_tpu_torch.models.recursive import RecursiveModel
 from paths_tpu_torch.train.metrics import class_probs, survival_risk
 from paths_tpu_torch.train.state import load_model
@@ -55,6 +63,10 @@ def store_slide_ids(store: FeatureStore, base_power: float) -> List[str]:
     return sorted(ids)
 
 
+def _pred(config: Config, logits: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(logits) if config.task == "survival" else logits
+
+
 def serving_forward(model: RecursiveModel, config: Config, bag,
                     tables) -> dict:
     """Prediction-only forward (counterpart of `export.make_serving_fn`):
@@ -62,8 +74,7 @@ def serving_forward(model: RecursiveModel, config: Config, bag,
     survival, raw logits for subtype classification."""
     outs = end2end_forward(model, config, bag, tables)
     logits = outs[-1]["logits"]
-    pred = torch.sigmoid(logits) if config.task == "survival" else logits
-    return {"pred": pred, "logits": logits,
+    return {"pred": _pred(config, logits), "logits": logits,
             "importances": [o["importance"] for o in outs]}
 
 
@@ -76,18 +87,28 @@ class ServingSession:
     :param batch_size: serving batch width (default: the config's)
     :param cache_slides: keep materialized slide tables in host RAM across
         requests
+    :param cache_batches: keep up to this many collated batches on the
+        device, keyed by their padded slide indices: a repeated request then
+        skips collation and the copy to the card, the dominant serving cost,
+        and pays only the forward. 0 disables.
     :param device: where the model runs; "cuda" unless the caller asks for
         the CPU
+    :param artifact, mesh: the JAX package's exported-artifact and
+        multi-device sessions; not ported (NotImplementedError)
     """
 
     def __init__(self, model_dir: str, store_root: str = None,
                  batch_size: int = None, cache_slides: bool = True,
-                 device="cuda"):
-        self.config = Config.load(model_dir, test_mode=True)
-        if self.config.engine != "fused":
+                 cache_batches: int = 4, device="cuda", *, artifact=None,
+                 mesh=None):
+        if artifact is not None:
             raise NotImplementedError(
-                f"engine={self.config.engine!r}: only the fused engine is "
-                "ported")
+                "artifact serving is not ported (ROADMAP.md Queue 1 item 10)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device serving is not ported (ROADMAP.md Queue 1 "
+                "item 8)")
+        self.config = Config.load(model_dir, test_mode=True)
         self.device = torch.device(device)
         self.model_dir = model_dir
         self.store = FeatureStore(store_root or self.config.preprocess_dir)
@@ -95,13 +116,26 @@ class ServingSession:
         self._dataset = SlideDataset(self.slide_ids, self.config, self.store,
                                      cache_slides=cache_slides)
         self._index: Dict[str, int] = {s: i for i, s in enumerate(self.slide_ids)}
-        self._lock = threading.Lock()   # one batch on the device at a time
-        # store-wide pads: every request of a batch width has one shape
-        self._pads = (self._dataset.global_pads()
-                      if self.config.static_shapes and self.slide_ids else None)
         self.batch_size = batch_size or self.config.batch_size[0]
+        if self.config.engine == "auto":
+            # resolve from the store's shape bounds; the session owns its
+            # config copy, so recording the decision on it is safe
+            self.config.engine = resolve_engine(
+                self.config,
+                self._dataset.global_pads() if self.slide_ids else None,
+                self.batch_size, device=self.device)
+        self._streaming = self.config.engine == "streaming"
+        self._lock = threading.Lock()   # one batch on the device at a time
+        self._batch_cache: "OrderedDict" = OrderedDict()
+        self._cache_batches = cache_batches
+        # store-wide pads: every request of a batch width has one shape; the
+        # streaming engine pads only the level-0 bag
+        self._pads = (self._dataset.global_pads(level0_only=self._streaming)
+                      if self.config.static_shapes and self.slide_ids else None)
         model = load_model(model_dir, RecursiveModel(self.config))
         self.model = model.to(self.device).eval().requires_grad_(False)
+        self._eng = (StreamingEngine(self.config, self.device)
+                     if self._streaming else None)
 
     def _pad_width(self, n: int) -> int:
         """Batch width for an n-slide chunk: the next power of two, capped
@@ -111,17 +145,46 @@ class ServingSession:
             width *= 2
         return min(width, self.batch_size)
 
+    def _cached(self, padded: Sequence[int], assemble):
+        """Device-resident LRU of collated batches keyed by the padded slide
+        indices: a repeated request skips collation and the copy."""
+        if not self._cache_batches:
+            return assemble()
+        key = tuple(padded)
+        hit = self._batch_cache.pop(key, None)
+        if hit is None:
+            hit = assemble()
+        self._batch_cache[key] = hit
+        while len(self._batch_cache) > self._cache_batches:
+            self._batch_cache.popitem(last=False)
+        return hit
+
     def _run(self, indices: Sequence[int]) -> np.ndarray:
         """One device batch, padded by repeating the last slide. Returns the
         pred rows of `indices` only."""
         n = len(indices)
         padded = list(indices) + [indices[-1]] * (self._pad_width(n) - n)
-        bag, tables = collate_batch(
-            self._dataset, padded, level0_bucket=self.config.level0_bucket,
-            pads=self._pads, device=self.device)
-        with torch.inference_mode():
-            out = serving_forward(self.model, self.config, bag, tables)
-        return out["pred"][:n].float().cpu().numpy()
+        bucket = self.config.level0_bucket
+        if self._streaming:
+            bag0 = self._cached(padded, lambda: collate_bag0(
+                self._dataset, padded, level0_bucket=bucket, pads=self._pads,
+                device=self.device))
+            slides = [self._dataset.slides[i] for i in padded]
+            with torch.inference_mode():
+                outs, _ = self._eng.forward(self.model, bag0,
+                                            [s.tables for s in slides])
+                pred = _pred(self.config, outs[-1]["logits"])
+            if not self._dataset.cache_slides:
+                for s in slides:
+                    s.unload()
+        else:
+            bag, tables = self._cached(padded, lambda: collate_batch(
+                self._dataset, padded, level0_bucket=bucket, pads=self._pads,
+                device=self.device))
+            with torch.inference_mode():
+                pred = serving_forward(self.model, self.config, bag,
+                                       tables)["pred"]
+        return pred[:n].float().cpu().numpy()
 
     def predict(self, slide_ids: Sequence[str]) -> List[dict]:
         """Predictions for `slide_ids`, in order. Raises KeyError for
@@ -136,3 +199,13 @@ class ServingSession:
                 preds.append(self._run(indices[s: s + self.batch_size]))
         pred = np.concatenate(preds) if preds else np.zeros((0,))
         return prediction_rows(self.config, slide_ids, pred)
+
+    def info(self) -> dict:
+        return {
+            "task": self.config.task,
+            "model_dir": self.model_dir,
+            "num_slides": len(self.slide_ids),
+            "batch_size": self.batch_size,
+            "backend": "live-streaming" if self._streaming else "live",
+            "device": str(self.device),
+        }

@@ -1,5 +1,4 @@
-"""The training loop (counterpart of `paths_tpu.train.loop`: the fused
-engine on one device).
+"""The training loop (counterpart of `paths_tpu.train.loop` on one device).
 
 AdamW with per-epoch exponential LR decay, a per-batch end-to-end
 hierarchical forward and backward, periodic validation with optional
@@ -11,8 +10,13 @@ rule, and the optimizer. Batches are collated on a background thread and
 padded to the full batch width with zero-weighted duplicates, so every
 batch of a run has one shape.
 
-Not ported: the streaming and auto engines, meshes over more than one
-device, and `remat` raise NotImplementedError.
+`config.engine` picks the fused engine (every level's tables on the
+device), the streaming engine (`engine/streaming.py`: the deeper tables stay
+on the host) or "auto" (`engine/auto.py`: fused when the fused batch fits
+the device's memory).
+
+Not ported: meshes over more than one device, `remat` and the Orbax backend
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,13 +32,17 @@ import torch
 from paths_tpu_torch.config import Config
 from paths_tpu_torch.data.dataset import (
     SlideDataset,
+    collate_bag0,
     collate_batch,
     labels_on,
     pad_batch_indices,
     union_pads,
 )
+from paths_tpu_torch.engine.auto import resolve_engine
 from paths_tpu_torch.engine.hierarchy import end2end_loss
+from paths_tpu_torch.engine.streaming import StreamingEngine
 from paths_tpu_torch.models.recursive import RecursiveModel
+from paths_tpu_torch.profiling import host_rss_mb
 from paths_tpu_torch.train.evaluators import make_evaluator
 from paths_tpu_torch.train.logging import MetricsLogger
 from paths_tpu_torch.train.state import load_state, save_state
@@ -72,6 +80,21 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def optimizer_step(config: Config, optimizer: torch.optim.Optimizer) -> None:
+    """Apply the gradients in `.grad`: the optional global-norm clip, then
+    AdamW. Both engines' train steps end here."""
+    if config.clip_grad_norm:
+        clip_by_global_norm_([p.grad for g in optimizer.param_groups
+                              for p in g["params"] if p.grad is not None],
+                             config.clip_grad_norm)
+    optimizer.step()
+
+
+def epoch_lr(config: Config, epoch: int) -> float:
+    """The learning rate of `epoch` (counted from 1): exponential decay."""
+    return config.lr * config.lr_decay_per_epoch ** (epoch - 1)
+
+
 def make_step_fns(config: Config, optimizer: torch.optim.Optimizer):
     """(update, evaluate), both eager.
 
@@ -84,17 +107,12 @@ def make_step_fns(config: Config, optimizer: torch.optim.Optimizer):
 
     def update(model, bag0, tables, labels, generator=None, epoch=None):
         if epoch is not None:
-            set_lr(optimizer,
-                   config.lr * config.lr_decay_per_epoch ** (epoch - 1))
+            set_lr(optimizer, epoch_lr(config, epoch))
         optimizer.zero_grad(set_to_none=True)
         loss, aux = end2end_loss(model, config, bag0, tables, labels,
                                  training=True, generator=generator)
         loss.backward()
-        if config.clip_grad_norm:
-            clip_by_global_norm_([p.grad for g in optimizer.param_groups
-                                  for p in g["params"] if p.grad is not None],
-                                 config.clip_grad_norm)
-        optimizer.step()
+        optimizer_step(config, optimizer)
         return loss.detach(), _detach(aux)
 
     @torch.no_grad()
@@ -176,6 +194,36 @@ def _epoch_batches(dataset: SlideDataset, batch_size: int, *, shuffle: bool,
     yield from _prefetch(gen())
 
 
+def _epoch_batches_streaming(dataset: SlideDataset, batch_size: int, *,
+                             shuffle: bool, seed: int, config: Config,
+                             pads=None, device="cuda"):
+    """Streaming-engine batches: (bag0 on `device`, per-slide host table
+    lists, labels on `device`, weights, slides). The deeper tables never
+    leave host memory. A background thread (`_prefetch`) loads the next
+    batch's tables and collates its level-0 bag while the card runs the
+    current one. Under static shapes (`pads`) the last partial batch is
+    padded to the full width, as in `_epoch_batches`."""
+    target = batch_size if pads is not None else 1
+
+    def gen():
+        order = np.arange(len(dataset))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        for s in range(0, len(order), batch_size):
+            idx, w = pad_batch_indices(order[s: s + batch_size].tolist(),
+                                       target)
+            bag0 = collate_bag0(dataset, idx,
+                                level0_bucket=config.level0_bucket, pads=pads,
+                                device=device)
+            slides = [dataset.slides[i] for i in idx]
+            host_tables = [s_.tables for s_ in slides]
+            labels = labels_on(dataset, idx, device)
+            labels["weight"] = torch.from_numpy(w).to(device)
+            yield bag0, host_tables, labels, w, slides
+
+    yield from _prefetch(gen())
+
+
 class _DeferredRegister:
     """Register batch k's outputs with an evaluator only when batch k+1's
     are pushed: reading the loss and predictions waits for the card, and
@@ -201,10 +249,6 @@ class _DeferredRegister:
 
 
 def _refuse_unported(config: Config) -> None:
-    if config.engine != "fused":
-        raise NotImplementedError(
-            f"engine={config.engine!r}: only the fused engine is ported "
-            "(ROADMAP.md Queue 1, 'Streaming and auto engines')")
     if config.mesh_shape and math.prod(config.mesh_shape) > 1:
         raise NotImplementedError(
             f"mesh_shape={config.mesh_shape}: the port trains on one device "
@@ -229,12 +273,26 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
     set_matmul_precision(config.compute_dtype)
     device = torch.device(device)
     log = logger or MetricsLogger(model_dir, config.to_dict(), use_wandb="no")
+    splits = [d for d in (train_ds, val_ds, test_ds) if d is not None]
 
-    # one padded shape for train and both eval splits
+    engine = config.engine
+    if engine == "auto":
+        # price the fused engine's residency from the full-shape scan; the
+        # same pads then drive static collation
+        auto_pads = union_pads(*(d.global_pads() for d in splits))
+        engine = resolve_engine(config, auto_pads, config.batch_size[0],
+                                verbose=verbose, device=device)
+    streaming = engine == "streaming"
+
+    # one padded shape for train and both eval splits; the streaming engine
+    # pads only the level-0 bag, so its scan reads one grid per slide
     pads = None
     if config.static_shapes:
-        pads = union_pads(*(d.global_pads() for d in (train_ds, val_ds, test_ds)
-                            if d is not None))
+        if config.engine == "auto":
+            pads = auto_pads   # full pads; streaming reads n0 only
+        else:
+            pads = union_pads(*(d.global_pads(level0_only=streaming)
+                                for d in splits))
 
     model = RecursiveModel(
         config, generator=torch.Generator().manual_seed(config.seed)).to(device)
@@ -248,6 +306,7 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
         train_stats.setdefault(key, {})
 
     update, evaluate = make_step_fns(config, optimizer)
+    eng = StreamingEngine(config, device) if streaming else None
     batch_size = config.batch_size[0]
     generator = torch.Generator(device=device).manual_seed(config.seed + 1)
     best_val_score = -1.0
@@ -267,15 +326,50 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
             return eval_cache[id(dataset)]
         return batches
 
+    def streaming_eval_batches(dataset, cacheable):
+        """Streaming counterpart of `eval_batches`: the cache holds the
+        device side of each batch (level-0 bag, labels, weights) and the
+        slides, whose tables are rebuilt from the store when they were
+        unloaded; the lookups ship fresh every pass (they follow the live
+        weights' selections)."""
+        cacheable = cacheable and config.cache_eval_batches
+        cached = eval_cache.get(id(dataset)) if cacheable else None
+        if cached is not None:
+            for bag0, labels, w, slides in cached:
+                yield bag0, [s_.tables for s_ in slides], labels, w, slides
+            return
+        fresh = []
+        for bag0, host_tables, labels, w, slides in _epoch_batches_streaming(
+                dataset, batch_size, shuffle=False, seed=0, config=config,
+                pads=pads, device=device):
+            if cacheable:
+                fresh.append((bag0, labels, w, slides))
+            yield bag0, host_tables, labels, w, slides
+        if cacheable:
+            eval_cache[id(dataset)] = fresh
+
+    def unload(dataset, slides):
+        if not dataset.cache_slides:
+            for s_ in slides:
+                s_.unload()
+
     def run_eval(dataset, evaluator, cacheable=False):
         reg = _DeferredRegister(evaluator)
-        for bag0, tables, labels, w in eval_batches(dataset, cacheable):
-            loss, aux = evaluate(model, bag0, tables, labels)
-            reg.push(labels, aux["pred"], loss, w)
+        if streaming:
+            for bag0, host_tables, labels, w, slides in \
+                    streaming_eval_batches(dataset, cacheable):
+                loss, pred = eng.evaluate(model, bag0, host_tables, labels)
+                reg.push(labels, pred, loss, w)
+                unload(dataset, slides)
+        else:
+            for bag0, tables, labels, w in eval_batches(dataset, cacheable):
+                loss, aux = evaluate(model, bag0, tables, labels)
+                reg.push(labels, aux["pred"], loss, w)
         reg.flush()
 
     if verbose:
-        print(f"Training starts at epoch {start_epoch} (device {device})")
+        print(f"Training starts at epoch {start_epoch} (device {device}, "
+              f"engine {engine})")
 
     train_eval = make_evaluator(config, "train")
     val_eval = make_evaluator(config, "val")
@@ -283,19 +377,37 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
     for e in range(start_epoch, config.num_epochs + 1):
         t0 = time.time()
         reg = _DeferredRegister(train_eval)
-        for bag0, tables, labels, w in _epoch_batches(
-                train_ds, batch_size, shuffle=True,
-                seed=config.seed * 100_003 + e, config=config, pads=pads,
-                device=device):
-            loss, aux = update(model, bag0, tables, labels, generator, epoch=e)
-            reg.push(labels, aux["pred"], loss, w)
+        seed = config.seed * 100_003 + e
+        if streaming:
+            set_lr(optimizer, epoch_lr(config, e))
+            for bag0, host_tables, labels, w, slides in _epoch_batches_streaming(
+                    train_ds, batch_size, shuffle=True, seed=seed,
+                    config=config, pads=pads, device=device):
+                loss, pred, _ = eng.loss_and_grad(model, bag0, host_tables,
+                                                  labels, generator=generator)
+                optimizer_step(config, optimizer)
+                reg.push(labels, pred, loss, w)
+                unload(train_ds, slides)
+        else:
+            for bag0, tables, labels, w in _epoch_batches(
+                    train_ds, batch_size, shuffle=True, seed=seed,
+                    config=config, pads=pads, device=device):
+                loss, aux = update(model, bag0, tables, labels, generator,
+                                   epoch=e)
+                reg.push(labels, aux["pred"], loss, w)
         reg.flush()
         log.log(train_eval.calculate(train_stats, e) | {"epoch": e})
         train_eval.reset()
+        # run telemetry: wall time and host memory per epoch, so long runs
+        # show both stay bounded
         train_stats.setdefault("epoch_wall_s", {})[e] = round(
             time.time() - t0, 2)
+        rss = host_rss_mb()
+        if rss is not None:
+            train_stats.setdefault("host_rss_mb", {})[e] = rss
         if verbose:
-            print(f"Epoch {e}/{config.num_epochs} ({time.time() - t0:.1f}s) "
+            print(f"Epoch {e}/{config.num_epochs} ({time.time() - t0:.1f}s, "
+                  f"rss {rss or 0:.0f}MB) "
                   f"train_loss={train_stats['train_loss'].get(e, float('nan')):.4f}")
 
         # periodic checkpoint; under early stopping the saved checkpoint

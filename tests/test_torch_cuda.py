@@ -793,3 +793,64 @@ def test_vit_apply_routes_launch_their_kernels(card, impl, swiglu):
     assert delta == expect
     rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
     assert rel < (5e-2 if impl == "int8" else 1e-4), rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.05])
+def test_streaming_engine_matches_fused_at_flagship_width(card, tmp_path,
+                                                          dropout):
+    """`brca_paths_0` at full width (5 levels, K 20, 1024-d, trans_dim 128)
+    on the kernel route, 8 synthetic slides: the streaming engine's loss,
+    predictions and gradients equal the fused engine's (the same kernels on
+    the same values), also under dropout from one generator seed; #1 and
+    #2 / #3 launch once per decoder layer per level in each (dropout 0)."""
+    import os
+
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.dataset import SlideDataset, collate_batch
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.data.synthetic import make_synthetic_store
+    from paths_tpu_torch.engine.hierarchy import end2end_loss
+    from paths_tpu_torch.engine.streaming import StreamingEngine
+    from paths_tpu_torch.models.recursive import RecursiveModel
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.load(os.path.join(root, "models", "brca_paths_0"),
+                      test_mode=True)
+    cfg.attention_impl = "pallas"
+    cfg.model_config.dropout = dropout
+    ids = make_synthetic_store(str(tmp_path), cfg, num_slides=8,
+                               base_hw=(6, 8), seed=0)
+    ds = SlideDataset(ids, cfg, FeatureStore(str(tmp_path)))
+    idx = list(range(8))
+    bag, tables = collate_batch(ds, idx, level0_bucket=cfg.level0_bucket,
+                                device=card)
+    labels = {"survival_bin": torch.arange(8, device=card) % cfg.nbins,
+              "censored": (torch.arange(8, device=card) % 3 == 0).int()}
+    model = RecursiveModel(cfg, generator=torch.Generator().manual_seed(0)).to(card)
+
+    counters = (tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd_dq,
+                tfa.masked_flash_attention_bwd_dkv)
+    before = [f.launches for f in counters]
+    loss, aux = end2end_loss(model, cfg, bag, tables, labels, training=True,
+                             generator=torch.Generator(card).manual_seed(3))
+    loss.backward()
+    want = {n: p.grad.clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+    mid = [f.launches for f in counters]
+    got_loss, pred, got = StreamingEngine(cfg, card).loss_and_grad(
+        model, bag, [ds.slides[i].tables for i in idx], labels,
+        generator=torch.Generator(card).manual_seed(3))
+    torch.cuda.synchronize()
+    after = [f.launches for f in counters]
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    want_launches = [per] * 3 if dropout == 0 else [0] * 3
+    assert [m - b for m, b in zip(mid, before)] == want_launches
+    assert [a - m for a, m in zip(after, mid)] == want_launches
+    torch.testing.assert_close(got_loss, loss.detach(), rtol=1e-6, atol=0)
+    torch.testing.assert_close(pred, aux["pred"].detach(), rtol=1e-6, atol=0)
+    assert sorted(got) == sorted(want)
+    scale = max(g.abs().max().item() for g in want.values())
+    for name, w in want.items():
+        torch.testing.assert_close(got[name], w, rtol=0, atol=1e-6 * scale,
+                                   msg=name)

@@ -120,3 +120,94 @@ def test_port_imports_neither_jax_nor_reference_package():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _model_dir(tmp_path, served, impl="xla", **changes):
+    """A copy of the served model directory with config fields changed."""
+    import shutil
+
+    from paths_tpu.config import Config as JConfig
+
+    src = served[2][impl]
+    dst = str(tmp_path / f"model_{impl}_{'_'.join(changes.values())}")
+    shutil.copytree(src, dst)
+    cfg = JConfig.load(dst, test_mode=True)
+    for k, v in changes.items():
+        setattr(cfg, k, v)
+    cfg.save(dst)
+    return dst
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_streaming_session_matches_jax_and_fused(tmp_path, monkeypatch,
+                                                 served, impl):
+    """A streaming session against JAX's streaming session and the port's
+    fused session, requests of 1, 3 and 5 slides; "auto" on the CPU
+    resolves to fused (the store is far below an H100's memory)."""
+    import paths_tpu.kernels.flash_attention as fa
+
+    monkeypatch.setattr(fa, "INTERPRET", True)
+    _, ids, dirs = served
+    sdir = _model_dir(tmp_path, served, impl, engine="streaming")
+    jsess = JSession(sdir, batch_size=4, cache_batches=0)
+    sess = ServingSession(sdir, batch_size=4, device="cpu")
+    fused = ServingSession(dirs[impl], batch_size=4, device="cpu")
+    assert sess.info()["backend"] == "live-streaming"
+    assert sess._pads["rows"] == [0] * sess.config.num_levels
+    for req in (ids[:1], ids[1:4], ids):
+        got = sess.predict(req)
+        assert [r["slide_id"] for r in got] == req
+        for want in (jsess.predict(req), fused.predict(req)):
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a["hazards"], b["hazards"],
+                                           atol=TOL, rtol=0)
+    auto = ServingSession(_model_dir(tmp_path, served, impl, engine="auto"),
+                          batch_size=4, device="cpu")
+    assert auto.config.engine == "fused" and auto.info()["backend"] == "live"
+
+
+@pytest.mark.parametrize("engine", ["fused", "streaming"])
+def test_batch_lru(tmp_path, monkeypatch, served, engine):
+    """A repeated request is served from the device-resident batch cache
+    without collating; the least recently used batch is evicted beyond
+    `cache_batches`, and `cache_batches=0` collates every time."""
+    import paths_tpu_torch.serve as tserve
+
+    _, ids, _ = served
+    name = "collate_batch" if engine == "fused" else "collate_bag0"
+    calls = []
+    real = getattr(tserve, name)
+
+    def spy(ds, idx, **kw):
+        calls.append(tuple(idx))
+        return real(ds, idx, **kw)
+
+    monkeypatch.setattr(tserve, name, spy)
+    sdir = _model_dir(tmp_path, served, engine=engine)
+    sess = ServingSession(sdir, batch_size=4, cache_batches=2, device="cpu")
+    first = sess.predict(ids[:2])
+    assert sess.predict(ids[:2]) == first and len(calls) == 1
+    sess.predict(ids[2:3])
+    sess.predict(ids[:2])
+    assert len(calls) == 2                  # [0, 1] was still cached
+    sess.predict(ids[3:4])                  # evicts [2], the oldest use
+    assert list(sess._batch_cache) == [(0, 1), (3,)]
+    sess.predict(ids[2:3])                  # collated again; evicts [0, 1]
+    assert len(calls) == 4 and calls[-1] == (2,)
+    assert list(sess._batch_cache) == [(3,), (2,)]
+    off = ServingSession(sdir, batch_size=4, cache_batches=0, device="cpu")
+    calls.clear()
+    off.predict(ids[:2])
+    off.predict(ids[:2])
+    assert len(calls) == 2 and not off._batch_cache
+
+
+def test_session_info_and_unported_branches(served):
+    _, ids, dirs = served
+    sess = ServingSession(dirs["xla"], batch_size=4, device="cpu")
+    assert sess.info() == {"task": "survival", "model_dir": dirs["xla"],
+                           "num_slides": len(ids), "batch_size": 4,
+                           "backend": "live", "device": "cpu"}
+    for kw, item in (({"artifact": "x.bin"}, "item 10"), ({"mesh": 2}, "item 8")):
+        with pytest.raises(NotImplementedError, match=item):
+            ServingSession(dirs["xla"], device="cpu", **kw)

@@ -339,8 +339,8 @@ def test_checkpoints_resume_across_packages(tmp_path, store, clip):
 
 def test_unported_options_raise(tmp_path, store):
     tmp, _, _ = store
-    for kw in (dict(engine="streaming"), dict(engine="auto"), dict(remat=True),
-               dict(mesh_shape=[2, 1]), dict(checkpoint_backend="orbax")):
+    for kw in (dict(remat=True), dict(mesh_shape=[2, 1]),
+               dict(checkpoint_backend="orbax")):
         _, tcfg = configs(tmp, **kw)
         with pytest.raises(NotImplementedError):
             tloop.train_loop(tcfg, str(tmp_path), None, None, None,
@@ -398,6 +398,22 @@ def test_train_loop_matches_jax(tmp_path, store):
     cstats = main(["-m", cached, "--no-wandb", "--device", "cpu"])
     for key in ("train_loss", "val_loss", "val_c-index"):
         assert cstats[key] == tstats[key], key
+
+
+def test_train_loop_records_host_rss_per_epoch(tmp_path, store, capsys):
+    """Each epoch's resident set size lands in train_stats and its line,
+    as in the JAX package."""
+    tmp, _, _ = store
+    _, tcfg = configs(tmp, num_epochs=2)
+    splits = tdata.load_splits([0.7, 0.15, 0.15], tcfg.seed, tcfg)
+    stats = tloop.train_loop(tcfg, str(tmp_path), *splits, device="cpu")
+    assert sorted(stats["host_rss_mb"]) == [1, 2]
+    out = capsys.readouterr().out
+    for e in (1, 2):
+        assert stats["host_rss_mb"][e] > 0
+        assert f"rss {stats['host_rss_mb'][e]:.0f}MB" in out
+    with open(os.path.join(str(tmp_path), "train_stats.json")) as f:
+        assert set(json.load(f)["host_rss_mb"]) == {"1", "2"}
 
 
 # --------------------------------------------------- metadata, splits, labels
