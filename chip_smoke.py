@@ -46,6 +46,21 @@ Phases, each printing its own lines:
      `cli.train --profile` writing a trace that names the flash kernels;
      staging: the 32-slide collation and copy into pageable and into
      page-locked memory, in turns;
+  3d. remat: one [train] batch, two steps with `remat` on and off from the
+     same weights (kernel route at dropout 0, plain route at the published
+     0.05 with one generator, and a level-0 bag of 4096 patches): losses and
+     gradients equal to the bit, kernel launches per step, step time and
+     peak memory; ckpt: the [slice] and [train] models written as the
+     reference's `model.pt` and read back by a `ServingSession` and
+     `cli.evaluate` (equal to the bit to the npz route); http:
+     `cli.serve.make_server` over the [slice] session, every route, a
+     32-slide request against `session.predict`, its latency beside the
+     session's own, and four concurrent clients; heatmap: a 24576-px raw
+     blob slide through `cli.heatmap` with UNI on the fused encoder route
+     (encoded on the fly at every depth, the processor on the flash kernel),
+     its launches against what the code predicts, held to the plain
+     attention route on the same features; `--slide-id` on the [slice] store
+     against the session's forward; the int8 and fused1 encoders once each;
   5. ViT block kernels: the fused attention, GELU-MLP and packed-SwiGLU-MLP
      block kernels against their plain versions at the UNI and Virchow2
      shapes (64 images), the attention and GELU-MLP blocks also at
@@ -705,7 +720,8 @@ def training_phase(torch, tfa, gpu):
 
     step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout)
     return counts["pallas"], {"cfg": cfg, "dirs": dirs, "splits": splits,
-                              "model": model, "runs": runs}
+                              "model": model, "runs": runs,
+                              "published_dropout": published_dropout}
 
 
 @contextlib.contextmanager
@@ -1189,7 +1205,8 @@ def lru_phase(torch, tfa, gpu, sl):
 
 def cli_phase(torch, tfa, gpu, tr):
     """`cli.evaluate` and `cli.predict` on the model directory [train]
-    trained on the kernel route, and `cli.train --profile` for one epoch."""
+    trained on the kernel route, and `cli.train --profile` for one epoch.
+    Returns `cli.evaluate`'s metrics."""
     import copy
     import csv
     import glob
@@ -1254,6 +1271,7 @@ def cli_phase(torch, tfa, gpu, tr):
     print(f"[cli] cli.train --profile, 1 epoch in {wall:.1f} s: "
           f"{os.path.basename(traces[0])}, {len(text) / 2**20:.1f} MiB, names "
           f"{', '.join(names)} | {gpu}", flush=True)
+    return out
 
 
 def staging_probe(torch, gpu, sl):
@@ -1286,6 +1304,579 @@ def staging_probe(torch, gpu, sl):
           f"{first[False]:.1f}); page-locked {', '.join(f'{t:.1f}' for t in turns[True])}"
           f" ms (first {first[True]:.1f}, which allocates); the port stages in "
           f"{'page-locked' if pinned else 'pageable'} memory | {gpu}", flush=True)
+
+
+# [remat]: one [train] batch with `remat` on and off. The recompute runs the
+# same kernels on the same values, so loss and gradients are held equal to
+# the bit (no tolerance), at dropout 0 on the kernel route and at the
+# published 0.05 on the plain route over two steps from one generator.
+# A level-0 bag this wide shows what remat saves when level 0 dominates.
+REMAT_WIDE_N0 = 4096
+
+
+def remat_phase(torch, tfa, gpu, tr):
+    """One 32-slide [train] batch, 2 steps each with `remat` on and off from
+    the same weights: kernel launches per step, bitwise loss and gradients,
+    step time and peak memory; then at the published dropout on the plain
+    route, and at a level-0 bag of REMAT_WIDE_N0 patches."""
+    import copy
+
+    from paths_tpu_torch.data.dataset import collate_batch, labels_on, union_pads
+    from paths_tpu_torch.models.batch import PatchBag
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train.loop import make_optimizer, make_step_fns
+    from paths_tpu_torch.train.state import load_model
+
+    cfg, splits = tr["cfg"], tr["splits"]
+    train = splits[0]
+    idx = list(range(cfg.batch_size[0]))
+    pads = union_pads(*(d.global_pads() for d in splits if d is not None))
+    bag, tables = collate_batch(train, idx, level0_bucket=cfg.level0_bucket,
+                                pads=pads, device="cuda")
+    labels = labels_on(train, idx, "cuda")
+    init_dir = os.path.join(WORK, "train_init")   # written by step_checks
+
+    def steps(c, bag0, seed=None):
+        model = load_model(init_dir, RecursiveModel(c)).cuda()
+        update, _ = make_step_fns(c, make_optimizer(c, model.parameters()))
+        gen = (torch.Generator(device="cuda").manual_seed(seed)
+               if seed is not None else None)
+        out = []
+        for _ in range(2):
+            reset_counts(tfa)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = update(model, bag0, tables, labels, gen, epoch=1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            out.append({"loss": loss.item(), "launches": launch_counts(tfa),
+                        "ms": ms, "peak": peak / 2**20,
+                        "step": (peak - base) / 2**20,
+                        "grads": {n: p.grad.clone()
+                                  for n, p in model.named_parameters()
+                                  if p.grad is not None}})
+        del model, update
+        return out
+
+    def compare(label, c, bag0, seed=None):
+        runs = {}
+        for remat in (False, True):
+            cc = copy.deepcopy(c)
+            cc.remat = remat
+            runs[remat] = steps(cc, bag0, seed)
+        for k, (a, b) in enumerate(zip(runs[False], runs[True])):
+            same = [n for n in a["grads"] if torch.equal(a["grads"][n],
+                                                         b["grads"][n])]
+            if a["loss"] != b["loss"] or len(same) != len(a["grads"]) or \
+                    sorted(a["grads"]) != sorted(b["grads"]):
+                raise AssertionError(
+                    f"[remat] {label} step {k + 1}: loss {a['loss']} vs "
+                    f"{b['loss']}, {len(same)} of {len(a['grads'])} gradients "
+                    "equal to the bit")
+        print(f"[remat] {label}: 2 steps, remat off vs on: losses "
+              f"{[r['loss'] for r in runs[False]]} equal to the bit, all "
+              f"{len(runs[False][0]['grads'])} gradients equal to the bit in "
+              f"both steps; kernel launches per step off "
+              f"{runs[False][1]['launches']}, on {runs[True][1]['launches']}; "
+              f"step 2 wall {runs[False][1]['ms']:.1f} vs "
+              f"{runs[True][1]['ms']:.1f} ms; torch.cuda.max_memory_allocated "
+              f"over step 2 {runs[False][1]['peak']:.0f} vs "
+              f"{runs[True][1]['peak']:.0f} MiB (above what was allocated "
+              f"before the step: {runs[False][1]['step']:.0f} vs "
+              f"{runs[True][1]['step']:.0f}) | {gpu}", flush=True)
+        for r in runs.values():
+            for s in r:
+                del s["grads"]
+        return runs
+
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    runs = compare(f"kernel route, dropout 0, {len(idx)} slides, level-0 bag "
+                   f"{bag.fts.shape[1]}", cfg, bag)
+    names = ("masked_flash_attention_fwd", "masked_flash_attention_bwd_dq",
+             "masked_flash_attention_bwd_dkv")
+    for remat, run in runs.items():
+        want = dict(zip(names, (per * (1 + remat), per, per)))
+        if any(s["launches"] != want for s in run):
+            raise AssertionError(f"[remat] remat={remat}: launches "
+                                 f"{[s['launches'] for s in run]}, want {want}")
+
+    c = copy.deepcopy(cfg)
+    c.model_config.dropout = tr["published_dropout"]
+    runs = compare(f"published dropout {c.model_config.dropout} (the plain "
+                   "route, as in JAX), one generator", c, bag, seed=1)
+    if any(any(s["launches"].values()) for r in runs.values() for s in r):
+        raise AssertionError("[remat] a dropout step launched flash kernels")
+
+    b, n, ps = len(idx), REMAT_WIDE_N0, cfg.model_config.patch_size
+    ds_dim, dp_dim = cfg.model_config.ctx_dim()
+    side = int(math.isqrt(n))
+    cells = torch.arange(n, device="cuda")
+    locs = torch.stack([cells // side, cells % side], -1) * ps
+    wide = PatchBag(
+        fts=torch.randn((b, n, cfg.model_config.patch_embed_dim), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0)),
+        locs=locs.expand(b, n, 2), mask=torch.ones((b, n), dtype=torch.bool,
+                                                  device="cuda"),
+        parent_inds=cells.expand(b, n),
+        ctx_slide=torch.zeros((b, 0, ds_dim), device="cuda"),
+        ctx_patch=torch.zeros((b, n, 0, dp_dim), device="cuda"))
+    compare(f"kernel route, dropout 0, a level-0 bag of {n} patches x {b} "
+            "slides (the deeper levels from the [train] tables)", cfg, wide)
+    del wide
+
+
+def ckpt_phase(torch, gpu, sl, tr, cli_out):
+    """The reference's `model.pt` route: the [slice] and [train] models
+    exported with the port's `save_torch_checkpoint` into directories holding
+    only config.json and model.pt; a session there against the npz session,
+    and `cli.evaluate` against the [cli] phase's numbers, both to the bit."""
+    from paths_tpu_torch.cli.evaluate import main as eval_main
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.convert import save_torch_checkpoint
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.serve import ServingSession
+    from paths_tpu_torch.train.state import load_model
+
+    def export(src, name):
+        dst = os.path.join(WORK, name)
+        os.makedirs(dst)
+        shutil.copy(os.path.join(src, "config.json"), dst)
+        model = load_model(src, RecursiveModel(Config.load(src, test_mode=True)))
+        t0 = time.perf_counter()
+        save_torch_checkpoint(os.path.join(dst, "model.pt"), model)
+        took = time.perf_counter() - t0
+        if sorted(os.listdir(dst)) != ["config.json", "model.pt"]:
+            raise AssertionError(f"[ckpt] {dst} holds {os.listdir(dst)}")
+        return dst, took, os.path.getsize(os.path.join(dst, "model.pt"))
+
+    d, took, size = export(sl["dirs"]["pallas"], "ckpt_slice")
+    t0 = time.perf_counter()
+    sess = ServingSession(d, cache_batches=0, device="cuda")
+    open_s = time.perf_counter() - t0
+    got = sess.predict(sl["ids"])
+    want = sl["sess"].predict(sl["ids"])
+    if [r["hazards"] for r in got] != [r["hazards"] for r in want]:
+        raise AssertionError("[ckpt] the model.pt session's hazards differ from "
+                             "the npz session's")
+    print(f"[ckpt] [slice] model written as model.pt ({size / 2**20:.1f} MiB "
+          f"in {took:.2f} s); a ServingSession on config.json + model.pt opened "
+          f"in {open_s:.1f} s: hazards of {len(got)} slides equal to the npz "
+          f"session's to the bit | {gpu}", flush=True)
+    d, _, _ = export(tr["dirs"]["pallas"], "ckpt_train")
+    out = eval_main(["-m", d, "--split", "test"])
+    if out != cli_out:
+        raise AssertionError(f"[ckpt] cli.evaluate on model.pt {out} vs the "
+                             f"[cli] phase's {cli_out}")
+    print(f"[ckpt] cli.evaluate --split test on config.json + model.pt of the "
+          f"[train] model: {out}, equal to the [cli] phase's to the bit | {gpu}",
+          flush=True)
+
+
+def http_phase(torch, tfa, gpu, sl):
+    """`cli.serve.make_server` over the [slice] session on 127.0.0.1, serving
+    in a thread: every route, a 32-slide request against `session.predict`,
+    its latency beside the session's own in turns, and four concurrent
+    clients."""
+    import http.client
+    import threading
+
+    from paths_tpu_torch.cli.serve import make_server
+
+    sess, ids = sl["sess"], sl["ids"]
+    server = make_server(sess, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    host, port = server.server_address[:2]
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        try:
+            conn.request(method, path,
+                         body=None if body is None else json.dumps(body))
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    try:
+        status, health = call("GET", "/healthz")
+        if status != 200 or not health["ok"] or health["device"] != "cuda":
+            raise AssertionError(f"[http] /healthz: {status} {health}")
+        status, listing = call("GET", "/slides")
+        if status != 200 or listing["slide_ids"] != sess.slide_ids:
+            raise AssertionError(f"[http] /slides: {status}")
+        want = sess.predict(ids)
+        reset_counts(tfa)
+        status, out = call("POST", "/predict", {"slide_ids": ids})
+        per = sl["cfg"].model_config.trans_layers * sl["cfg"].num_levels
+        if status != 200 or out["predictions"] != want:
+            raise AssertionError(f"[http] POST /predict of {len(ids)} slides: "
+                                 f"{status}, rows differ from session.predict's")
+        if tfa.masked_flash_attention_fwd.launches != per:
+            raise AssertionError(f"[http] a request launched {launch_counts(tfa)}")
+        http_ms, sess_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call("POST", "/predict", {"slide_ids": ids})
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            sess.predict(ids)
+            sess_ms.append((time.perf_counter() - t0) * 1e3)
+
+        results, errors = {}, []
+
+        def worker(wid):
+            try:
+                req = [ids[(wid * 3 + k) % len(ids)] for k in range(3)]
+                results[wid] = (req, call("POST", "/predict",
+                                          {"slide_ids": req}))
+            except Exception as e:        # noqa: BLE001 — reported below
+                errors.append((wid, e))
+
+        threads = [threading.Thread(target=worker, args=(w,)) for w in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        if errors or len(results) != 4:
+            raise AssertionError(f"[http] concurrent clients: {errors}")
+        for req, (status, out) in results.values():
+            if status != 200 or out["predictions"] != sess.predict(req):
+                raise AssertionError("[http] a concurrent request got other "
+                                     "rows than session.predict's")
+        status, m = call("GET", "/metrics")
+        if (m["requests"], m["errors"], m["slides_predicted"]) != \
+                (10, 0, 4 * len(ids) + 12):    # the /metrics call not counted
+            raise AssertionError(f"[http] /metrics: {m}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"[http] make_server on {host}:{port}: /healthz, /slides, /metrics "
+          f"answer; POST /predict of {len(ids)} slides equals session.predict "
+          f"to the bit and launches #1 {per} times; 4 concurrent clients get "
+          f"their rows; metrics {m} | {gpu}", flush=True)
+    print(f"[http] {len(ids)}-slide request in turns: HTTP "
+          f"{', '.join(f'{t:.1f}' for t in http_ms)} ms, session.predict "
+          f"{', '.join(f'{t:.1f}' for t in sess_ms)} ms (the difference is "
+          f"the HTTP and JSON cost) | {gpu}", flush=True)
+
+
+# [heatmap]: the kernel route's per-depth importances and final logits vs
+# the plain attention route's on the same encoder features: the serving
+# path's hazard bar (the flash kernel's per-layer differences, 2e-5, through
+# 2 decoder layers a level). The kept children must be equal unless the gap
+# between the K-th and (K+1)-th importance is under the same bar.
+HEATMAP_ATOL = 1e-4
+# heatmap_from_store vs the fused session's forward on the same slide: the
+# same kernels on the same values, padded to other widths (the session pads
+# to the store's maxima), which may change the f32 GEMMs' summation order.
+STORE_IMP_ATOL = 1e-5
+# A blob slide this wide at objective power 10: level 0 (0.625x) is a 6 x 6
+# grid of 256-px patches, of which the disc covers 24 or more.
+HEATMAP_SIDE = 24576
+# Level-0 features of the int8 and fused1 routes vs fused's, per patch, as
+# |x_route - x_fused|_2 / |x_fused|_2: each route is held to the plain route
+# within FEATURE_RTOL_BF16 (fused, fused1) or FEATURE_RTOL_INT8 (int8) in
+# [preprocess], so two routes differ by at most the sum of their bars. Their
+# level-0 importances: importance_p depends on patch p's features alone
+# (LSTM, then MLP, then sigmoid), so |imp_route - imp_fused| is bounded to
+# first order by |grad_x imp_p| |x_route - x_fused|; the check allows
+# IMP_TAYLOR times that (the second-order term: sigmoid's curvature and the
+# MLP's kinks), measured on the run's own features and gradients.
+HEATMAP_FEATURE_RTOL = {"fused1": 2 * FEATURE_RTOL_BF16,
+                        "int8": FEATURE_RTOL_BF16 + FEATURE_RTOL_INT8}
+IMP_TAYLOR = 2.0
+
+
+def write_uni_weights(torch, path):
+    """UNI's `vit_init(0)` with LayerScale 1, saved as a timm state dict for
+    `--weights`: the init's LayerScale of 1e-5 leaves every patch nearly the
+    class token's feature, so importances would tie and the recursion would
+    keep the lowest indices; at 1 the random blocks tell patches apart."""
+    from paths_tpu_torch.encoders import vit
+
+    m = vit.vit_init(0, vit.UNI)
+    p, d = m.spec.patch_size, m.spec.embed_dim
+    sd = {"patch_embed.proj.weight":
+          m.patch_embed.weight.reshape(d, p, p, 3).permute(0, 3, 1, 2),
+          "patch_embed.proj.bias": m.patch_embed.bias,
+          "cls_token": m.cls_token.reshape(1, 1, d),
+          "pos_embed": m.pos_embed[None],
+          "norm.weight": m.norm.weight, "norm.bias": m.norm.bias}
+    for i, blk in enumerate(m.blocks):
+        for mod, key in ((blk.norm1, "norm1"), (blk.qkv, "attn.qkv"),
+                         (blk.proj, "attn.proj"), (blk.norm2, "norm2"),
+                         (blk.fc1, "mlp.fc1"), (blk.fc2, "mlp.fc2")):
+            sd[f"blocks.{i}.{key}.weight"] = mod.weight
+            sd[f"blocks.{i}.{key}.bias"] = mod.bias
+        sd[f"blocks.{i}.ls1.gamma"] = sd[f"blocks.{i}.ls2.gamma"] = torch.ones(d)
+    torch.save({k: v.detach().contiguous() for k, v in sd.items()}, path)
+
+
+def heatmap_phase(torch, tfa, tvf, gpu, sl):
+    """A raw blob slide through `cli.heatmap` with UNI on `--block-impl
+    fused` (on-the-fly encoding at each depth, then the processor on the
+    kernel route), held to the plain attention route on the same features;
+    `--slide-id` on the [slice] store against the session's forward; the
+    `int8` and `fused1` encoders once each."""
+    import copy
+
+    import numpy as np
+
+    from paths_tpu_torch.cli.heatmap import main as heatmap_main
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.dataset import collate_batch
+    from paths_tpu_torch.encoders import registry, vit
+    from paths_tpu_torch.engine.hierarchy import end2end_forward
+    from paths_tpu_torch.models.batch import PatchBag
+    from paths_tpu_torch.models.recursive import RecursiveModel, recursive_apply
+    from paths_tpu_torch.train.state import load_model
+    from paths_tpu_torch.viz import heatmap as hm
+
+    try:
+        import matplotlib  # noqa: F401 — only whether the host can draw
+        draw = True
+    except ImportError as e:
+        draw, why = False, str(e)
+    mdir = sl["dirs"]["pallas"]
+    cfg = Config.load(mdir, test_mode=True)
+    slide = os.path.join(WORK, "heatmap_slide.npy")
+    t0 = time.perf_counter()
+    make_blob_slide(slide, HEATMAP_SIDE, seed=0)
+    weights = os.path.join(WORK, "uni_ls1.pt")
+    write_uni_weights(torch, weights)
+    print(f"[heatmap] blob slide of {HEATMAP_SIDE} x {HEATMAP_SIDE} px at "
+          f"objective power 10 ({os.path.getsize(slide) / 2**30:.2f} GiB) and "
+          "UNI weights (vit_init(0), LayerScale 1) written in "
+          f"{time.perf_counter() - t0:.1f} s | {gpu}", flush=True)
+
+    def recorded(encode, calls):
+        def rec(x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = encode(x)
+            torch.cuda.synchronize()
+            calls.append((x, y, (time.perf_counter() - t0) * 1e3))
+            return y
+        return rec
+
+    calls, encoders, init_s = [], [], []
+    real_from_name = registry.from_name
+
+    def from_name(*args, **kwargs):
+        t0 = time.perf_counter()
+        encode, dim, tspec = real_from_name(*args, **kwargs)
+        init_s.append(time.perf_counter() - t0)
+        encoders.append(encode)
+        return recorded(encode, calls), dim, tspec
+
+    def predicted(slides, **kernels):
+        """Launch counts the code gives: #1 once per decoder layer per
+        depth; each named ViT kernel once per block per encoded batch."""
+        batches = sum(math.ceil(len(s.locs) / 256) for s in slides)
+        per = cfg.model_config.trans_layers * cfg.num_levels
+        return {"masked_flash_attention_fwd": per,
+                "masked_flash_attention_bwd_dq": 0,
+                "masked_flash_attention_bwd_dkv": 0,
+                **vit_expect(tvf, **{k: vit.UNI.depth * batches
+                                     for k in kernels})}
+
+    pdf = os.path.join(WORK, "heatmap.pdf")
+    log = []
+    reset_counts(tfa)
+    reset_vit_counts(tvf)
+    torch.cuda.reset_peak_memory_stats()
+    registry.from_name = from_name
+    t0 = time.perf_counter()
+    try:
+        if draw:
+            with timed(torch, hm, ["run_recursion", "heatmap_slide"], log):
+                heatmap_main(["-m", mdir, "-s", slide, "-o", pdf,
+                              "--weights", weights, "--block-impl", "fused",
+                              "--no-camelyon", "--default-power", "10"])
+        else:
+            model = load_model(mdir, RecursiveModel(cfg)).cuda().eval()
+            encode, _, _ = registry.from_name("UNI", weights_path=weights,
+                                              block_impl="fused")
+            with timed(torch, hm, ["run_recursion"], log):
+                hm.run_recursion(cfg, model, encode, slide, camelyon=False,
+                                 default_power=10.0)
+    finally:
+        registry.from_name = real_from_name
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**launch_counts(tfa), **vit_counts(tvf)}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    rec_ms, (slides, imps, logits) = log[0][1], log[0][3]
+    sizes = [len(s.locs) for s in slides]
+    want = predicted(slides, fused_attn_block=1, fused_mlp_block=1)
+    if counts != want:
+        raise AssertionError(f"[heatmap] launches {counts}, the code says {want}")
+    big = slides[0].view_at_power(cfg.base_power)
+    canvas = hm.folded_importance(slides, imps, cfg.model_config.patch_size,
+                                  big.shape[:2])
+    if not (sizes[0] >= 24 and all(np.isfinite(i).all() and (i >= 0).all()
+                                   and (i <= 1).all() for i in imps)
+            and np.isfinite(logits).all() and logits.shape == (1, cfg.nbins)
+            and np.isfinite(canvas).all() and (canvas > 0).any()):
+        raise AssertionError(f"[heatmap] bags {sizes}, logits {logits}")
+    if draw and not os.path.getsize(pdf) > 1000:
+        raise AssertionError(f"[heatmap] {pdf} was not written")
+    enc_ms = sum(c[2] for c in calls)
+    print(f"[heatmap] per-depth bag sizes {sizes}; launches #1 "
+          f"{counts['masked_flash_attention_fwd']}, #4 "
+          f"{counts['fused_attn_block']}, #5 {counts['fused_mlp_block']} (the "
+          f"code says {want['masked_flash_attention_fwd']}, "
+          f"{want['fused_attn_block']}, {want['fused_mlp_block']}); logits "
+          f"{logits[0].round(4).tolist()}", flush=True)
+    render = (f"render {log[1][1] - rec_ms:.0f} ms ({os.path.getsize(pdf) / 1024:.0f}"
+              " KiB PDF)" if draw else "no figure")
+    print(f"[heatmap] cli.heatmap UNI --block-impl fused: {wall:.1f} s wall "
+          f"(encoder load {init_s[0]:.1f} s); recursion {rec_ms:.0f} ms, of "
+          f"which encode {enc_ms:.0f} ms in {len(calls)} batches; {render}; "
+          f"torch.cuda.max_memory_allocated {peak:.0f} MiB | {gpu}", flush=True)
+    if not draw:
+        print(f"[heatmap] figure not drawn: {why} on this host; that is host "
+              "rendering (matplotlib), not the device path, which ran in full",
+              flush=True)
+
+    # the plain attention route on the same encoder features
+    model = load_model(mdir, RecursiveModel(cfg)).cuda().eval()
+    fused_calls, step = list(calls), [0]
+
+    def replay(x):
+        k = step[0]
+        step[0] += 1
+        if k < len(fused_calls) and torch.equal(x, fused_calls[k][0]):
+            return fused_calls[k][1]
+        return encoders[0](x)
+
+    plain = copy.deepcopy(cfg)
+    plain.attention_impl = "xla"
+    reset_counts(tfa)
+    xs, xi, xl = hm.run_recursion(plain, model, replay, slide, camelyon=False,
+                                  default_power=10.0, verbose=False)
+    if any(launch_counts(tfa).values()):
+        raise AssertionError(f"[heatmap] the plain route launched {launch_counts(tfa)}")
+    worst, gaps = [], []
+    for d in range(cfg.num_levels):
+        if d:
+            top = np.sort(imps[d - 1])[::-1]
+            k = cfg.top_k_patches[d - 1]
+            gaps.append(float(top[k - 1] - top[k]) if len(top) > k else None)
+        if not np.array_equal(slides[d].locs, xs[d].locs):
+            if gaps[-1] is None or gaps[-1] >= HEATMAP_ATOL:
+                raise AssertionError(f"[heatmap] depth {d}: the routes keep "
+                                     f"other children (top-K gap {gaps[-1]})")
+            print(f"[heatmap] depth {d}: the routes keep other children, the "
+                  f"top-K gap {gaps[-1]:.3g} is under {HEATMAP_ATOL}", flush=True)
+            break
+        worst.append(float(np.abs(imps[d] - xi[d]).max()))
+    # importances come from the LSTM and MLP of each patch and do not see
+    # the attention; the logits do (through the slide context of every level)
+    logit_diff = (float(np.abs(logits - xl).max())
+                  if len(worst) == cfg.num_levels else None)
+    if max(worst) > HEATMAP_ATOL or (logit_diff or 0.0) > HEATMAP_ATOL:
+        raise AssertionError(f"[heatmap] kernel vs plain importances {worst}, "
+                             f"logits {logit_diff}")
+    print(f"[heatmap] kernel route vs plain attention on the same features: "
+          f"max |importance diff| per depth {[f'{w:.3g}' for w in worst]}, "
+          f"final logits {logit_diff if logit_diff is None else f'{logit_diff:.3g}'}"
+          f" (atol {HEATMAP_ATOL}); gap between the K-th and (K+1)-th "
+          f"importance per depth "
+          f"{[f'{g:.3g}' if g is not None else '-' for g in gaps]}", flush=True)
+
+    # --slide-id: the [slice] store against the fused session's forward
+    sess, sid = sl["sess"], sl["ids"][0]
+    log = []
+    reset_counts(tfa)
+    t0 = time.perf_counter()
+    with timed(torch, hm, ["recursion_from_store"], log):
+        if draw:
+            heatmap_main(["-m", mdir, "--slide-id", sid, "-o",
+                          os.path.join(WORK, "heatmap_store.pdf")])
+        else:
+            hm.recursion_from_store(cfg, model, sid, sess.store)
+    store_s = time.perf_counter() - t0
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    if tfa.masked_flash_attention_fwd.launches != per:
+        raise AssertionError(f"[heatmap] --slide-id launched {launch_counts(tfa)}")
+    s_slides, s_imps = log[0][3]
+    bag, tables = collate_batch(sess._dataset, [sess._index[sid]],
+                                level0_bucket=sess.config.level0_bucket,
+                                pads=sess._pads, device="cuda")
+    with torch.inference_mode():
+        outs = end2end_forward(sess.model, sess.config, bag, tables)
+    diff = 0.0
+    for s_, i_, o in zip(s_slides, s_imps, outs):
+        valid = o["bag"].mask[0].cpu().numpy()
+        if not np.array_equal(s_.locs, o["bag"].locs[0].cpu().numpy()[valid]):
+            raise AssertionError("[heatmap] --slide-id visits other patches "
+                                 "than the session's forward")
+        diff = max(diff, float(np.abs(i_ - o["importance"][0].float().cpu()
+                                      .numpy()[valid]).max()))
+    if diff > STORE_IMP_ATOL:
+        raise AssertionError(f"[heatmap] --slide-id importances vs the session's "
+                             f"forward: {diff:.3g}")
+    print(f"[heatmap] cli.heatmap --slide-id {sid} ([slice] store) in "
+          f"{store_s:.1f} s: bag sizes {[len(s_.locs) for s_ in s_slides]}, "
+          f"per-depth importances vs the fused session's forward on that slide "
+          f"{diff:.3g} (atol {STORE_IMP_ATOL}) | {gpu}", flush=True)
+
+    # the int8 and fused1 encoders: level-0 features and importances vs fused
+    n0 = sizes[0]
+    x_fused = fused_calls[0][1][:n0].float()
+    ds_dim, dp_dim = cfg.model_config.ctx_dim()
+    x = x_fused.clone().requires_grad_(True)
+    lv0 = PatchBag(fts=x[None], mask=torch.ones((1, n0), dtype=torch.bool,
+                                               device="cuda"),
+                   locs=torch.from_numpy(slides[0].locs)[None].cuda(),
+                   parent_inds=torch.arange(n0, device="cuda")[None],
+                   ctx_slide=torch.zeros((1, 0, ds_dim), device="cuda"),
+                   ctx_patch=torch.zeros((1, n0, 0, dp_dim), device="cuda"))
+    recursive_apply(model, plain, 0, lv0)["importance"].sum().backward()
+    grad = x.grad.norm(dim=-1).cpu().numpy()
+    del x, lv0
+    for impl, kernels in (("int8", dict(fused_attn_block_i8=1,
+                                        fused_mlp_block_i8=1)),
+                          ("fused1", dict(fused_block=1))):
+        encode, _, _ = registry.from_name("UNI", weights_path=weights,
+                                          block_impl=impl)
+        rc = []
+        reset_counts(tfa)
+        reset_vit_counts(tvf)
+        t0 = time.perf_counter()
+        r_slides, r_imps, _ = hm.run_recursion(cfg, model, recorded(encode, rc),
+                                               slide, camelyon=False,
+                                               default_power=10.0, verbose=False)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        counts = {**launch_counts(tfa), **vit_counts(tvf)}
+        want = predicted(r_slides, **kernels)
+        if counts != want:
+            raise AssertionError(f"[heatmap] {impl}: launches {counts}, the "
+                                 f"code says {want}")
+        dx = (rc[0][1][:n0].float() - x_fused).norm(dim=-1).cpu().numpy()
+        feat = float((dx / x_fused.norm(dim=-1).cpu().numpy()).max())
+        imp_diff = np.abs(r_imps[0] - imps[0])
+        ratio = float((imp_diff / (IMP_TAYLOR * grad * dx + 1e-7)).max())
+        if feat > HEATMAP_FEATURE_RTOL[impl] or ratio > 1.0:
+            raise AssertionError(f"[heatmap] {impl}: level-0 features {feat:.3g}"
+                                 f" of their norm from fused's, importances at "
+                                 f"{ratio:.3g} x their bar")
+        print(f"[heatmap] --block-impl {impl}: recursion {rec_s:.1f} s, bag "
+              f"sizes {[len(s_.locs) for s_ in r_slides]}, launches "
+              + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+              + f" (the code says the same); level 0 vs fused: features "
+              f"{feat:.3g} of their norm (bar {HEATMAP_FEATURE_RTOL[impl]:.3g}), "
+              f"max |importance diff| {imp_diff.max():.3g}, at {ratio:.3g} x "
+              f"its bar ({IMP_TAYLOR} |grad imp| |dx|) | {gpu}", flush=True)
+        del encode, rc
+    del calls, fused_calls, encoders
+    os.remove(slide)
+    os.remove(weights)
 
 
 def vit_wrappers(tvf):
@@ -2323,8 +2914,12 @@ def main() -> int:
         streaming_training_phase(torch, tfa, gpu, tr)
         auto_phase(sl)
         lru_phase(torch, tfa, gpu, sl)
-        cli_phase(torch, tfa, gpu, tr)
+        cli_out = cli_phase(torch, tfa, gpu, tr)
         staging_probe(torch, gpu, sl)
+        remat_phase(torch, tfa, gpu, tr)
+        ckpt_phase(torch, gpu, sl, tr, cli_out)
+        http_phase(torch, tfa, gpu, sl)
+        heatmap_phase(torch, tfa, tvf, gpu, sl)
         del sl, tr
         vit_cases = vit_kernel_phase(torch, tvf, gpu)
         vit_cases.update(vit_new_kernel_phase(torch, tvf, tvi, gpu))

@@ -4,9 +4,9 @@
     python -m paths_tpu_torch.cli.evaluate -m models/DIR [--split test] \
         [--batch-size N] [--device cuda]
 
-Loads the model directory's `model.npz`, runs the split through the model's
-engine (fused, streaming, or auto priced from the split's shapes) and prints
-the loss and c-index / AUC as JSON. Runs on the card unless `--device cpu`
+Loads the model directory's `model.npz` (or the reference's `model.pt`),
+runs the split through the model's engine (fused, streaming, or auto priced
+from the split's shapes) and prints the loss and c-index / AUC as JSON. Runs on the card unless `--device cpu`
 is given.
 """
 from __future__ import annotations
@@ -54,7 +54,9 @@ def main(argv=None) -> dict:
     if ds is None or not len(ds):
         raise ValueError(f"split '{args.split}' is empty")
 
-    model, _, stats = load_state(args.model_dir, RecursiveModel(config))
+    model, _, stats = load_state(
+        args.model_dir, RecursiveModel(config),
+        checkpoint_backend=config.checkpoint_backend)
     model = model.to(device).eval()
     print(f"Loaded checkpoint from epoch {stats.get('epoch')}")
 

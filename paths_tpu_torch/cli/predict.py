@@ -36,7 +36,7 @@ def main(argv=None) -> list:
     args = parser.parse_args(argv)
     if args.artifact:
         raise NotImplementedError(
-            "artifact serving is not ported (ROADMAP.md Queue 1 item 10)")
+            "artifact serving is not ported (ROADMAP.md Queue 1 item 10b)")
 
     from paths_tpu_torch.config import Config
     from paths_tpu_torch.data.dataset import load_splits
@@ -71,7 +71,9 @@ def main(argv=None) -> list:
         return [r["slide_id"], r["pred"],
                 *[f"{r['probs'][c]:.6f}" for c in config.filter_to_subtypes]]
 
-    model, _, stats = load_state(args.model_dir, RecursiveModel(config))
+    model, _, stats = load_state(
+        args.model_dir, RecursiveModel(config),
+        checkpoint_backend=config.checkpoint_backend)
     model = model.to(device).eval()
     print(f"Loaded checkpoint from epoch {stats.get('epoch')}",
           file=sys.stderr)

@@ -9,6 +9,14 @@ LayerNorm's `scale` becomes `weight` (its `bias` keeps its name). This
 module is the one place where weights are transposed. Head counts are not
 stored; they come from the config.
 
+The reference's own checkpoint, `model.pt` (`RecursiveModel.state_dict()` of
+the original PyTorch PATHS), is read and written through that flat layout:
+`reference_to_jax_flat` maps the reference's keys onto the flat JAX keys
+(splitting `nn.MultiheadAttention`'s packed in-projection into q, k and v)
+and `from_jax_flat` / `load_jax_flat` do the rest; the exporter goes the
+other way from `to_jax_flat`. So a Linear weight is transposed by
+`to_jax_layout` on the way in and on the way out, and nowhere else.
+
 The patch encoders' ViT parameter tree (`paths_tpu.encoders.vit`) is carried
 by `vit_from_jax` / `vit_to_jax`, a tree quantised for the int8 route
 (`{"q", "s"}` leaves in place of the block matrices) included.
@@ -81,6 +89,114 @@ def to_jax_flat(model: RecursiveModel) -> Dict[str, np.ndarray]:
     keys = jax_keys(model)
     return {keys[name]: to_jax_layout(keys[name], p.detach().cpu().numpy())
             for name, p in model.named_parameters()}
+
+
+# segments of a flat JAX key renamed in the reference's key space
+_REF_NAME = {"classification": "classification_layer", "agg": "global_agg",
+             "cross_attn": "multihead_attn", "out": "out_proj",
+             "lin1": "linear1", "lin2": "linear2"}
+_REF_LEAF = {"w": "weight", "b": "bias", "scale": "weight"}
+_ATTN = ("self_attn", "cross_attn")
+
+
+def reference_key(jax_key: str):
+    """(key of the reference `model.pt`, part) for a flat JAX key. `part` is
+    0, 1 or 2 for the q, k or v third of a packed `in_proj_weight` /
+    `in_proj_bias`, else None. The reference's MLPs are `nn.Sequential(Linear,
+    ReLU, Linear)` (Linear j at index 2j), its LSTM gates `nn.Sequential(
+    Linear, activation)` (the Linear at index 0), and its feed-forward Linears
+    sit on the layer itself (`linear1`, `linear2`)."""
+    *path, leaf = jax_key.split("/")
+    out, part = [], None
+    i = 0
+    while i < len(path):
+        seg = path[i]
+        if seg == "layers" and path[i - 1] in ("importance_mlp", "hctx_mlp"):
+            out.append(str(2 * int(path[i + 1])))
+            i += 2
+            continue
+        if seg in ("q", "k", "v") and path[i - 1] in _ATTN:
+            part = "qkv".index(seg)
+        elif seg != "ff":
+            out.append(_REF_NAME.get(seg, seg))
+        i += 1
+    if path[0] == "lstm":
+        out.append("0")
+    if part is not None:
+        out.append("in_proj_weight" if leaf == "w" else "in_proj_bias")
+    else:
+        out.append(_REF_LEAF.get(leaf, leaf))
+    return ".".join(out), part
+
+
+def _numpy(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def reference_to_jax_flat(state_dict, keys) -> Dict[str, np.ndarray]:
+    """A reference `model.pt` state dict (tensors or arrays) -> the flat JAX
+    params dict over `keys` (the JAX keys of the model to load,
+    `jax_keys(model).values()`). A key the model needs and the state dict
+    lacks raises KeyError; keys the model does not need are ignored, as in
+    the JAX package's loader."""
+    flat = {}
+    for key in keys:
+        ref, part = reference_key(key)
+        arr = _numpy(state_dict[ref])
+        if part is not None:
+            d = arr.shape[0] // 3
+            arr = arr[part * d:(part + 1) * d]
+        flat[key] = to_jax_layout(key, arr)
+    return flat
+
+
+def jax_flat_to_reference(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The inverse of `reference_to_jax_flat`: the reference's state dict
+    (numpy arrays, Linear weights (out, in), q / k / v packed into the
+    in-projection in that order)."""
+    sd, packed = {}, {}
+    for key, arr in flat.items():
+        ref, part = reference_key(key)
+        arr = to_jax_layout(key, arr)     # a transpose undoes itself
+        if part is None:
+            sd[ref] = arr
+        else:
+            packed.setdefault(ref, [None] * 3)[part] = arr
+    for ref, parts in packed.items():
+        sd[ref] = np.concatenate(parts, axis=0)
+    return sd
+
+
+def load_reference_state(model: RecursiveModel, state_dict) -> RecursiveModel:
+    """Load a reference state dict into `model` in place and return it."""
+    return load_jax_flat(model, reference_to_jax_flat(state_dict,
+                                                      jax_keys(model).values()))
+
+
+def recursive_from_torch(state_dict, config: Config) -> RecursiveModel:
+    """A new CPU `RecursiveModel` for `config` holding a reference state
+    dict (counterpart of `paths_tpu.convert.recursive_from_torch`)."""
+    return load_reference_state(RecursiveModel(config), state_dict)
+
+
+def load_torch_checkpoint(path: str, model: RecursiveModel) -> RecursiveModel:
+    """Load a reference `model.pt` into `model` in place and return it."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return load_reference_state(model, sd)
+
+
+def recursive_to_torch(model: RecursiveModel) -> Dict[str, np.ndarray]:
+    """The model's weights in the reference's key space: what
+    `RecursiveModel.state_dict()` holds in the original PyTorch PATHS."""
+    return jax_flat_to_reference(to_jax_flat(model))
+
+
+def save_torch_checkpoint(path: str, model: RecursiveModel) -> None:
+    """Write a `model.pt` that the reference loads with strict key
+    matching: contiguous float32 CPU tensors, as `torch.save(
+    model.state_dict())` writes them there."""
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                for k, v in recursive_to_torch(model).items()}, path)
 
 
 # JAX block key path -> (module attribute of `ViTBlock`, parameter, transposed)

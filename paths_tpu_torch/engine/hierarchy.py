@@ -9,12 +9,18 @@ Edge cases follow the JAX package: bags smaller than K, out-of-bounds
 children, and the all-background fallback (every non-background patch of
 the next grid, or raw grid cells when it has none), capped at 4K patches.
 Exact importance ties select the LOWEST bag index.
+
+With `config.remat`, each level's forward runs under
+`torch.utils.checkpoint` and is recomputed in the backward, as the JAX
+package wraps each level in `jax.checkpoint`: the activations held between
+forward and backward are the levels' inputs, not their internals.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from paths_tpu_torch.config import Config
 from paths_tpu_torch.engine.tables import LevelTable
@@ -142,17 +148,50 @@ def hierarchy_step(bag: PatchBag, out: dict, table: LevelTable, k: int,
     return finish_step(sel, lookup_device(sel, table), patch_size)
 
 
+def remat_level(model: RecursiveModel, config: Config, depth: int,
+                bag: PatchBag, *, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> dict:
+    """`recursive_apply` under `torch.utils.checkpoint`: the backward
+    recomputes the level's forward. `preserve_rng_state` keeps only the
+    global generators, and dropout draws from `generator`, so the recompute
+    sets `generator` back to its state at the level's entry (the same masks
+    as the forward) and afterwards to the state it found (where the forward
+    left it: the next step draws what it would draw without remat)."""
+    entry = generator.get_state() if generator is not None else None
+    recompute = False
+
+    def level(bag):
+        nonlocal recompute
+        if not recompute or generator is None:
+            recompute = True
+            return recursive_apply(model, config, depth, bag,
+                                   training=training, generator=generator)
+        found = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return recursive_apply(model, config, depth, bag,
+                                   training=training, generator=generator)
+        finally:
+            generator.set_state(found)
+
+    return checkpoint(level, bag, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def end2end_forward(model: RecursiveModel, config: Config, bag0: PatchBag,
                     tables: List[LevelTable], *, training: bool = False,
                     generator: Optional[torch.Generator] = None) -> List[dict]:
     """Run all levels, returning each level's processor output plus the bag
     it was computed on (`"bag"` key). `tables[i]` feeds the transition from
-    level i to i+1. In training, dropout masks come from `generator`."""
+    level i to i+1. In training, dropout masks come from `generator`. With
+    `config.remat` and autograd on, each level is `remat_level`."""
+    apply = (remat_level if config.remat and torch.is_grad_enabled()
+             else recursive_apply)
     outs = []
     bag = bag0
     for i in range(config.num_levels):
-        out = recursive_apply(model, config, i, bag, training=training,
-                              generator=generator)
+        out = apply(model, config, i, bag, training=training,
+                    generator=generator)
         outs.append({**out, "bag": bag})
         if i != config.num_levels - 1:
             bag = hierarchy_step(bag, out, tables[i], config.top_k_patches[i],

@@ -27,3 +27,21 @@ class PatchBag:
     @property
     def ctx_depth(self) -> int:
         return self.ctx_slide.shape[1]
+
+
+def pad_bag(bag: PatchBag, width: int) -> PatchBag:
+    """Zero-pad the patch axis to `width` (mask False on the padding; a bag
+    at least that wide is returned as it is). Padded rows are inert through
+    every processor op, so this changes shapes only: callers pad to a few
+    widths, so that the kernels see few shapes."""
+    pad = width - bag.fts.shape[1]
+    if pad <= 0:
+        return bag
+
+    def z(x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])],
+                         dim=1)
+
+    return dataclasses.replace(
+        bag, fts=z(bag.fts), locs=z(bag.locs), mask=z(bag.mask),
+        parent_inds=z(bag.parent_inds), ctx_patch=z(bag.ctx_patch))

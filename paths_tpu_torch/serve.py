@@ -81,7 +81,8 @@ def serving_forward(model: RecursiveModel, config: Config, bag,
 class ServingSession:
     """Batched slide-level prediction over a feature store.
 
-    :param model_dir: model directory (config.json + model.npz)
+    :param model_dir: model directory (config.json + model.npz, or the
+        reference's model.pt)
     :param store_root: feature-store root; defaults to the config's
         `preprocess_dir`
     :param batch_size: serving batch width (default: the config's)
@@ -103,7 +104,7 @@ class ServingSession:
                  mesh=None):
         if artifact is not None:
             raise NotImplementedError(
-                "artifact serving is not ported (ROADMAP.md Queue 1 item 10)")
+                "artifact serving is not ported (ROADMAP.md Queue 1 item 10b)")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is not ported (ROADMAP.md Queue 1 "
@@ -132,7 +133,8 @@ class ServingSession:
         # streaming engine pads only the level-0 bag
         self._pads = (self._dataset.global_pads(level0_only=self._streaming)
                       if self.config.static_shapes and self.slide_ids else None)
-        model = load_model(model_dir, RecursiveModel(self.config))
+        model = load_model(model_dir, RecursiveModel(self.config),
+                           self.config.checkpoint_backend)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self._eng = (StreamingEngine(self.config, self.device)
                      if self._streaming else None)

@@ -15,7 +15,9 @@ device), the streaming engine (`engine/streaming.py`: the deeper tables stay
 on the host) or "auto" (`engine/auto.py`: fused when the fused batch fits
 the device's memory).
 
-Not ported: meshes over more than one device, `remat` and the Orbax backend
+With `remat`, each level's forward is recomputed in the backward
+(`engine/hierarchy.py`): between forward and backward only the levels'
+inputs are held. Not ported: meshes over more than one device and the Orbax backend
 raise NotImplementedError.
 """
 from __future__ import annotations
@@ -253,13 +255,11 @@ def _refuse_unported(config: Config) -> None:
         raise NotImplementedError(
             f"mesh_shape={config.mesh_shape}: the port trains on one device "
             "(ROADMAP.md Queue 1, 'Parallel')")
-    if config.remat:
-        raise NotImplementedError(
-            "remat=true is not ported (ROADMAP.md Queue 1, 'Remat')")
     if config.checkpoint_backend != "npz":
         raise NotImplementedError(
             f"checkpoint_backend={config.checkpoint_backend!r}: the port "
-            "writes npz only (ROADMAP.md Queue 1, 'Checkpoint routes')")
+            "writes npz only (ROADMAP.md Queue 1, 'Checkpoint routes', the "
+            "Orbax half)")
 
 
 def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
@@ -298,8 +298,9 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
         config, generator=torch.Generator().manual_seed(config.seed)).to(device)
     optimizer = make_optimizer(config, model.parameters())
     clip = config.clip_grad_norm
-    model, optimizer, train_stats = load_state(model_dir, model, optimizer,
-                                               clip_grad_norm=clip)
+    model, optimizer, train_stats = load_state(
+        model_dir, model, optimizer, clip_grad_norm=clip,
+        checkpoint_backend=config.checkpoint_backend)
     start_epoch = train_stats["epoch"]
     metric = "c-index" if config.task == "survival" else "AUC"
     for key in ["train_loss", f"train_{metric}", "val_loss", f"val_{metric}"]:
@@ -432,8 +433,9 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
                            clip_grad_norm=clip)
 
     if config.early_stopping:
-        model, optimizer, s = load_state(model_dir, model, optimizer,
-                                         clip_grad_norm=clip)
+        model, optimizer, s = load_state(
+            model_dir, model, optimizer, clip_grad_norm=clip,
+            checkpoint_backend=config.checkpoint_backend)
         if verbose:
             print(f"Early stopping: loading from epoch {s['epoch']}")
 

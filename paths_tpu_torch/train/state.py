@@ -1,5 +1,5 @@
-"""Checkpoints in the JAX package's npz layout (counterpart of the npz route
-of `paths_tpu.train.state`).
+"""Checkpoints in the JAX package's npz layout, and the reference's
+`model.pt` / `train_stats.pkl` (counterpart of `paths_tpu.train.state`).
 
 A model directory holds `model.npz` (the flat JAX params dict),
 `opt.npz` (the optimizer state) and `train_stats.json` (the epoch to resume
@@ -10,13 +10,20 @@ clip (`config.clip_grad_norm`, passed as `clip_grad_norm`),
 the hyperparameters, and AdamW's first and second moments (`mu`, `nu`) per
 parameter key. So a model directory resumes in either package.
 
-Not ported: the Orbax backend and the reference `model.pt` /
-`train_stats.pkl` route raise NotImplementedError.
+Reading follows the JAX package's order: `model.npz`, else a reference
+`model.pt` (the original PyTorch PATHS's `state_dict()`, mapped by
+`paths_tpu_torch.convert`); then `train_stats.json`, else a reference
+`train_stats.pkl` (its integer epoch keys stay integers), else a fresh
+`{"epoch": 1}`. Not ported: the Orbax backend (an `orbax/` directory) raises
+NotImplementedError, except that `model.npz` beside it is read when the
+config's `checkpoint_backend` is "npz" (ROADMAP.md Queue 1, 'Checkpoint
+routes', the Orbax half).
 """
 from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Optional, Tuple
 
 import numpy as np
@@ -25,6 +32,7 @@ import torch
 from paths_tpu_torch.convert import (
     jax_keys,
     load_jax_flat,
+    load_torch_checkpoint,
     to_jax_flat,
     to_jax_layout,
 )
@@ -34,14 +42,40 @@ from paths_tpu_torch.models.recursive import RecursiveModel
 _ADAM_PREFIX = {False: ".inner_state/0/", True: ".inner_state/1/0/"}
 
 
-def load_model(root_path: str, model: RecursiveModel) -> RecursiveModel:
-    """Load `<root_path>/model.npz` into `model` (in place) and return it;
-    raise if the file is missing."""
+def _weights_file(root_path: str, checkpoint_backend: Optional[str]):
+    """`model.npz`, else `model.pt`, else None. An `orbax/` directory raises,
+    unless the backend is "npz" and `model.npz` is beside it (JAX's choice
+    between the two then falls on npz)."""
     npz_path = os.path.join(root_path, "model.npz")
-    if not os.path.isfile(npz_path):
-        raise FileNotFoundError(f"{npz_path} not found")
-    with np.load(npz_path) as z:
+    if (os.path.isdir(os.path.join(root_path, "orbax"))
+            and not (checkpoint_backend == "npz" and os.path.isfile(npz_path))):
+        raise NotImplementedError(
+            f"{root_path} holds an Orbax checkpoint, which the port does not "
+            "read (ROADMAP.md Queue 1, 'Checkpoint routes', the Orbax half)")
+    for path in (npz_path, os.path.join(root_path, "model.pt")):
+        if os.path.isfile(path):
+            return path
+    return None
+
+
+def _read_weights(path: str, model: RecursiveModel) -> RecursiveModel:
+    if path.endswith(".pt"):
+        print(f"Loading reference torch checkpoint {path}")
+        return load_torch_checkpoint(path, model)
+    with np.load(path) as z:
         return load_jax_flat(model, dict(z.items()))
+
+
+def load_model(root_path: str, model: RecursiveModel,
+               checkpoint_backend: Optional[str] = None) -> RecursiveModel:
+    """Load `<root_path>/model.npz`, else the reference `model.pt`, into
+    `model` (in place) and return it; raise if neither is there.
+    `checkpoint_backend` is the config's (see the module docstring)."""
+    path = _weights_file(root_path, checkpoint_backend)
+    if path is None:
+        raise FileNotFoundError(
+            f"neither model.npz nor model.pt in {root_path}")
+    return _read_weights(path, model)
 
 
 def optimizer_to_jax_flat(model: RecursiveModel,
@@ -127,23 +161,20 @@ def save_state(root_path: str, model: RecursiveModel,
 
 def load_state(root_path: str, model: RecursiveModel,
                optimizer: Optional[torch.optim.Optimizer] = None, *,
-               clip_grad_norm: Optional[float] = None) -> Tuple:
+               clip_grad_norm: Optional[float] = None,
+               checkpoint_backend: Optional[str] = None) -> Tuple:
     """Restore (model, optimizer, train_stats) from `root_path`, in place;
     `opt.npz` is read in the layout that `clip_grad_norm` gives it.
     Missing files leave the passed-in values untouched; a fresh directory
     gives train_stats {"epoch": 1}. Integer epoch keys of the metric
-    histories survive the JSON round trip."""
-    npz_path = os.path.join(root_path, "model.npz")
-    if os.path.isfile(npz_path):
-        load_model(root_path, model)
-    elif (os.path.isdir(os.path.join(root_path, "orbax"))
-          or os.path.isfile(os.path.join(root_path, "model.pt"))):
-        raise NotImplementedError(
-            f"{root_path} holds an Orbax or reference .pt checkpoint; the "
-            "port reads model.npz only (ROADMAP.md Queue 1, 'Checkpoint "
-            "routes')")
+    histories survive the JSON round trip. The weights and stats files are
+    chosen as the module docstring says."""
+    path = _weights_file(root_path, checkpoint_backend)
+    if path is not None:
+        _read_weights(path, model)
     else:
-        print(f"{npz_path} not found, not loading model state!")
+        print(f"{os.path.join(root_path, 'model.npz')} not found, not loading "
+              "model state!")
 
     opt_path = os.path.join(root_path, "opt.npz")
     if optimizer is not None and os.path.isfile(opt_path):
@@ -152,16 +183,22 @@ def load_state(root_path: str, model: RecursiveModel,
                                     clip_grad_norm)
 
     stats_path = os.path.join(root_path, "train_stats.json")
+    pkl_path = os.path.join(root_path, "train_stats.pkl")
     if os.path.isfile(stats_path):
         with open(stats_path) as f:
             train_stats = json.load(f)
         for k, v in train_stats.items():
             if isinstance(v, dict):
                 train_stats[k] = {int(e): x for e, x in v.items()}
-    elif os.path.isfile(os.path.join(root_path, "train_stats.pkl")):
-        raise NotImplementedError(
-            "reference train_stats.pkl is not read by the port (ROADMAP.md "
-            "Queue 1, 'Checkpoint routes')")
+    elif os.path.isfile(pkl_path):
+        # the reference pickles its stats dict (unpickling runs code: a model
+        # directory is trusted input, as in the reference); resuming
+        # continues from its epoch, and the next save writes
+        # train_stats.json, read first from then on
+        with open(pkl_path, "rb") as f:
+            train_stats = pickle.load(f)
+        print(f"Loaded reference train stats {pkl_path} "
+              f"(epoch {train_stats.get('epoch')})")
     else:
         print("No train stats found, assuming first run")
         train_stats = {"epoch": 1}

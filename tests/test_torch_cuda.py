@@ -854,3 +854,123 @@ def test_streaming_engine_matches_fused_at_flagship_width(card, tmp_path,
     for name, w in want.items():
         torch.testing.assert_close(got[name], w, rtol=0, atol=1e-6 * scale,
                                    msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.05])
+def test_remat_on_the_kernel_route_equals_no_remat(card, tmp_path, dropout):
+    """`brca_paths_0` at full width on 8 synthetic slides, two train steps
+    from one generator seed with `remat` on and off: losses, gradients and
+    parameters equal to the bit (the kernels are deterministic); at dropout
+    0 the recompute launches #1 a second time per decoder layer per level,
+    #2 / #3 once; at 0.05 the plain route runs (as in JAX)."""
+    import copy
+    import os
+
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.dataset import SlideDataset, collate_batch
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.data.synthetic import make_synthetic_store
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train.loop import make_optimizer, make_step_fns
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.load(os.path.join(root, "models", "brca_paths_0"),
+                      test_mode=True)
+    cfg.attention_impl = "pallas"
+    cfg.model_config.dropout = dropout
+    ids = make_synthetic_store(str(tmp_path), cfg, num_slides=8,
+                               base_hw=(6, 8), seed=0)
+    ds = SlideDataset(ids, cfg, FeatureStore(str(tmp_path)))
+    bag, tables = collate_batch(ds, list(range(8)),
+                                level0_bucket=cfg.level0_bucket, device=card)
+    labels = {"survival_bin": torch.arange(8, device=card) % cfg.nbins,
+              "censored": (torch.arange(8, device=card) % 3 == 0).int()}
+    counters = (tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd_dq,
+                tfa.masked_flash_attention_bwd_dkv)
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    runs = {}
+    for remat in (False, True):
+        c = copy.deepcopy(cfg)
+        c.remat = remat
+        model = RecursiveModel(c, generator=torch.Generator().manual_seed(0)).to(card)
+        update, _ = make_step_fns(c, make_optimizer(c, model.parameters()))
+        gen = torch.Generator(card).manual_seed(3)
+        steps = []
+        for _ in range(2):
+            before = [f.launches for f in counters]
+            loss, _ = update(model, bag, tables, labels, gen, epoch=1)
+            torch.cuda.synchronize()
+            launched = [f.launches - b for f, b in zip(counters, before)]
+            want = [per * (1 + remat), per, per] if dropout == 0 else [0] * 3
+            assert launched == want
+            steps.append((loss.item(),
+                          {n: p.grad.clone() for n, p in model.named_parameters()
+                           if p.grad is not None},
+                          {n: p.detach().clone() for n, p in model.named_parameters()}))
+        runs[remat] = steps
+    for (la, ga, pa), (lb, gb, pb) in zip(runs[False], runs[True]):
+        assert la == lb
+        assert sorted(ga) == sorted(gb)
+        for n in ga:
+            assert torch.equal(ga[n], gb[n]), n
+        for n in pa:
+            assert torch.equal(pa[n], pb[n]), n
+
+
+@pytest.mark.cuda
+def test_heatmap_recursion_kernel_route_matches_plain(card, tmp_path):
+    """`run_recursion` at flagship width over one small synthetic slide with
+    a tiny encoder on the card (a pooled colour times a random 3 x 1024
+    matrix): `attention_impl: "pallas"` (#1 once per decoder layer per depth)
+    against the plain attention. Importances (which do not see the
+    attention) and the final logits (which do) within 1e-4, the hazards' bar
+    of the serving path (per-layer differences of 2e-5 through 2 layers a
+    level); the same patches at every depth unless a top-K gap is under
+    that."""
+    import copy
+    import os
+
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.viz.heatmap import run_recursion
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.load(os.path.join(root, "models", "brca_paths_0"),
+                      test_mode=True)
+    side = 8192                       # level 0 (0.625x of 10x): 2 x 2 patches
+    rng = np.random.default_rng(0)
+    img = rng.integers(240, 250, (side, side, 3), dtype=np.uint8)
+    yy, xx = np.ogrid[0:side, 0:side]
+    blob = ((yy - side // 2) ** 2 + (xx - side // 2) ** 2) < (0.45 * side) ** 2
+    img[blob] = rng.integers(80, 160, (int(blob.sum()), 3), dtype=np.uint8)
+    path = os.path.join(str(tmp_path), "slide.npy")
+    np.save(path, img)
+    w = torch.from_numpy(rng.normal(size=(3, 1024)).astype(np.float32)).to(card)
+
+    def encode(x):
+        return x.mean(dim=(1, 2)) @ w
+
+    model = RecursiveModel(cfg, generator=torch.Generator().manual_seed(0)).to(card).eval()
+    out = {}
+    for impl in ("pallas", "xla"):
+        c = copy.deepcopy(cfg)
+        c.attention_impl = impl
+        before = tfa.masked_flash_attention_fwd.launches
+        out[impl] = run_recursion(c, model, encode, path, tissue_threshold=0.1,
+                                  camelyon=False, default_power=10.0,
+                                  verbose=False, device=card)
+        launched = tfa.masked_flash_attention_fwd.launches - before
+        assert launched == (c.model_config.trans_layers * c.num_levels
+                            if impl == "pallas" else 0)
+    (ks, ki, kl), (ps, pi, pl) = out["pallas"], out["xla"]
+    for depth, (a, b, ia, ib) in enumerate(zip(ks, ps, ki, pi)):
+        if not np.array_equal(a.locs, b.locs):
+            assert depth > 0
+            top = np.sort(pi[depth - 1])[::-1]
+            k = cfg.top_k_patches[depth - 1]
+            assert top[k - 1] - top[k] < 1e-4
+            break
+        np.testing.assert_allclose(ia, ib, atol=1e-4, rtol=0)
+    else:
+        np.testing.assert_allclose(kl, pl, atol=1e-4, rtol=0)

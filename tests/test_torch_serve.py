@@ -111,9 +111,11 @@ def test_port_imports_neither_jax_nor_reference_package():
         "import paths_tpu_torch\n"
         "for m in pkgutil.walk_packages(paths_tpu_torch.__path__, 'paths_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'paths_tpu_torch.kernels.vit_int8' in sys.modules\n"
+        "for m in ('kernels.vit_int8', 'viz.heatmap', 'data.raw_slide', "
+        "'cli.heatmap', 'cli.serve', 'cli.mk_folds', 'cli.mk_datasets'):\n"
+        "    assert 'paths_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'paths_tpu', 'pandas'))\n"
+        "('jax', 'jaxlib', 'paths_tpu', 'pandas', 'matplotlib'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
