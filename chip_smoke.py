@@ -5,7 +5,9 @@
 
 Phases, each printing its own lines:
   1. environment: the card's name and power limit, torch and CUDA versions,
-     and the build of every CUDA kernel from `paths_tpu_torch/csrc`;
+     the build of every CUDA kernel from `paths_tpu_torch/csrc`, and the g++
+     build of the two host libraries of `paths_tpu_torch/native` (the table
+     builder, and the JPEG decoder where the host has libjpeg's headers);
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the serving and training paths give it and at one long bag,
      with errors, times, a PyTorch library call's time as a yardstick, and
@@ -86,7 +88,18 @@ Phases, each printing its own lines:
      plain, with a planted fault), and the encode's time, busy share, memory
      and profile on every route, flash included. The `int8` and `fused1` routes go through the same CLI run,
      the same Virchow2 batches and the same f32 batch. Last, one batch of
-     Kaiko-B/8 (patch 8, 785 tokens) through `from_name` on the four routes.
+     Kaiko-B/8 (patch 8, 785 tokens) through `from_name` on the four routes;
+  7. native (after heatmap): the native table builder equal to the numpy
+     path on every (slide, level) of the [slice] store, and a cold 32-slide
+     streaming request with each; tiles: the two slides written as JPEG-tiled
+     pyramids and run through `cli.preprocess` with UNI on `fused` from a
+     `--weights` file with one decode thread and with two decode processes
+     (`-w 2`), grids equal to the bit, and host decode per batch with each
+     decoder the host has; resnet: ResNet-50 through `cli.preprocess` from a
+     random mirror's state dict, one batch's time and profile, ResNet-50 and
+     -18 against the mirror on the card; verify: `cli.verify_conversion` for
+     UNI at full depth on `fused` in f32 and for ResNet-50, and a planted
+     fault in the converted encoder that the check must report.
 The line before the last is a JSON object of per-kernel numbers, and the
 last line is `{"ok": true, "device": {...}}`. Any failed check raises, so
 the script exits non-zero and prints no result; without a CUDA device it
@@ -1876,7 +1889,7 @@ def heatmap_phase(torch, tfa, tvf, gpu, sl):
         del encode, rc
     del calls, fused_calls, encoders
     os.remove(slide)
-    os.remove(weights)
+    return weights
 
 
 def vit_wrappers(tvf):
@@ -2861,6 +2874,426 @@ def preprocess_phase(torch, tfa, tvf, gpu):
             "vit_swiglu_mlp_i8": vcounts["int8"]["fused_swiglu_mlp_block_i8"]}
 
 
+def native_build(gpu):
+    """Build the port's two host libraries with g++ (the table builder must
+    build; the JPEG decoder needs libjpeg's headers and is reported when it
+    does not), and print the command lines and thread counts."""
+    from paths_tpu_torch import native
+    from paths_tpu_torch.native import build as nbuild
+    from paths_tpu_torch.native import jpeg as njpeg
+
+    t0 = time.perf_counter()
+    nbuild.build(verbose=False)
+    jpath = nbuild.build_jpeg(verbose=False)
+    took = time.perf_counter() - t0
+    for name in ("host", "jpeg"):
+        print(f"[native] {nbuild.commands[name]}", flush=True)
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = "no PIL"
+    decoder = (f"decoder {njpeg.load().jpeg_omp_thread_count()}" if jpath else
+               "decoder not built (no libjpeg headers on this host: .tiles "
+               "decode goes through PIL)")
+    print(f"[native] host libraries built in {took:.1f} s; OpenMP threads: "
+          f"table builder {native.load().omp_thread_count()}, {decoder}; "
+          f"{os.cpu_count()} host cores; {pil} | {gpu}", flush=True)
+
+
+@contextlib.contextmanager
+def numpy_tables():
+    """While inside, `engine.tables.build_level_table` takes its numpy path."""
+    from paths_tpu_torch import native
+
+    real = native.build_level_table_native
+    native.build_level_table_native = lambda grid, min_rows=0: None
+    try:
+        yield
+    finally:
+        native.build_level_table_native = real
+
+
+def native_phase(torch, gpu, sl):
+    """The native table builder against the numpy path on every (slide,
+    level) of the [slice] store, bit for bit, with both builders' times; then
+    a cold 32-slide request on a new streaming session (which builds every
+    slide's tables) with native and with numpy tables, in turns."""
+    import numpy as np
+
+    from paths_tpu_torch import native
+    from paths_tpu_torch.engine.tables import build_level_table_numpy
+    from paths_tpu_torch.serve import ServingSession
+
+    if not native.available():
+        raise AssertionError("[native] the table builder is not built")
+    ds = sl["sess"]._dataset
+    n, ms = 0, {"native": 0.0, "numpy": 0.0}
+    for s in ds.slides:
+        for lvl, power in enumerate(s.powers()):
+            grid = np.asarray(s.store.load(s.slide_id, power))
+            rows = min(s.level_min_rows[lvl], grid.shape[0] * grid.shape[1])
+            t0 = time.perf_counter()
+            got = native.build_level_table_native(grid, rows)
+            t1 = time.perf_counter()
+            want = build_level_table_numpy(grid, rows)
+            t2 = time.perf_counter()
+            ms["native"] += (t1 - t0) * 1e3
+            ms["numpy"] += (t2 - t1) * 1e3
+            for key in ("fts", "locs", "count", "index", "grid_hw"):
+                if not (np.asarray(got[key]).dtype == np.asarray(want[key]).dtype
+                        and np.array_equal(got[key], want[key])):
+                    raise AssertionError(f"[native] {s.slide_id} level {lvl}: "
+                                         f"{key} differs from the numpy table")
+            n += 1
+    print(f"[native] tables of {n} (slide, level) grids of the [slice] store: "
+          f"native equal to numpy bit for bit; host time {ms['native']:.1f} ms "
+          f"native, {ms['numpy']:.1f} ms numpy | {gpu}", flush=True)
+
+    sdir = os.path.join(WORK, "model_streaming")
+    ids = sl["ids"]
+    walls = {"native": [], "numpy": []}
+    first = None
+    for kind in ("native", "numpy", "numpy", "native"):
+        sess = ServingSession(sdir, cache_batches=0, device="cuda")
+        with numpy_tables() if kind == "numpy" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = sess.predict(ids)
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+        first = first or out
+        if out != first:
+            raise AssertionError("[native] cold requests with native and numpy "
+                                 "tables give other hazards")
+        del sess
+    print(f"[native] cold 32-slide request on a new streaming session (builds "
+          f"every slide's tables), in turns: native tables "
+          f"{', '.join(f'{w:.1f}' for w in walls['native'])} ms, numpy tables "
+          f"{', '.join(f'{w:.1f}' for w in walls['numpy'])} ms; hazards equal "
+          f"| {gpu}", flush=True)
+
+
+# `.tiles` runs vs the `.npy` runs of the same slides: JPEG at quality 80
+# moves pixels by a few levels, which flips only the tissue test of cells
+# near the threshold (the JAX package's bar for the same comparison).
+TILES_SELECTION = 0.15
+# The native decoder vs PIL on the same JPEG streams: both are libjpeg, and
+# IDCT variants differ by at most 2 levels (the JAX package's bar).
+DECODER_ATOL = 2
+
+
+def tiles_phase(torch, tvf, gpu, weights):
+    """The two 7168-px [preprocess] slides written as JPEG-tiled pyramids and
+    run through `cli.preprocess` with UNI on `fused` from a `--weights` file,
+    with one decode thread of producers (`-w 0`) and with two decode
+    processes (`-w 2`): grids equal to the bit, launches as the code says,
+    the tissue selection against the `.npy` runs'. Without PIL on the host
+    the fixture cannot be written, and both runs go over the `.npy` slides."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from paths_tpu_torch.cli.preprocess import main as preprocess_main
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.encoders import vit
+    from paths_tpu_torch.native import jpeg as njpeg
+    from paths_tpu_torch.preprocess.pipeline import _read_batch
+    from paths_tpu_torch.preprocess.wsi import TiledJpegWSI, write_tiled_jpeg
+
+    src_dir = os.path.join(WORK, "slides")
+    powers, batch = [0.625, 1.25, 2.5, 5.0, 10.0], 64
+    try:
+        import PIL  # noqa: F401 — only whether the fixture can be written
+        have_pil = True
+    except ImportError as e:
+        have_pil, why = False, str(e)
+    if have_pil:
+        slide_dir, ext = os.path.join(WORK, "tiles"), ".tiles"
+        os.makedirs(slide_dir)
+        t0 = time.perf_counter()
+        for i in range(2):
+            img = np.load(os.path.join(src_dir, f"slide{i}.npy"))
+            write_tiled_jpeg(img, os.path.join(slide_dir, f"slide{i}.tiles"),
+                             base_power=10.0, tile=512, quality=80)
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(slide_dir) for f in fs)
+        decoder = "native" if njpeg.available() else "pil"
+        print(f"[tiles] 2 slides of {img.shape[0]} x {img.shape[1]} px written "
+              f"as JPEG-tiled pyramids (tile 512, quality 80, levels 1, 1/4, 1/16: "
+              f"{size / 2**20:.1f} MiB) in {time.perf_counter() - t0:.1f} s; "
+              f"tiles decode through {decoder}", flush=True)
+    else:
+        slide_dir, ext, decoder = src_dir, ".npy", "none (.npy)"
+        print(f"[tiles] JPEG-tiled fixture not written: {why} on this host; "
+              "the -w 0 and -w 2 runs go over the .npy slides", flush=True)
+
+    runs = {}
+    for workers in (0, 2):
+        out = os.path.join(WORK, f"features_tiles_w{workers}")
+        reset_vit_counts(tvf)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = preprocess_main(
+            ["-m", "UNI", "-d", slide_dir, "-o", out, "--ext", ext, "-b",
+             str(batch), "--default-power", "10", "--block-impl", "fused",
+             "--weights", weights, "-w", str(workers)])
+        torch.cuda.synchronize()
+        runs[workers] = dict(wall=time.perf_counter() - t0, stats=stats,
+                             counts=vit_counts(tvf), store=FeatureStore(out),
+                             peak=torch.cuda.max_memory_allocated() / 2**20)
+    npy = FeatureStore(os.path.join(WORK, "features_fused"))
+    patches = batches = 0
+    flips = []
+    for i in range(2):
+        for power in powers:
+            a = np.asarray(runs[0]["store"].load(f"slide{i}", power))
+            b = np.asarray(runs[2]["store"].load(f"slide{i}", power))
+            if a.shape[2] != vit.UNI.embed_dim or not np.array_equal(a, b) \
+                    or not np.isfinite(a).all():
+                raise AssertionError(f"[tiles] slide{i} @ {power}: -w 0 and -w 2 "
+                                     f"grids differ ({a.shape}, {b.shape})")
+            cells = np.abs(a).sum(-1) > 0
+            patches += int(cells.sum())
+            batches += math.ceil(int(cells.sum()) / batch)
+            ref = np.abs(np.asarray(npy.load(f"slide{i}", power))).sum(-1) > 0
+            if ref.shape != cells.shape:
+                raise AssertionError(f"[tiles] slide{i} @ {power}: grid "
+                                     f"{cells.shape} vs .npy {ref.shape}")
+            flips.append(float((ref != cells).mean()))
+    depth = vit.UNI.depth
+    want = vit_expect(tvf, fused_attn_block=depth * batches,
+                      fused_mlp_block=depth * batches)
+    for workers, r in runs.items():
+        if r["counts"] != want:
+            raise AssertionError(f"[tiles] -w {workers}: launches {r['counts']}, "
+                                 f"the code says {want}")
+    if not max(flips) <= TILES_SELECTION:
+        raise AssertionError(f"[tiles] tissue selection differs from the .npy "
+                             f"runs' in {max(flips):.3f} of the cells")
+    for workers, r in runs.items():
+        st = r["stats"]
+        print(f"[tiles] cli.preprocess -m UNI --block-impl fused --weights "
+              f"(bf16, -b {batch}) over 2 {ext} slides, -w {workers}: {patches} "
+              f"tissue patches in {batches} encoded batches, {r['wall']:.1f} s "
+              f"wall with the encoder's load = {patches / r['wall']:.1f} "
+              f"patches/s; staging {st['h2d_busy_s'] / batches * 1e3:.2f} ms per "
+              f"batch; launches #4 {r['counts']['fused_attn_block']}, #5 "
+              f"{r['counts']['fused_mlp_block']} ({depth} per encoded batch); peak "
+              f"memory {r['peak']:.0f} MiB | {gpu}", flush=True)
+    print(f"[tiles] -w 0 and -w 2 grids equal bit for bit; tissue selection vs "
+          f"the .npy runs: at most {max(flips):.4f} of a level's cells differ "
+          f"(bar {TILES_SELECTION})", flush=True)
+    if not have_pil:
+        return
+
+    # host decode of one 64-patch batch of tissue at 10x, cold tile cache, as
+    # the pipeline's producer reads it (8 threads), with each decoder the
+    # host has; and the decoders against each other
+    path = os.path.join(slide_dir, "slide0.tiles")
+    cells = np.array([(r, c) for r in range(10, 18) for c in range(10, 26)])
+    decoders = ("pil", "native") if njpeg.available() else ("pil",)
+    read, decode_ms = {}, {}
+    for name in decoders:
+        wsi = TiledJpegWSI(path, decoder=name)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            t0 = time.perf_counter()
+            read[name] = [_read_batch(wsi, cells, bi, 10.0, 256, batch, pool,
+                                      False)[0] for bi in range(2)]
+            decode_ms[name] = (time.perf_counter() - t0) / 2 * 1e3
+        wsi.close()
+    line = "; ".join(f"{k} {v:.1f} ms" for k, v in decode_ms.items())
+    if len(decoders) == 2:
+        diff = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                   for a, b in zip(read["pil"], read["native"]))
+        if diff > DECODER_ATOL:
+            raise AssertionError(f"[tiles] native vs PIL decode: {diff} levels")
+        line += f"; native vs PIL: max |diff| {diff} (bar {DECODER_ATOL})"
+    else:
+        line += "; native decoder not built on this host, PIL only"
+    print(f"[tiles] host decode of one 64-patch batch at 10x from a .tiles "
+          f"slide (8 threads, cold tile cache; the runs above decoded through "
+          f"{decoder}): {line} | {gpu}", flush=True)
+
+
+def resnet_mirror(torch, arch, seed=0):
+    """A random torchvision-keyed mirror with non-trivial BatchNorm
+    statistics."""
+    from paths_tpu_torch.encoders import torch_mirror
+
+    torch.manual_seed(seed)
+    m = (torch_mirror.TorchResNet50() if arch == "resnet50"
+         else torch_mirror.TorchResNet18()).eval()
+    with torch.no_grad():
+        for b in m.modules():
+            if isinstance(b, torch.nn.BatchNorm2d):
+                b.running_mean.uniform_(-0.2, 0.2)
+                b.running_var.uniform_(0.5, 1.5)
+    return m
+
+
+# ResNet vs its mirror on the card: f32 with TF32 off sums in other orders
+# (the mirror's BatchNorm after the conv, the port's folded affine); bf16
+# rounds each conv output and affine: the feature-grid bar.
+RESNET_F32_RTOL = 1e-4
+RESNET_BF16_RTOL = FEATURE_RTOL_BF16
+
+
+def resnet_phase(torch, gpu):
+    """ResNet-50 through `cli.preprocess` over the two [preprocess] `.npy`
+    slides from a random mirror's state dict; one batch's encode time,
+    profile and agreement with the mirror on the card; ResNet-18 one batch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from paths_tpu_torch.cli.preprocess import main as preprocess_main
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.encoders.registry import from_name
+    from paths_tpu_torch.preprocess.pipeline import _read_batch
+    from paths_tpu_torch.preprocess.wsi import open_wsi
+
+    slide_dir = os.path.join(WORK, "slides")
+    powers, batch = [0.625, 1.25, 2.5, 5.0, 10.0], 64
+    paths = {}
+    for arch in ("resnet50", "resnet18"):
+        paths[arch] = os.path.join(WORK, f"{arch}.pt")
+        torch.save(resnet_mirror(torch, arch).state_dict(), paths[arch])
+    out = os.path.join(WORK, "features_resnet50")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    preprocess_main(["-m", "resnet50", "--weights", paths["resnet50"], "-d",
+                     slide_dir, "-o", out, "--ext", ".npy", "-b", str(batch),
+                     "--default-power", "10"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    store, npy = FeatureStore(out), FeatureStore(os.path.join(WORK, "features_fused"))
+    patches = batches = 0
+    for i in range(2):
+        for power in powers:
+            a = np.asarray(store.load(f"slide{i}", power))
+            cells = np.abs(a).sum(-1) > 0
+            ref = np.abs(np.asarray(npy.load(f"slide{i}", power))).sum(-1) > 0
+            if a.shape[2] != 2048 or not np.isfinite(a).all() \
+                    or not np.array_equal(cells, ref):
+                raise AssertionError(f"[resnet] slide{i} @ {power}: grid "
+                                     f"{a.shape}, tissue cells unlike UNI's")
+            patches += int(cells.sum())
+            batches += math.ceil(int(cells.sum()) / batch)
+    print(f"[resnet] cli.preprocess -m resnet50 --weights (random mirror, bf16, "
+          f"-b {batch}) over the 2 .npy slides: {patches} tissue patches in "
+          f"{batches} batches, {wall:.1f} s wall with the encoder's load = "
+          f"{patches / wall:.1f} patches/s; the same tissue cells as UNI's; "
+          f"peak memory {peak:.0f} MiB | {gpu}", flush=True)
+
+    wsi = open_wsi(os.path.join(slide_dir, "slide0.npy"), 10.0)
+    cells = np.array([(r, c) for r in range(10, 18) for c in range(10, 26)])
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        imgs = torch.from_numpy(_read_batch(wsi, cells, 0, 10.0, 256, batch,
+                                            pool, False)[0]).cuda()
+    wsi.close()
+    x = imgs.permute(0, 3, 1, 2).float() / 255.0
+    for arch in ("resnet50", "resnet18"):
+        mirror = resnet_mirror(torch, arch).cuda()
+        with torch.no_grad():
+            want = mirror(x)
+        del mirror
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            enc, dim, _ = from_name(arch, weights_path=paths[arch],
+                                    compute_dtype=dtype)
+            got = enc(imgs)
+            errs[dtype] = ((got - want).abs().max() / want.abs().max()).item() \
+                if dtype == torch.float32 else \
+                ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+            if got.shape != (batch, dim) or not torch.isfinite(got).all():
+                raise AssertionError(f"[resnet] {arch} {dtype}: {got.shape}")
+            if arch == "resnet50" and dtype == torch.bfloat16:
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: enc(imgs), iters=10, warmup=3)
+                enc_peak = torch.cuda.max_memory_allocated() / 2**20
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    enc(imgs)
+                    torch.cuda.synchronize()
+                busy_us = kernel_us(prof)
+                table = prof.key_averages().table(sort_by="device_time_total",
+                                                  row_limit=8)
+            del enc
+        if not (errs[torch.float32] <= RESNET_F32_RTOL
+                and errs[torch.bfloat16] <= RESNET_BF16_RTOL):
+            raise AssertionError(f"[resnet] {arch} vs mirror: f32 {errs[torch.float32]:.3g}"
+                                 f", bf16 {errs[torch.bfloat16]:.3g}")
+        print(f"[resnet] {arch}, one batch of 64 at 256 px vs the mirror on the "
+              f"card (f32, TF32 off): f32 max |diff| {errs[torch.float32]:.3g} "
+              f"of the largest feature (bar {RESNET_F32_RTOL}); bf16 worst "
+              f"|diff|/|feature| {errs[torch.bfloat16]:.3g} (bar "
+              f"{RESNET_BF16_RTOL}) | {gpu}", flush=True)
+    print(f"[resnet] resnet50 encode of one 64-patch batch, bf16: {ms:.2f} ms "
+          f"between CUDA events = {64e3 / ms:.1f} patches/s of encode alone; "
+          f"kernel time in one profiled encode {busy_us / 1e3:.2f} ms (busy "
+          f"share {busy_us / 1e3 / ms:.3f}); peak memory {enc_peak:.0f} MiB | "
+          f"{gpu}", flush=True)
+    for line in table.splitlines():
+        print(f"[resnet-profile] {line}", flush=True)
+    return paths["resnet50"]
+
+
+# A planted fault in the converted encoder (the middle block's fc1 weight
+# scaled by 1.05 after conversion; the mirror keeps the file's weights): the
+# check must report it.
+VERIFY_FAULT_SCALE = 1.05
+
+
+def verify_phase(torch, tvf, gpu, uni_weights, r50_weights):
+    """`cli.verify_conversion` on the card: UNI at full depth on `fused` in
+    f32 (#4 and #5 once per block) from the [heatmap] weights file, and
+    ResNet-50; then the planted fault, which must fail the check."""
+    from paths_tpu_torch.cli import verify_conversion as vc
+    from paths_tpu_torch.encoders import vit
+
+    depth = vit.UNI.depth
+    for model, path, extra in (("UNI", uni_weights, ["--block-impl", "fused"]),
+                               ("resnet50", r50_weights, [])):
+        reset_vit_counts(tvf)
+        t0 = time.perf_counter()
+        res = vc.main(["--model", model, "--weights", path, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = (vit_expect(tvf, fused_attn_block=depth, fused_mlp_block=depth)
+                if model == "UNI" else vit_expect(tvf))
+        if vit_counts(tvf) != want or not res["ok"]:
+            raise AssertionError(f"[verify] {model}: launches {vit_counts(tvf)} "
+                                 f"(want {want}), ok {res['ok']}")
+        print(f"[verify] cli.verify_conversion --model {model}"
+              f"{''.join(' ' + a for a in extra)} (4 images, f32, TF32 off) in "
+              f"{wall:.1f} s: max_abs "
+              f"{res['max_abs']:.3g}, max_rel {res['max_rel']:.3g} (tol 1e-3), ok"
+              + (f"; launches #4 {depth}, #5 {depth}" if model == "UNI" else "")
+              + f" | {gpu}", flush=True)
+
+    convert = vc.vit_from_timm
+
+    def faulty(sd, spec):
+        model = convert(sd, spec)
+        with torch.no_grad():
+            model.blocks[depth // 2].fc1.weight.mul_(VERIFY_FAULT_SCALE)
+        return model
+
+    vc.vit_from_timm = faulty
+    try:
+        res = vc.run("UNI", uni_weights, block_impl="fused")
+    finally:
+        vc.vit_from_timm = convert
+    if res["ok"]:
+        raise AssertionError(f"[verify] planted fault not caught: max_abs "
+                             f"{res['max_abs']:.3g}")
+    print(f"[verify] planted fault (block {depth // 2}'s fc1 weight x "
+          f"{VERIFY_FAULT_SCALE} after conversion): max_abs {res['max_abs']:.3g}"
+          f" = {res['max_abs'] / 1e-3:.0f} x the tolerance, ok false, caught",
+          flush=True)
+
+
 @contextlib.contextmanager
 def plain_int8(tvi):
     """While inside, the int8 wrappers are their plain versions, whatever the
@@ -2903,6 +3336,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[env] {name}: {line.strip()}", flush=True)
+    native_build(gpu)
 
     shutil.rmtree(WORK, ignore_errors=True)
     try:
@@ -2919,11 +3353,15 @@ def main() -> int:
         remat_phase(torch, tfa, gpu, tr)
         ckpt_phase(torch, gpu, sl, tr, cli_out)
         http_phase(torch, tfa, gpu, sl)
-        heatmap_phase(torch, tfa, tvf, gpu, sl)
+        uni_weights = heatmap_phase(torch, tfa, tvf, gpu, sl)
+        native_phase(torch, gpu, sl)
         del sl, tr
         vit_cases = vit_kernel_phase(torch, tvf, gpu)
         vit_cases.update(vit_new_kernel_phase(torch, tvf, tvi, gpu))
         vit_launches = preprocess_phase(torch, tfa, tvf, gpu)
+        tiles_phase(torch, tvf, gpu, uni_weights)
+        r50_weights = resnet_phase(torch, gpu)
+        verify_phase(torch, tvf, gpu, uni_weights, r50_weights)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

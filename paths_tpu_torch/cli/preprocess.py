@@ -4,11 +4,12 @@
     python -m paths_tpu_torch.cli.preprocess -m UNI -d /path/to/slide_dir \
         -o /path/to/out -b 64 --weights uni_state_dict.pt
 
-`--weights` points at a torch state_dict of the timm encoder (there are no
-hub downloads; without it the encoder is randomly initialised from seed
-0); `--ext`
-selects the slide extension (`.svs` via OpenSlide, `.npy` array pyramids).
-The run is on the card unless `--device cpu` asks otherwise.
+`--weights` points at a torch state_dict of the timm encoder or the
+torchvision resnet (there are no hub downloads; without it a ViT is randomly
+initialised from seed 0, and `-m resnet50` / `resnet18` refuse to run);
+`--ext` selects the slide extension (`.svs` via OpenSlide, `.npy` array
+pyramids, `.tiles` JPEG-tiled pyramids); `-w N` (N >= 2) decodes in N spawn
+processes. The run is on the card unless `--device cpu` asks otherwise.
 """
 from __future__ import annotations
 
@@ -35,8 +36,10 @@ def main(argv=None) -> dict:
                         help="Patch-read threads of the decode producer")
     parser.add_argument("-w", "--workers", type=int, default=0,
                         dest="decode_workers",
-                        help="Decode processes; 0 = single producer thread "
-                             "(2 or more are not ported yet)")
+                        help="Decode processes; 0 = single producer thread, "
+                             "2 or more = that many spawn processes decoding "
+                             "slide shards into one queue (the encode stays "
+                             "in this process)")
     parser.add_argument("-ms", "--magnifications", type=float, nargs="+",
                         default=[0.625, 1.25, 2.5, 5.0, 10.0])
     parser.add_argument("-ds", "--downscale", type=int, default=4,
@@ -70,7 +73,8 @@ def main(argv=None) -> dict:
                              "int8 projections (weights quantised at start)")
     parser.add_argument("--data-shards", type=int, default=0,
                         help="Shard encode batches over this many devices "
-                             "(0 = single device; more is not ported yet)")
+                             "(0 = single device; more is not ported yet: "
+                             "ROADMAP.md Queue 1, 'Parallel', item 8)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Where the encoder runs (cuda, or cpu on request)")
     parser.add_argument("--verbose", action="store_true")
@@ -79,8 +83,7 @@ def main(argv=None) -> dict:
     if args.data_shards:
         raise NotImplementedError(
             "--data-shards > 0 (batches sharded over several cards) is not "
-            "ported yet: ROADMAP.md Queue 1, 'left out of the preprocess "
-            "slice'")
+            "ported yet: ROADMAP.md Queue 1, 'Parallel' (item 8)")
 
     from paths_tpu_torch.encoders.registry import from_name
 

@@ -2,9 +2,10 @@
 (encode_fn, dim, transform).
 
 Weights: there is no network access at run time; pass `weights_path` (a torch
-state_dict file of a timm ViT) or get a randomly initialised encoder of the
-right architecture (shape tests and throughput runs; real runs need real
-weights).
+state_dict file of a timm ViT or a torchvision resnet) or, for a ViT, get a
+randomly initialised encoder of the right architecture (shape tests and
+throughput runs; real runs need real weights). The resnets need a weight
+file.
 
     encode, dim, transform = from_name("UNI", weights_path="uni.pt")
     fts = encode(images_bhwc)      # uint8 or [0, 1] float -> (B, dim) float32
@@ -19,6 +20,7 @@ import torch
 from paths_tpu_torch.encoders import transforms as T
 from paths_tpu_torch.encoders import vit
 from paths_tpu_torch.encoders.convert_vit import vit_from_torch_file
+from paths_tpu_torch.encoders.resnet import resnet_apply, resnet_from_torchvision
 from paths_tpu_torch.encoders.transforms import TransformSpec, apply_transform
 from paths_tpu_torch.kernels import vit_int8
 
@@ -60,17 +62,26 @@ def from_name(name: str, weights_path: Optional[str] = None,
         plain route on the CPU), "fused", "fused1" (the whole block in one
         launch), "flash", "xla" or "int8" (int8 projections with dynamic
         activation scales; the block matrices are quantised once here, on the
-        host, and their float copies dropped).
+        host, and their float copies dropped). The resnets take no block
+        route: their convolutions are the library's.
     :param device: where the weights live and the encode runs; "cuda" unless
         the caller asks for the CPU.
     """
     name = name.lower()
     dev = torch.device(device)
     if name in ("resnet50", "resnet18"):
-        raise NotImplementedError(
-            f"the {name} encoder is not ported yet (it needs a torchvision "
-            "weight file): ROADMAP.md Queue 1, 'left out of the preprocess "
-            "slice'")
+        if not weights_path:
+            raise ValueError(
+                "resnet encoders require a torchvision state_dict file "
+                "(random-init conv nets are not useful even for smoke tests "
+                "that care about magnitudes)")
+        rmodel = _load_resnet(weights_path, name).to(dev)
+
+        def encode_resnet(images: torch.Tensor) -> torch.Tensor:
+            x = apply_transform(_to_float01(images), T.IDENTITY_TRANSFORM)
+            return resnet_apply(rmodel, x, compute_dtype=compute_dtype)
+
+        return encode_resnet, rmodel.out_dim, T.IDENTITY_TRANSFORM
     if name not in _VIT_SPECS:
         raise ValueError(f"Invalid patch encoder '{name}'.")
     spec, tspec = _VIT_SPECS[name]
@@ -93,3 +104,8 @@ def from_name(name: str, weights_path: Optional[str] = None,
                                  block_impl=impl)
 
     return encode, spec.out_dim, tspec
+
+
+def _load_resnet(path: str, arch: str):
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return resnet_from_torchvision({k: v.numpy() for k, v in sd.items()}, arch)

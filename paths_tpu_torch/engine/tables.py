@@ -16,6 +16,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from paths_tpu_torch import native
+
 
 @dataclasses.dataclass
 class LevelTable:
@@ -37,6 +39,18 @@ class LevelTable:
 
 def build_level_table(grid: np.ndarray, min_rows: int = 0) -> dict:
     """Host-side: dense (H, W, D) grid -> single-slide table dict (numpy).
+
+    Dispatches to the OpenMP C++ builder (`paths_tpu_torch.native`) when it
+    is built and the grid is float32, else to `build_level_table_numpy`;
+    both give the same table."""
+    out = native.build_level_table_native(grid, min_rows)
+    if out is not None:
+        return out
+    return build_level_table_numpy(grid, min_rows)
+
+
+def build_level_table_numpy(grid: np.ndarray, min_rows: int = 0) -> dict:
+    """`build_level_table` in numpy.
 
     Background = all-zero feature vector, tested as sum == 0 (for f16
     grids, as "no entry is nonzero", so a live row cannot underflow to a

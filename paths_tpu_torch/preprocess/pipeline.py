@@ -18,9 +18,12 @@ How the host and the card overlap:
   * batches are padded to power-of-two buckets (the full `batch_size` for
     the body, the smallest bucket for each level's tail), so small levels do
     not ship and encode mostly padding; padding rows are encoded and dropped
+  * with `decode_workers >= 2`, spawn processes decode slide shards in
+    parallel and feed one bounded queue (the reference pipeline's shape:
+    many decode processes fanning into one accelerator); the children never
+    touch the card, and the parent stages and encodes
 
-Not ported yet (ROADMAP.md Queue 1, 'left out of the preprocess slice'): the
-multi-process decode fan-in (`decode_workers >= 2`) and batches sharded over
+Not ported yet (ROADMAP.md Queue 1, 'Parallel'): batches sharded over
 several cards.
 """
 from __future__ import annotations
@@ -339,6 +342,168 @@ def process_slide(path: str, slide_id: str, encode_fn: Callable, dim: int,
         wsi.close()
 
 
+def _decode_worker(wid: int, items: Sequence, magnifications: Sequence[float],
+                   store_root: str, opts: dict, q) -> None:
+    """Child-process decode producer (spawn): owns its WSI handles and a
+    read thread pool, and never touches the card (batches cross the queue
+    as host arrays; the parent stages them). The message stream is keyed by
+    (slide_id, power), so several workers can interleave levels on one
+    queue."""
+    store = FeatureStore(store_root)
+    pool = ThreadPoolExecutor(max_workers=opts["threads"])
+    try:
+        for path, slide_id in items:
+            try:
+                wsi = open_wsi(path, opts["default_power"])
+            except Exception:
+                q.put(("error", (slide_id, None, traceback.format_exc())))
+                continue
+            try:
+                for power in magnifications:
+                    if store.exists(slide_id, power):
+                        _warn_skip_dtype(store, slide_id, power,
+                                         opts["store_dtype"])
+                        continue
+                    key = (slide_id, power)
+                    try:
+                        n_rows, n_cols, cand = _level_plan(
+                            wsi, power, opts["patch_size"],
+                            opts["tissue_threshold"], opts["downscale"],
+                            camelyon=False)
+                        q.put(("level", (key, n_rows, n_cols, cand)))
+                        src = _patch_source(wsi, opts["load_mode"], power,
+                                            n_rows, n_cols, opts["patch_size"])
+                        nb = math.ceil(len(cand) / opts["batch_size"])
+                        for bi in range(nb):
+                            arr, s, e = _read_batch(
+                                src, cand, bi, power, opts["patch_size"],
+                                opts["batch_size"], pool, False)
+                            q.put(("batch", (key, arr, s, e)))
+                        q.put(("flush", key))
+                    except Exception:
+                        q.put(("error", (slide_id, power,
+                                         traceback.format_exc())))
+            finally:
+                wsi.close()
+    finally:
+        pool.shutdown(wait=False)
+        q.put(("done", wid))
+
+
+def _consume_decode_queue(q, procs, *, encode, stage_fn, dim, store,
+                          verbose, grid_dtype=np.float32, device="cuda",
+                          poll_s: float = 5.0) -> None:
+    """Parent-side consumer of the decode workers' message stream.
+
+    Runs until every worker's `done` sentinel arrives, but survives workers
+    that die without one (segfault, OOM kill): when the queue stays quiet
+    past `poll_s` and no worker is alive, the messages their feeder threads
+    flushed before death are drained and the loop exits with a warning
+    instead of blocking on `q.get()` forever. A worker `error` for a level
+    whose `level` header already arrived drops the half-built grid and its
+    embeddings in flight (a faulty slide must not pin memory for the rest of
+    the run). `stage_fn` (or None) moves a host batch towards `device`."""
+    import queue as _squeue
+
+    dev = torch.device(device)
+    open_levels: dict = {}   # key -> [cand, grid, in_flight]
+    done = 0
+
+    def handle(msg) -> None:
+        nonlocal done
+        kind, payload = msg
+        if kind == "done":
+            done += 1
+        elif kind == "error":
+            slide_id, power, tb = payload
+            open_levels.pop((slide_id, power), None)
+            print(f"FAILED ON SLIDE {slide_id} AT POWER {power}")
+            print(tb)
+        elif kind == "level":
+            key, n_rows, n_cols, cand = payload
+            open_levels[key] = [cand,
+                                np.zeros((n_rows, n_cols, dim), grid_dtype),
+                                []]
+            if verbose:
+                print(f"{key[0]} @ {key[1]}: {len(cand)}/"
+                      f"{n_rows * n_cols} cells pass tissue threshold")
+        elif kind == "batch" and payload[0] in open_levels:
+            key, arr, s, e = payload
+            x = _staged(stage_fn(arr) if stage_fn is not None else arr)
+            open_levels[key][2].append((encode(x.to(dev)), s, e))
+        elif kind == "flush" and payload in open_levels:
+            cand, grid, in_flight = open_levels.pop(payload)
+            slide_id, power = payload
+            try:
+                _drain_level(in_flight, cand, grid)
+                store.save(slide_id, power, grid)
+            except Exception:
+                print(f"FAILED ON SLIDE {slide_id} AT POWER {power}")
+                traceback.print_exc()
+
+    while done < len(procs):
+        try:
+            handle(q.get(timeout=poll_s))
+        except _squeue.Empty:
+            if any(p.is_alive() for p in procs):
+                continue
+            while True:   # drain what the feeders flushed before dying
+                try:
+                    handle(q.get_nowait())
+                except _squeue.Empty:
+                    break
+            if done < len(procs):
+                print(f"WARNING: {len(procs) - done} decode worker(s) "
+                      "exited without finishing; their remaining slides "
+                      "were skipped (a rerun resumes via skip-if-exists)")
+            break
+
+
+def _process_slides_mp(items, encode_fn, dim, magnifications, store, *,
+                       decode_workers, patch_size, tissue_threshold,
+                       downscale, batch_size, threads, default_power,
+                       batches_ahead, stage_h2d, load_mode, store_dtype,
+                       stats, device, verbose) -> None:
+    """Multi-process decode fan-in: `decode_workers` spawn processes decode
+    slide shards in parallel and feed one bounded queue; the parent stages
+    each batch (pinned, on the stager's own stream) and encodes it. Spawn,
+    not fork: the parent holds a CUDA context and threads."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue(maxsize=max(batches_ahead, decode_workers))
+    opts = {"patch_size": patch_size, "tissue_threshold": tissue_threshold,
+            "downscale": downscale, "batch_size": batch_size,
+            "threads": threads, "default_power": default_power,
+            "load_mode": load_mode, "store_dtype": store_dtype}
+    shards = [list(items)[i::decode_workers] for i in range(decode_workers)]
+    procs = [ctx.Process(target=_decode_worker,
+                         args=(i, shards[i], list(magnifications),
+                               store.root, opts, q), daemon=True)
+             for i in range(decode_workers) if shards[i]]
+    for p in procs:
+        p.start()
+
+    stage_fn = _make_stager(stage_h2d, device)
+    # staged on the stager's thread, as the single-producer path does, so
+    # the same counters fill; the consumer waits for each copy
+    stager = _AsyncStager(stage_fn) if stage_fn is not None else None
+    try:
+        _consume_decode_queue(q, procs, encode=encode_fn, stage_fn=stager,
+                              dim=dim, store=store, verbose=verbose,
+                              grid_dtype=_grid_dtype(store_dtype),
+                              device=device)
+    finally:
+        for p in procs:
+            p.terminate()
+            p.join(timeout=5)
+        if stager is not None:
+            if stats is not None:
+                stats["h2d_busy_s"] = stager.busy_s
+                stats["h2d_bytes"] = stager.bytes_staged
+            stager.shutdown()
+
+
 def process_slides(items: Sequence, encode_fn: Callable, dim: int,
                    magnifications: Sequence[float], store: FeatureStore, *,
                    patch_size: int = 256, tissue_threshold: float = 0.1,
@@ -360,8 +525,9 @@ def process_slides(items: Sequence, encode_fn: Callable, dim: int,
     :param stage_h2d: issue the host->device copy from the producer side
         (overlapping the encode). False keeps batches on the host until the
         encode takes them.
-    :param decode_workers: 0/1 keeps the single producer thread; >= 2 (the
-        multi-process decode fan-in) is not ported yet.
+    :param decode_workers: 0/1 keeps the single producer thread; >= 2 spawns
+        that many decode processes (slides sharded round-robin) feeding one
+        bounded queue; the grids are the same.
     :param load_mode: 0 reads each patch rect from the slide; 1 reads the
         WHOLE level image once and slices patches from host RAM.
     :param store_dtype: on-disk grid dtype, "float32" or "float16".
@@ -371,9 +537,16 @@ def process_slides(items: Sequence, encode_fn: Callable, dim: int,
     :param device: where `encode_fn` expects its batches.
     """
     if decode_workers and decode_workers >= 2:
-        raise NotImplementedError(
-            "decode_workers >= 2 (multi-process decode fan-in) is not ported "
-            "yet: ROADMAP.md Queue 1, 'left out of the preprocess slice'")
+        _process_slides_mp(
+            items, encode_fn, dim, magnifications, store,
+            decode_workers=decode_workers, patch_size=patch_size,
+            tissue_threshold=tissue_threshold, downscale=downscale,
+            batch_size=batch_size, threads=threads,
+            default_power=default_power, batches_ahead=batches_ahead,
+            stage_h2d=stage_h2d, load_mode=load_mode,
+            store_dtype=store_dtype, stats=stats, device=device,
+            verbose=verbose)
+        return
 
     q: "queue.Queue" = queue.Queue(maxsize=max(batches_ahead, 1))
     END = ("end", None)

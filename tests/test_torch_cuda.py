@@ -974,3 +974,80 @@ def test_heatmap_recursion_kernel_route_matches_plain(card, tmp_path):
         np.testing.assert_allclose(ia, ib, atol=1e-4, rtol=0)
     else:
         np.testing.assert_allclose(kl, pl, atol=1e-4, rtol=0)
+
+
+def _resnet_mirror(arch, seed=0):
+    from paths_tpu_torch.encoders import torch_mirror
+
+    torch.manual_seed(seed)
+    m = (torch_mirror.TorchResNet50() if arch == "resnet50"
+         else torch_mirror.TorchResNet18()).eval()
+    with torch.no_grad():
+        for b in m.modules():
+            if isinstance(b, torch.nn.BatchNorm2d):
+                b.running_mean.uniform_(-0.2, 0.2)
+                b.running_var.uniform_(0.5, 1.5)
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["resnet50", "resnet18"])
+def test_resnet_on_the_card_matches_mirror(card, arch):
+    """The converted resnet on the card (library convolutions, JAX's rounding
+    points) against the torchvision-keyed mirror on the same card: f32 with
+    TF32 off within 1e-4 of the largest feature, bf16 within 5e-2 of each
+    feature's norm (the feature-grid bar)."""
+    from paths_tpu_torch.encoders import resnet
+
+    torch.backends.cudnn.allow_tf32 = False
+    m = _resnet_mirror(arch)
+    model = resnet.resnet_from_torchvision(
+        {k: v.numpy() for k, v in m.state_dict().items()}, arch).to(card)
+    imgs = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(8, 256, 256, 3)).astype(np.float32)).to(card)
+    with torch.no_grad():
+        want = m.to(card)(imgs.permute(0, 3, 1, 2))
+    got = resnet.resnet_apply(model, imgs, torch.float32)
+    assert got.shape == want.shape == (8, 2048 if arch == "resnet50" else 512)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    got16 = resnet.resnet_apply(model, imgs, torch.bfloat16)
+    assert got16.dtype == torch.float32 and torch.isfinite(got16).all()
+    rel = (got16 - want).norm(dim=-1) / want.norm(dim=-1)
+    assert rel.max() <= 5e-2, rel.max()
+
+
+@pytest.mark.cuda
+def test_verify_vit_on_the_fused_route_and_planted_fault(card, monkeypatch):
+    """`cli.verify_conversion.verify_vit` on the card for a small spec on the
+    fused route (#4 and #5 once per block), in f32 against the mirror; then a
+    converted model whose block-1 fc1 weight is scaled by 1.05 after
+    conversion must fail the check."""
+    from paths_tpu_torch.cli import verify_conversion as vc
+    from paths_tpu_torch.encoders import torch_mirror, vit
+
+    spec = vit.ViTSpec(img_size=64, patch_size=16, embed_dim=128, depth=3,
+                       num_heads=2, mlp_ratio=4.0, layer_scale=True)
+    torch.manual_seed(0)
+    mirror = torch_mirror.timm_vit_mirror(spec).eval()
+    with torch.no_grad():
+        for blk in mirror.blocks:
+            blk.ls1.gamma.fill_(1.0)
+            blk.ls2.gamma.fill_(1.0)
+    sd = {k: v.detach().numpy() for k, v in mirror.state_dict().items()}
+    imgs = np.random.default_rng(0).uniform(-1.5, 1.5, (4, 64, 64, 3)).astype(np.float32)
+    before = (tvf.fused_attn_block.launches, tvf.fused_mlp_block.launches)
+    res = vc.verify_vit("small", sd, imgs, spec=spec, device="cuda")
+    assert (tvf.fused_attn_block.launches - before[0],
+            tvf.fused_mlp_block.launches - before[1]) == (3, 3)
+    assert res["max_abs"] <= 1e-4, res["max_abs"]
+    convert = vc.vit_from_timm
+
+    def faulty(sd_, spec_):
+        model = convert(sd_, spec_)
+        with torch.no_grad():
+            model.blocks[1].fc1.weight.mul_(1.05)
+        return model
+
+    monkeypatch.setattr(vc, "vit_from_timm", faulty)
+    bad = vc.verify_vit("small", sd, imgs, spec=spec, device="cuda")
+    assert bad["max_abs"] > 1e-3, bad["max_abs"]

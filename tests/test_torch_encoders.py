@@ -254,13 +254,14 @@ def test_from_name_patch8_routes_on_cpu(impl):
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(name="resnet50"), NotImplementedError),
-    (dict(name="resnet18"), NotImplementedError),
+    (dict(name="resnet50"), ValueError),
+    (dict(name="resnet18"), ValueError),
     (dict(name="UNI", block_impl="mosaic"), ValueError),
     (dict(name="no-such-encoder"), ValueError),
 ])
 def test_from_name_refusals(kwargs, err):
     with pytest.raises(err) as info:
         tregistry.from_name(device="cpu", **kwargs)
-    if err is NotImplementedError:
-        assert "ROADMAP" in str(info.value)
+    if kwargs["name"].startswith("resnet"):
+        # the resnets need a torchvision weight file
+        assert "state_dict file" in str(info.value)

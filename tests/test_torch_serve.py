@@ -112,10 +112,12 @@ def test_port_imports_neither_jax_nor_reference_package():
         "for m in pkgutil.walk_packages(paths_tpu_torch.__path__, 'paths_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('kernels.vit_int8', 'viz.heatmap', 'data.raw_slide', "
-        "'cli.heatmap', 'cli.serve', 'cli.mk_folds', 'cli.mk_datasets'):\n"
+        "'cli.heatmap', 'cli.serve', 'cli.mk_folds', 'cli.mk_datasets', "
+        "'encoders.resnet', 'encoders.torch_mirror', 'native.jpeg', "
+        "'native.build', 'cli.verify_conversion'):\n"
         "    assert 'paths_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'paths_tpu', 'pandas', 'matplotlib'))\n"
+        "('jax', 'jaxlib', 'paths_tpu', 'pandas', 'matplotlib', 'PIL'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
