@@ -9,7 +9,8 @@ every slide of the metadata). Survival columns: slide_id, risk (= -sum of
 the cumulative survival), hazard_0..n. Subtype columns: slide_id, pred
 (argmax), p_<class> softmax probabilities. The live model runs on the fused
 engine, as in the JAX package, on the card unless `--device cpu` is given.
-`--artifact` (an exported program) is not ported.
+`--artifact` runs the split through a `cli.export` artifact instead
+(`ServingSession(artifact=...)`): no model code runs.
 """
 from __future__ import annotations
 
@@ -30,13 +31,11 @@ def main(argv=None) -> list:
                         help="Output CSV path (default: stdout)")
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--artifact", default=None,
-                        help="an exported serving artifact (not ported)")
+                        help="run the split through a cli.export artifact "
+                             "instead of the live model")
     parser.add_argument("--device", default="cuda",
                         help="torch device to predict on (default: cuda)")
     args = parser.parse_args(argv)
-    if args.artifact:
-        raise NotImplementedError(
-            "artifact serving is not ported (ROADMAP.md Queue 1 item 10b)")
 
     from paths_tpu_torch.config import Config
     from paths_tpu_torch.data.dataset import load_splits
@@ -71,25 +70,36 @@ def main(argv=None) -> list:
         return [r["slide_id"], r["pred"],
                 *[f"{r['probs'][c]:.6f}" for c in config.filter_to_subtypes]]
 
-    model, _, stats = load_state(
-        args.model_dir, RecursiveModel(config),
-        checkpoint_backend=config.checkpoint_backend)
-    model = model.to(device).eval()
-    print(f"Loaded checkpoint from epoch {stats.get('epoch')}",
-          file=sys.stderr)
+    if args.artifact:
+        from paths_tpu_torch.serve import ServingSession
 
-    _, evaluate = make_step_fns(config, make_optimizer(config, model.parameters()))
-    bs = args.batch_size or config.batch_size[0]
-    rows = []
-    pos = 0
-    for bag0, tables, labels, w in _epoch_batches(
-            ds, bs, shuffle=False, seed=0, config=config, device=device):
-        _, aux = evaluate(model, bag0, tables, labels)
-        n_real = int(w.sum())
-        sids = ds.slide_ids[pos: pos + n_real]
-        pos += n_real
-        pred = aux["pred"][:n_real].float().cpu().numpy()
-        rows.extend(csv_row(r) for r in prediction_rows(config, sids, pred))
+        # a split sweep never repeats a batch: no device batch cache
+        session = ServingSession(args.model_dir, artifact=args.artifact,
+                                 batch_size=args.batch_size, cache_batches=0,
+                                 device=device)
+        rows = [csv_row(r) for r in session.predict(ds.slide_ids)]
+    else:
+        model, _, stats = load_state(
+            args.model_dir, RecursiveModel(config),
+            checkpoint_backend=config.checkpoint_backend)
+        model = model.to(device).eval()
+        print(f"Loaded checkpoint from epoch {stats.get('epoch')}",
+              file=sys.stderr)
+
+        _, evaluate = make_step_fns(config,
+                                    make_optimizer(config, model.parameters()))
+        bs = args.batch_size or config.batch_size[0]
+        rows = []
+        pos = 0
+        for bag0, tables, labels, w in _epoch_batches(
+                ds, bs, shuffle=False, seed=0, config=config, device=device):
+            _, aux = evaluate(model, bag0, tables, labels)
+            n_real = int(w.sum())
+            sids = ds.slide_ids[pos: pos + n_real]
+            pos += n_real
+            pred = aux["pred"][:n_real].float().cpu().numpy()
+            rows.extend(csv_row(r)
+                        for r in prediction_rows(config, sids, pred))
 
     if config.task == "survival":
         header = ["slide_id", "risk"] + [f"hazard_{i}"

@@ -1,8 +1,9 @@
 """HTTP inference server over a trained model (counterpart of
 `paths_tpu.cli.serve`):
 
-    python -m paths_tpu_torch.cli.serve -m models/DIR [--store DIR] \
-        [--host 127.0.0.1] [--port 8000] [--batch-size N] [--device cuda]
+    python -m paths_tpu_torch.cli.serve -m models/DIR [--artifact FILE] \
+        [--store DIR] [--host 127.0.0.1] [--port 8000] [--batch-size N] \
+        [--device cuda]
 
 Routes (JSON in and out):
     GET  /healthz   -> {"ok": true, ...session info}
@@ -13,9 +14,10 @@ Routes (JSON in and out):
                                         {"slide_id", "pred", "probs"}]}
 
 Requests are threads of a `ThreadingHTTPServer`; the session runs one batch
-on the device at a time. Not ported: `--artifact` (an exported program,
-ROADMAP.md Queue 1 item 10b) and `--data-parallel` (item 8) raise
-NotImplementedError.
+on the device at a time. With `--artifact` the session runs a `cli.export`
+artifact at its export-time shapes, and a request for slides beyond them is
+a client error (400). Not ported: `--data-parallel` (ROADMAP.md Queue 1
+item 8) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -97,7 +99,7 @@ def make_server(session, host: str = "127.0.0.1", port: int = 0):
                 self._count(error=True)
                 self._send(404, {"error": str(e)})
                 return
-            except ValueError as e:
+            except ValueError as e:   # e.g. slides beyond an artifact's shapes
                 self._count(error=True)
                 self._send(400, {"error": str(e)})
                 return
@@ -118,7 +120,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-m", "--model-dir", required=True)
     parser.add_argument("--artifact", default=None,
-                        help="an exported serving artifact (not ported)")
+                        help="serve a cli.export artifact instead of the "
+                             "live model")
     parser.add_argument("--store", default=None,
                         help="feature-store root (default: the config's "
                              "preprocess_dir)")
@@ -137,9 +140,6 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on (default: cuda)")
     args = parser.parse_args(argv)
-    if args.artifact:
-        raise NotImplementedError(
-            "artifact serving is not ported (ROADMAP.md Queue 1 item 10b)")
     if args.data_parallel:
         raise NotImplementedError(
             "data-parallel serving is not ported (ROADMAP.md Queue 1 item 8, "
@@ -152,7 +152,7 @@ def main(argv=None):
                              batch_size=args.batch_size,
                              cache_slides=not args.no_cache_slides,
                              cache_batches=args.cache_batches,
-                             device=args.device)
+                             device=args.device, artifact=args.artifact)
     set_matmul_precision(session.config.compute_dtype)
 
     server = make_server(session, args.host, args.port)

@@ -359,3 +359,23 @@ def masked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 masked_flash_attention_fwd.launches = 0
 masked_flash_attention_bwd_dq.launches = 0
 masked_flash_attention_bwd_dkv.launches = 0
+
+
+# The forward kernel as the traceable operator `paths_torch::flash_attention_fwd`
+# (q, k, v, lengths, block_k) -> (out, lse): `torch.export` records it as one
+# node, so an exported serving program (`paths_tpu_torch.export`) runs the
+# kernel. Its one body is `masked_flash_attention_fwd`: the counted launch on
+# the card, the plain version on the CPU; the fake one gives the shapes and
+# types. Importing this module registers it. It has no autograd formula:
+# the differentiable entry is `masked_flash_attention`.
+@torch.library.custom_op("paths_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor,
+                        block_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return masked_flash_attention_fwd(q, k, v, lengths, block_k)
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, lengths, block_k):
+    b, h, nq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, nq), dtype=torch.float32)

@@ -14,8 +14,8 @@ import torch
 from torch import nn
 
 from paths_tpu_torch.kernels.flash_attention import (
+    flash_attention_fwd,
     masked_flash_attention,
-    masked_flash_attention_fwd,
 )
 from paths_tpu_torch.nn.core import dropout, make_linear
 from paths_tpu_torch.ops.masking import NEG_INF
@@ -68,10 +68,11 @@ class MultiheadAttention(nn.Module):
         The kernels take a PREFIX mask (valid keys first, as compacted bags
         are), so lengths are `key_valid.sum(-1)`. When a gradient is wanted
         the route is the differentiable `masked_flash_attention`; otherwise
-        the forward kernel alone, which saves nothing. Attention-weight
-        dropout (in training, at rate > 0) exists on the plain route only,
-        so a call with active dropout takes the plain route even under
-        "pallas", as the JAX package does.
+        the forward kernel alone, which saves nothing, through the operator
+        `paths_torch::flash_attention_fwd` that `torch.export` traces.
+        Attention-weight dropout (in training, at rate > 0) exists on the
+        plain route only, so a call with active dropout takes the plain
+        route even under "pallas", as the JAX package does.
 
         With an empty memory (Nk == 0) the context is zero and the result is
         the broadcast out-projection bias, torch's behaviour for a
@@ -106,7 +107,7 @@ class MultiheadAttention(nn.Module):
                     t.requires_grad for t in (q, k, v)):
                 ctx = masked_flash_attention(q, k, v, lengths, block_k)
             else:
-                ctx, _ = masked_flash_attention_fwd(q, k, v, lengths, block_k)
+                ctx, _ = flash_attention_fwd(q, k, v, lengths, block_k)
         else:
             scale = 1.0 / math.sqrt(d // h)
             logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale

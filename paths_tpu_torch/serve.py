@@ -9,8 +9,10 @@ level's tables on the device), streaming (the level-0 bag on the device, the
 deeper tables gathered on the host level by level) or auto (fused when the
 store's fused batch fits the device's memory). A device-resident LRU keeps
 the last few collated batches, so a repeated request skips collation and the
-copy to the card. The StableHLO-artifact and multi-device branches of the
-JAX package are not ported yet.
+copy to the card. With `artifact=`, the session runs an exported serving
+program (`paths_tpu_torch.export`) in place of the live forward, collated at
+the program's own pads. The multi-device branch of the JAX package is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -26,8 +28,13 @@ from paths_tpu_torch.config import Config, power_str
 from paths_tpu_torch.data.dataset import SlideDataset, collate_bag0, collate_batch
 from paths_tpu_torch.data.feature_store import FeatureStore
 from paths_tpu_torch.engine.auto import resolve_engine
-from paths_tpu_torch.engine.hierarchy import end2end_forward
 from paths_tpu_torch.engine.streaming import StreamingEngine
+from paths_tpu_torch.export import (
+    bag_to_dict,
+    make_serving_fn,
+    prediction,
+    tables_to_dicts,
+)
 from paths_tpu_torch.models.recursive import RecursiveModel
 from paths_tpu_torch.train.metrics import class_probs, survival_risk
 from paths_tpu_torch.train.state import load_model
@@ -63,19 +70,14 @@ def store_slide_ids(store: FeatureStore, base_power: float) -> List[str]:
     return sorted(ids)
 
 
-def _pred(config: Config, logits: torch.Tensor) -> torch.Tensor:
-    return torch.sigmoid(logits) if config.task == "survival" else logits
-
-
 def serving_forward(model: RecursiveModel, config: Config, bag,
                     tables) -> dict:
-    """Prediction-only forward (counterpart of `export.make_serving_fn`):
+    """Prediction-only forward over a `PatchBag` and `LevelTable`s: the
+    function that `export.export_serving` traces (`make_serving_fn`),
     {"pred", "logits", "importances"}; `pred` is hazards (sigmoid) for
     survival, raw logits for subtype classification."""
-    outs = end2end_forward(model, config, bag, tables)
-    logits = outs[-1]["logits"]
-    return {"pred": _pred(config, logits), "logits": logits,
-            "importances": [o["importance"] for o in outs]}
+    return make_serving_fn(config)(model, bag_to_dict(bag),
+                                   tables_to_dicts(tables))
 
 
 class ServingSession:
@@ -94,17 +96,19 @@ class ServingSession:
         and pays only the forward. 0 disables.
     :param device: where the model runs; "cuda" unless the caller asks for
         the CPU
-    :param artifact, mesh: the JAX package's exported-artifact and
-        multi-device sessions; not ported (NotImplementedError)
+    :param artifact: path of a `cli.export` artifact with a program for
+        `device`'s platform: requests run through it, collated to its
+        export-time shapes (a fixed-batch artifact always runs its batch; a
+        `poly_batch` one pads to power-of-two widths up to `batch_size`). A
+        weights-as-arguments artifact takes its weights from `model_dir`.
+    :param mesh: the JAX package's multi-device session; not ported
+        (NotImplementedError)
     """
 
     def __init__(self, model_dir: str, store_root: str = None,
                  batch_size: int = None, cache_slides: bool = True,
                  cache_batches: int = 4, device="cuda", *, artifact=None,
                  mesh=None):
-        if artifact is not None:
-            raise NotImplementedError(
-                "artifact serving is not ported (ROADMAP.md Queue 1 item 10b)")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is not ported (ROADMAP.md Queue 1 "
@@ -118,6 +122,15 @@ class ServingSession:
                                      cache_slides=cache_slides)
         self._index: Dict[str, int] = {s: i for i, s in enumerate(self.slide_ids)}
         self.batch_size = batch_size or self.config.batch_size[0]
+        self._lock = threading.Lock()   # one batch on the device at a time
+        self._batch_cache: "OrderedDict" = OrderedDict()
+        self._cache_batches = cache_batches
+        self._exp = None
+        self._frozen = self._poly_artifact = self._streaming = False
+        self.model = self._params = self._eng = None
+        if artifact is not None:
+            self._open_artifact(artifact, batch_size)
+            return
         if self.config.engine == "auto":
             # resolve from the store's shape bounds; the session owns its
             # config copy, so recording the decision on it is safe
@@ -126,22 +139,62 @@ class ServingSession:
                 self._dataset.global_pads() if self.slide_ids else None,
                 self.batch_size, device=self.device)
         self._streaming = self.config.engine == "streaming"
-        self._lock = threading.Lock()   # one batch on the device at a time
-        self._batch_cache: "OrderedDict" = OrderedDict()
-        self._cache_batches = cache_batches
         # store-wide pads: every request of a batch width has one shape; the
         # streaming engine pads only the level-0 bag
         self._pads = (self._dataset.global_pads(level0_only=self._streaming)
                       if self.config.static_shapes and self.slide_ids else None)
-        model = load_model(model_dir, RecursiveModel(self.config),
+        self.model = self._load_model()
+        if self._streaming:
+            self._eng = StreamingEngine(self.config, self.device)
+
+    def _load_model(self) -> RecursiveModel:
+        model = load_model(self.model_dir, RecursiveModel(self.config),
                            self.config.checkpoint_backend)
-        self.model = model.to(self.device).eval().requires_grad_(False)
-        self._eng = (StreamingEngine(self.config, self.device)
-                     if self._streaming else None)
+        return model.to(self.device).eval().requires_grad_(False)
+
+    def _open_artifact(self, path: str, batch_size) -> None:
+        from paths_tpu_torch.export import artifact_signature, load_serving
+
+        with open(path, "rb") as f:
+            self._exp = load_serving(f.read())
+        if self.device.type not in self._exp.platforms:
+            raise ValueError(f"{path} has no program for {self.device.type} "
+                             f"(platforms {self._exp.platforms})")
+        self._frozen, self.batch_size, self._pads = artifact_signature(
+            self._exp)
+        self._poly_artifact = self.batch_size is None
+        if self._poly_artifact:
+            # a symbolic batch axis: the caller picks the widest batch, and
+            # requests pad to power-of-two widths up to it
+            self.batch_size = batch_size or self.config.batch_size[0]
+        if not self._frozen:
+            self._params = dict(self._load_model().named_parameters())
+
+    def _check_artifact_shapes(self, indices, bag, tables) -> None:
+        """Slides preprocessed after the export can exceed the artifact's
+        input shapes; reject them with a clear message instead of the
+        program's shape-guard error."""
+        got_n0 = int(bag.mask.shape[1])
+        got_rows = [0] + [int(t.fts.shape[1]) for t in tables]
+        got_grid = [(0, 0)] + [tuple(map(int, t.index.shape[1:3]))
+                               for t in tables]
+        if (got_n0 <= self._pads["n0"]
+                and all(g <= p for g, p in zip(got_rows, self._pads["rows"]))
+                and all(gh <= ph and gw <= pw for (gh, gw), (ph, pw)
+                        in zip(got_grid, self._pads["grid_hw"]))):
+            return
+        names = sorted({self.slide_ids[i] for i in indices})
+        raise ValueError(
+            f"slides exceed the artifact's export-time shapes "
+            f"(level-0 width {got_n0} > {self._pads['n0']} or table rows "
+            f"{got_rows} > {self._pads['rows']}); offending batch: "
+            f"{names}. Re-export the artifact with current global pads.")
 
     def _pad_width(self, n: int) -> int:
-        """Batch width for an n-slide chunk: the next power of two, capped
-        at the session's batch size."""
+        """Batch width for an n-slide chunk: a fixed-batch artifact's batch,
+        else the next power of two, capped at the session's batch size."""
+        if self._exp is not None and not self._poly_artifact:
+            return self.batch_size
         width = 1
         while width < min(n, self.batch_size):
             width *= 2
@@ -167,7 +220,20 @@ class ServingSession:
         n = len(indices)
         padded = list(indices) + [indices[-1]] * (self._pad_width(n) - n)
         bucket = self.config.level0_bucket
-        if self._streaming:
+        if self._exp is not None:    # exactly the export-time shapes
+            def assemble():
+                bag, tables = collate_batch(
+                    self._dataset, padded, level0_bucket=1, row_bucket=1,
+                    grid_bucket=1, pads=self._pads, device=self.device)
+                self._check_artifact_shapes(padded, bag, tables)
+                return bag_to_dict(bag), tables_to_dicts(tables)
+
+            args = self._cached(padded, assemble)
+            if not self._frozen:
+                args = (self._params,) + tuple(args)
+            with torch.inference_mode():
+                pred = self._exp.call(*args)["pred"]
+        elif self._streaming:
             bag0 = self._cached(padded, lambda: collate_bag0(
                 self._dataset, padded, level0_bucket=bucket, pads=self._pads,
                 device=self.device))
@@ -175,7 +241,7 @@ class ServingSession:
             with torch.inference_mode():
                 outs, _ = self._eng.forward(self.model, bag0,
                                             [s.tables for s in slides])
-                pred = _pred(self.config, outs[-1]["logits"])
+                pred = prediction(self.config, outs[-1]["logits"])
             if not self._dataset.cache_slides:
                 for s in slides:
                     s.unload()
@@ -208,6 +274,9 @@ class ServingSession:
             "model_dir": self.model_dir,
             "num_slides": len(self.slide_ids),
             "batch_size": self.batch_size,
-            "backend": "live-streaming" if self._streaming else "live",
+            "backend": ("frozen-artifact" if self._exp is not None
+                        and self._frozen else
+                        "artifact" if self._exp is not None else
+                        "live-streaming" if self._streaming else "live"),
             "device": str(self.device),
         }

@@ -17,8 +17,9 @@ the device's memory).
 
 With `remat`, each level's forward is recomputed in the backward
 (`engine/hierarchy.py`): between forward and backward only the levels'
-inputs are held. Not ported: meshes over more than one device and the Orbax backend
-raise NotImplementedError.
+inputs are held. Checkpoints go to `model.npz` / `opt.npz` or, under
+`checkpoint_backend: "orbax"`, to an Orbax checkpoint (`train/state.py`). Not
+ported: a mesh over more than one device raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -254,12 +255,7 @@ def _refuse_unported(config: Config) -> None:
     if config.mesh_shape and math.prod(config.mesh_shape) > 1:
         raise NotImplementedError(
             f"mesh_shape={config.mesh_shape}: the port trains on one device "
-            "(ROADMAP.md Queue 1, 'Parallel')")
-    if config.checkpoint_backend != "npz":
-        raise NotImplementedError(
-            f"checkpoint_backend={config.checkpoint_backend!r}: the port "
-            "writes npz only (ROADMAP.md Queue 1, 'Checkpoint routes', the "
-            "Orbax half)")
+            "(ROADMAP.md Queue 1 item 8, 'Parallel')")
 
 
 def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
@@ -417,7 +413,7 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
                 and not config.early_stopping):
             train_stats["epoch"] = e + 1
             save_state(model_dir, model, optimizer, train_stats,
-                       clip_grad_norm=clip)
+                       clip_grad_norm=clip, backend=config.checkpoint_backend)
 
         if e % config.eval_epochs == 0 and val_ds is not None and len(val_ds):
             run_eval(val_ds, val_eval, cacheable=True)
@@ -430,7 +426,8 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
                 best_val_score = val_score
                 train_stats["epoch"] = e + 1
                 save_state(model_dir, model, optimizer, train_stats,
-                           clip_grad_norm=clip)
+                           clip_grad_norm=clip,
+                           backend=config.checkpoint_backend)
 
     if config.early_stopping:
         model, optimizer, s = load_state(
@@ -440,7 +437,8 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
             print(f"Early stopping: loading from epoch {s['epoch']}")
 
     train_stats["epoch"] = config.num_epochs
-    save_state(model_dir, model, optimizer, train_stats, clip_grad_norm=clip)
+    save_state(model_dir, model, optimizer, train_stats, clip_grad_norm=clip,
+               backend=config.checkpoint_backend)
 
     test_eval = make_evaluator(config, "test")
     run_eval(test_ds, test_eval)

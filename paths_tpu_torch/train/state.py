@@ -1,23 +1,27 @@
-"""Checkpoints in the JAX package's npz layout, and the reference's
-`model.pt` / `train_stats.pkl` (counterpart of `paths_tpu.train.state`).
+"""Checkpoints in the JAX package's npz and Orbax layouts, and the
+reference's `model.pt` / `train_stats.pkl` (counterpart of
+`paths_tpu.train.state`).
 
 A model directory holds `model.npz` (the flat JAX params dict),
 `opt.npz` (the optimizer state) and `train_stats.json` (the epoch to resume
-from plus per-epoch metric histories). `opt.npz` uses the keys of the JAX
+from plus per-epoch metric histories); under `backend="orbax"` the params and
+the optimizer state go to an Orbax checkpoint `orbax/` instead
+(`train/orbax.py`). The optimizer state uses the keys of the JAX
 package's optax state, `inject_hyperparams(adamw)` or, with a gradient-norm
 clip (`config.clip_grad_norm`, passed as `clip_grad_norm`),
 `inject_hyperparams(chain(clip_by_global_norm, adamw))`: the step count,
 the hyperparameters, and AdamW's first and second moments (`mu`, `nu`) per
 parameter key. So a model directory resumes in either package.
 
-Reading follows the JAX package's order: `model.npz`, else a reference
-`model.pt` (the original PyTorch PATHS's `state_dict()`, mapped by
-`paths_tpu_torch.convert`); then `train_stats.json`, else a reference
-`train_stats.pkl` (its integer epoch keys stay integers), else a fresh
-`{"epoch": 1}`. Not ported: the Orbax backend (an `orbax/` directory) raises
-NotImplementedError, except that `model.npz` beside it is read when the
-config's `checkpoint_backend` is "npz" (ROADMAP.md Queue 1, 'Checkpoint
-routes', the Orbax half).
+Reading follows the JAX package's order: `orbax/`, `model.npz`, else a
+reference `model.pt` (the original PyTorch PATHS's `state_dict()`, mapped by
+`paths_tpu_torch.convert`). Where both `orbax/` and `model.npz` are there,
+the config's `checkpoint_backend` ("npz" or "orbax") decides, else the newer
+of the two. The optimizer state comes from the Orbax tree when the weights
+did and it holds one, else from `opt.npz`. Then `train_stats.json`, else a
+reference `train_stats.pkl` (its integer epoch keys stay integers), else a
+fresh `{"epoch": 1}`. Reading a JAX-written Orbax checkpoint needs the
+host's libzstd (`paths_tpu_torch.native.zstd`).
 """
 from __future__ import annotations
 
@@ -37,45 +41,77 @@ from paths_tpu_torch.convert import (
     to_jax_layout,
 )
 from paths_tpu_torch.models.recursive import RecursiveModel
+from paths_tpu_torch.train.orbax import read_orbax, write_orbax
 
 # where optax keeps AdamW's count and moments inside the injected state
 _ADAM_PREFIX = {False: ".inner_state/0/", True: ".inner_state/1/0/"}
 
 
+def _newest(path: str) -> float:
+    """The newest mtime of a file, or of any file under a directory."""
+    if not os.path.isdir(path):
+        return os.path.getmtime(path)
+    return max((os.path.getmtime(os.path.join(r, f))
+                for r, _, fs in os.walk(path) for f in fs),
+               default=os.path.getmtime(path))
+
+
 def _weights_file(root_path: str, checkpoint_backend: Optional[str]):
-    """`model.npz`, else `model.pt`, else None. An `orbax/` directory raises,
-    unless the backend is "npz" and `model.npz` is beside it (JAX's choice
-    between the two then falls on npz)."""
+    """`orbax/`, `model.npz` or `model.pt`, in that order, or None. When
+    both `orbax/` and `model.npz` are there, `checkpoint_backend` decides,
+    else the newer (JAX's rule)."""
+    orbax_dir = os.path.join(root_path, "orbax")
     npz_path = os.path.join(root_path, "model.npz")
-    if (os.path.isdir(os.path.join(root_path, "orbax"))
-            and not (checkpoint_backend == "npz" and os.path.isfile(npz_path))):
-        raise NotImplementedError(
-            f"{root_path} holds an Orbax checkpoint, which the port does not "
-            "read (ROADMAP.md Queue 1, 'Checkpoint routes', the Orbax half)")
+    use_orbax = os.path.isdir(orbax_dir)
+    if use_orbax and os.path.isfile(npz_path):
+        if checkpoint_backend in ("npz", "orbax"):
+            use_orbax = checkpoint_backend == "orbax"
+        else:
+            use_orbax = _newest(orbax_dir) >= _newest(npz_path)
+        print(f"Both orbax/ and model.npz present in {root_path}; loading "
+              f"{'orbax' if use_orbax else 'npz'}")
+    if use_orbax:
+        return orbax_dir
     for path in (npz_path, os.path.join(root_path, "model.pt")):
         if os.path.isfile(path):
             return path
     return None
 
 
-def _read_weights(path: str, model: RecursiveModel) -> RecursiveModel:
+def _f32(flat: dict) -> dict:
+    """numpy f32 arrays from an Orbax tree's leaves (bfloat16 ones are
+    torch tensors; the upcast is exact)."""
+    return {k: v.float().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in flat.items()}
+
+
+def _read_weights(path: str, model: RecursiveModel):
+    """Load the weights at `path` into `model`; returns the optimizer's
+    flat state where the checkpoint holds one (Orbax), else None."""
+    if os.path.isdir(path):
+        params, opt = read_orbax(path)
+        load_jax_flat(model, _f32(params))
+        return None if opt is None else _f32(opt)
     if path.endswith(".pt"):
         print(f"Loading reference torch checkpoint {path}")
-        return load_torch_checkpoint(path, model)
+        load_torch_checkpoint(path, model)
+        return None
     with np.load(path) as z:
-        return load_jax_flat(model, dict(z.items()))
+        load_jax_flat(model, dict(z.items()))
+    return None
 
 
 def load_model(root_path: str, model: RecursiveModel,
                checkpoint_backend: Optional[str] = None) -> RecursiveModel:
-    """Load `<root_path>/model.npz`, else the reference `model.pt`, into
-    `model` (in place) and return it; raise if neither is there.
+    """Load `<root_path>/orbax`, `model.npz` or the reference `model.pt`
+    into `model` (in place) and return it; raise if none is there.
     `checkpoint_backend` is the config's (see the module docstring)."""
     path = _weights_file(root_path, checkpoint_backend)
     if path is None:
         raise FileNotFoundError(
-            f"neither model.npz nor model.pt in {root_path}")
-    return _read_weights(path, model)
+            f"none of orbax/, model.npz and model.pt in {root_path}")
+    _read_weights(path, model)
+    return model
 
 
 def optimizer_to_jax_flat(model: RecursiveModel,
@@ -144,16 +180,22 @@ def load_optimizer_jax_flat(model: RecursiveModel,
 def save_state(root_path: str, model: RecursiveModel,
                optimizer: Optional[torch.optim.Optimizer] = None,
                train_stats: Optional[dict] = None, *,
-               clip_grad_norm: Optional[float] = None) -> None:
-    """Write `model.npz`, `opt.npz` (with an optimizer; its layout follows
-    `clip_grad_norm`) and `train_stats.json` (with stats) into
+               clip_grad_norm: Optional[float] = None,
+               backend: str = "npz") -> None:
+    """Write `model.npz` and `opt.npz` (with an optimizer; its layout
+    follows `clip_grad_norm`), or under `backend="orbax"` both into the
+    Orbax checkpoint `orbax/`, and `train_stats.json` (with stats) into
     `root_path`."""
     print(f"Saving to {root_path}...")
     os.makedirs(root_path, exist_ok=True)
-    np.savez(os.path.join(root_path, "model.npz"), **to_jax_flat(model))
-    if optimizer is not None:
-        np.savez(os.path.join(root_path, "opt.npz"),
-                 **optimizer_to_jax_flat(model, optimizer, clip_grad_norm))
+    opt = (None if optimizer is None
+           else optimizer_to_jax_flat(model, optimizer, clip_grad_norm))
+    if backend == "orbax":
+        write_orbax(os.path.join(root_path, "orbax"), to_jax_flat(model), opt)
+    else:
+        np.savez(os.path.join(root_path, "model.npz"), **to_jax_flat(model))
+        if opt is not None:
+            np.savez(os.path.join(root_path, "opt.npz"), **opt)
     if train_stats is not None:
         with open(os.path.join(root_path, "train_stats.json"), "w") as f:
             json.dump(train_stats, f)
@@ -164,23 +206,25 @@ def load_state(root_path: str, model: RecursiveModel,
                clip_grad_norm: Optional[float] = None,
                checkpoint_backend: Optional[str] = None) -> Tuple:
     """Restore (model, optimizer, train_stats) from `root_path`, in place;
-    `opt.npz` is read in the layout that `clip_grad_norm` gives it.
-    Missing files leave the passed-in values untouched; a fresh directory
+    the optimizer state is read in the layout that `clip_grad_norm` gives
+    it. Missing files leave the passed-in values untouched; a fresh directory
     gives train_stats {"epoch": 1}. Integer epoch keys of the metric
     histories survive the JSON round trip. The weights and stats files are
     chosen as the module docstring says."""
     path = _weights_file(root_path, checkpoint_backend)
+    opt = None
     if path is not None:
-        _read_weights(path, model)
+        opt = _read_weights(path, model)
     else:
         print(f"{os.path.join(root_path, 'model.npz')} not found, not loading "
               "model state!")
-
     opt_path = os.path.join(root_path, "opt.npz")
-    if optimizer is not None and os.path.isfile(opt_path):
+    from_orbax = path is not None and os.path.isdir(path)
+    if optimizer is not None and not from_orbax and os.path.isfile(opt_path):
         with np.load(opt_path) as z:
-            load_optimizer_jax_flat(model, optimizer, dict(z.items()),
-                                    clip_grad_norm)
+            opt = dict(z.items())
+    if optimizer is not None and opt is not None:
+        load_optimizer_jax_flat(model, optimizer, opt, clip_grad_norm)
 
     stats_path = os.path.join(root_path, "train_stats.json")
     pkl_path = os.path.join(root_path, "train_stats.pkl")

@@ -22,7 +22,7 @@ from paths_tpu_torch.kernels import bench_vit
 from paths_tpu_torch.nn import attention as tattn
 
 MIN = tattn.AUTO_PALLAS_MIN_LEN
-KERNEL_ENTRIES = ("masked_flash_attention", "masked_flash_attention_fwd")
+KERNEL_ENTRIES = ("masked_flash_attention", "flash_attention_fwd")
 
 
 def _spy(monkeypatch, names=KERNEL_ENTRIES):

@@ -8,7 +8,6 @@ reference model's `state_dict()`) loads into the port with the values JAX
 loads, the port's exporter loads in JAX equal to the bit, and a round trip
 through the port changes nothing. Hazards of the two packages' sessions over
 one `model.pt` agree to 1e-6 (f32 on the CPU, different summation order).
-The Orbax backend keeps its refusal.
 """
 import json
 import os
@@ -145,22 +144,6 @@ def test_npz_wins_over_model_pt(tmp_path):
     model, _, stats = tstate.load_state(str(tmp_path), RecursiveModel(tcfg))
     _same_flat(convert.to_jax_flat(model), jstate._flatten(params))
     assert stats == {"epoch": 1}
-
-
-def test_orbax_backend_still_raises(tmp_path):
-    """An `orbax/` directory: refused, unless `model.npz` is beside it and
-    the backend is "npz" (JAX then reads the npz too)."""
-    jcfg, tcfg, params = _pair(True)
-    os.makedirs(tmp_path / "orbax")
-    for backend in (None, "orbax", "npz"):
-        with pytest.raises(NotImplementedError, match="Orbax half"):
-            tstate.load_state(str(tmp_path), RecursiveModel(tcfg),
-                              checkpoint_backend=backend)
-    jstate.save_state(str(tmp_path), params)
-    model = tstate.load_model(str(tmp_path), RecursiveModel(tcfg), "npz")
-    _same_flat(convert.to_jax_flat(model), jstate._flatten(params))
-    with pytest.raises(NotImplementedError, match="Orbax half"):
-        tstate.load_model(str(tmp_path), RecursiveModel(tcfg), "orbax")
 
 
 def test_missing_reference_key_raises(tmp_path):

@@ -159,8 +159,3 @@ def test_train_profile_writes_a_trace(tmp_path, store):
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
 
-
-def test_predict_artifact_is_not_ported(tmp_path, store):
-    d, _, _ = _model_dir(tmp_path, store)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tpredict(["-m", d, "--artifact", "model.bin", "--device", "cpu"])

@@ -1051,3 +1051,108 @@ def test_verify_vit_on_the_fused_route_and_planted_fault(card, monkeypatch):
     monkeypatch.setattr(vc, "vit_from_timm", faulty)
     bad = vc.verify_vit("small", sd, imgs, spec=spec, device="cuda")
     assert bad["max_abs"] > 1e-3, bad["max_abs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,d", [(257, 32), (81, 32), (130, 64)])
+def test_export_flash_op_cuda_matches_plain(card, nq, d):
+    """The operator `paths_torch::flash_attention_fwd` on CUDA tensors
+    launches #1 once (its counter) and agrees with the plain version; its
+    schema, fake implementation and dispatch pass `opcheck`."""
+    q, k, v, ln = _inputs(4, 4, nq, nq, d, [nq, 1, nq // 2, 33], card)
+    before = tfa.masked_flash_attention_fwd.launches
+    out, lse = tfa.flash_attention_fwd(q, k, v, ln, 128)
+    torch.cuda.synchronize()
+    assert tfa.masked_flash_attention_fwd.launches == before + 1
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, ln, 128)
+    torch.testing.assert_close(out, ref_out, atol=TOL, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=TOL, rtol=0)
+    torch.library.opcheck(tfa.flash_attention_fwd, (q, k, v, ln, 128))
+
+
+def _small_model_dir(root):
+    """A 3-level model directory over a 6-slide synthetic store, on the
+    kernel route (the port's config, no JAX)."""
+    import os
+
+    from paths_tpu_torch.config import Config, PATHSProcessorConfig
+    from paths_tpu_torch.data.synthetic import make_synthetic_store
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train.state import save_state
+
+    mc = PATHSProcessorConfig(patch_embed_dim=32, trans_dim=32, trans_heads=1,
+                              trans_layers=2, importance_mlp_hidden_dim=8,
+                              hierarchical_ctx_mlp_hidden_dim=8)
+    cfg = Config(model_config=mc, num_levels=3, top_k_patches=4, nbins=4,
+                 level0_bucket=16, batch_size=4, attention_impl="pallas",
+                 preprocess_dir=os.path.join(root, "store"))
+    make_synthetic_store(cfg.preprocess_dir, cfg, num_slides=6,
+                         base_hw=(3, 4), seed=1)
+    d = os.path.join(root, "model")
+    cfg.save(d)
+    save_state(d, RecursiveModel(cfg,
+                                 generator=torch.Generator().manual_seed(0)))
+    return d, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [False, True])
+def test_export_cuda_artifact_launches_flash(card, tmp_path, freeze):
+    """A CUDA serving program: its graph names the operator once per decoder
+    layer per level, a request through `ServingSession(artifact=...)`
+    launches #1 that often, and its hazards equal the live session's."""
+    from paths_tpu_torch import export as texport
+    from paths_tpu_torch.data.dataset import collate_batch
+    from paths_tpu_torch.serve import ServingSession
+
+    d, cfg = _small_model_dir(str(tmp_path))
+    live = ServingSession(d, device="cuda", cache_batches=0)
+    bag, tables = collate_batch(live._dataset, [0, 1, 2, 3],
+                                level0_bucket=cfg.level0_bucket,
+                                pads=live._pads, device="cuda")
+    blob = texport.export_serving(cfg, live.model, bag, tables,
+                                  freeze_params=freeze)
+    path = str(tmp_path / "a.pt2z")
+    with open(path, "wb") as f:
+        f.write(blob)
+    exp = texport.load_serving(blob)
+    per = cfg.num_levels * cfg.model_config.trans_layers
+    assert exp.platforms == ["cuda"]
+    assert sum("paths_torch.flash_attention_fwd" in str(n.target)
+               for n in exp.program().graph.nodes) == per
+    sess = ServingSession(d, artifact=path, device="cuda", cache_batches=0)
+    ids = live.slide_ids[:4]
+    before = tfa.masked_flash_attention_fwd.launches
+    got = sess.predict(ids)
+    assert tfa.masked_flash_attention_fwd.launches == before + per
+    want = live.predict(ids)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a["hazards"], b["hazards"], atol=TOL,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_orbax_roundtrip_of_a_cuda_model(card, tmp_path):
+    """`save_state(backend="orbax")` of a model and AdamW state on the card,
+    read back into fresh ones on the card equal to the bit."""
+    from paths_tpu_torch import convert
+    from paths_tpu_torch.train import loop as tloop
+    from paths_tpu_torch.train import state as tstate
+
+    d, cfg = _small_model_dir(str(tmp_path))
+    model = tloop.RecursiveModel(cfg).to(card)
+    opt = tloop.make_optimizer(cfg, model.parameters())
+    sum(p.sum() for p in model.parameters()).backward()
+    opt.step()
+    tstate.save_state(d, model, opt, {"epoch": 2}, backend="orbax")
+    back = tloop.RecursiveModel(cfg).to(card)
+    back_opt = tloop.make_optimizer(cfg, back.parameters())
+    _, _, stats = tstate.load_state(d, back, back_opt,
+                                    checkpoint_backend="orbax")
+    assert stats["epoch"] == 2
+    for got, want in ((convert.to_jax_flat(back), convert.to_jax_flat(model)),
+                      (tstate.optimizer_to_jax_flat(back, back_opt),
+                       tstate.optimizer_to_jax_flat(model, opt))):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -166,7 +166,6 @@ def test_concurrent_requests(sessions):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--artifact", "model.shlo"], "item 10b"),
     (["--data-parallel", "2"], "item 8")])
 def test_unported_flags_raise(sessions, flags, item):
     d = sessions[0]

@@ -338,19 +338,13 @@ def test_checkpoints_resume_across_packages(tmp_path, store, clip):
 
 
 def test_unported_options_raise(tmp_path, store):
-    """A mesh over more than one device and the Orbax backend (remat and the
-    reference `model.pt` are ported: `tests/test_torch_remat.py`,
-    `tests/test_torch_checkpoint.py`)."""
+    """A mesh over more than one device (remat, the reference `model.pt`
+    and the Orbax backend are ported: `tests/test_torch_remat.py`,
+    `tests/test_torch_checkpoint.py`, `tests/test_torch_orbax.py`)."""
     tmp, _, _ = store
-    for kw in (dict(mesh_shape=[2, 1]), dict(checkpoint_backend="orbax")):
-        _, tcfg = configs(tmp, **kw)
-        with pytest.raises(NotImplementedError):
-            tloop.train_loop(tcfg, str(tmp_path), None, None, None,
-                             device="cpu")
-    (tmp_path / "orbax").mkdir()
-    _, tcfg = configs(tmp)
-    with pytest.raises(NotImplementedError):
-        tstate.load_state(str(tmp_path), tloop.RecursiveModel(tcfg))
+    _, tcfg = configs(tmp, mesh_shape=[2, 1])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tloop.train_loop(tcfg, str(tmp_path), None, None, None, device="cpu")
 
 
 # ------------------------------------------------------- the training loop
