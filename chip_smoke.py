@@ -79,6 +79,20 @@ Phases, each printing its own lines:
      poly artifact at 8 and 32 slides, the CPU program against the CUDA one,
      a planted fault (an artifact at a small slide's pads must refuse the
      store), `cli.predict --artifact` and `cli.serve --artifact`;
+  3f. dp (after export): data parallelism over two ranks or shards, one per
+     card where the host has two, else both on cuda:0 (the ranks over gloo,
+     passed explicitly: NCCL refuses two ranks on one card). dp-train: two
+     `cli.train` processes (torchrun's environment, `mesh_shape: [2]`) over
+     the [train] model directory from its initial weights for one epoch:
+     the loss against the one-process run's epoch 1, the ranks' parameters
+     equal to the bit, each rank's kernel launches against the code's count,
+     step times beside the one-process step; dp-serve: the [slice] model
+     behind a two-shard `ServingSession(mesh=...)`: hazards against the
+     one-device session's, #1's launches per shard, the fused forward run
+     under `torch.cuda.set_sync_debug_mode("error")` (it must not wait for
+     the host, or the loop over shards would serialise them), the warm
+     request beside the one-device one in turns, and `cli.serve
+     --data-parallel 2` with one request;
   5. ViT block kernels: the fused attention, GELU-MLP and packed-SwiGLU-MLP
      block kernels against their plain versions at the UNI and Virchow2
      shapes (64 images), the attention and GELU-MLP blocks also at
@@ -115,7 +129,11 @@ Phases, each printing its own lines:
      random mirror's state dict, one batch's time and profile, ResNet-50 and
      -18 against the mirror on the card; verify: `cli.verify_conversion` for
      UNI at full depth on `fused` in f32 and for ResNet-50, and a planted
-     fault in the converted encoder that the check must report.
+     fault in the converted encoder that the check must report;
+     dp-preprocess (after tiles): the two slides through `cli.preprocess`
+     with UNI from the [tiles] weights on one device and with
+     `--data-shards 2` on `fused` and `int8`: grids against the one-device
+     run, launches against the code's count, patches/s.
 The line before the last is a JSON object of per-kernel numbers, and the
 last line is `{"ok": true, "device": {...}}`. Any failed check raises, so
 the script exits non-zero and prints no result; without a CUDA device it
@@ -747,9 +765,9 @@ def training_phase(torch, tfa, gpu):
           f"{worst['c-index']:.3g} (atol {CINDEX_ATOL}); final test metrics "
           f"kernel {finals['pallas']}, plain {finals['xla']}", flush=True)
 
-    step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout)
+    step_ms = step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout)
     return counts["pallas"], {"cfg": cfg, "dirs": dirs, "splits": splits,
-                              "model": model, "runs": runs,
+                              "model": model, "runs": runs, "step_ms": step_ms,
                               "published_dropout": published_dropout}
 
 
@@ -903,6 +921,7 @@ def step_checks(torch, tfa, gpu, cfg, dirs, splits, published_dropout):
     table = prof.key_averages().table(sort_by="device_time_total", row_limit=25)
     for line in table.splitlines():
         print(f"[train-profile] {line}", flush=True)
+    return min(walls)
 
 
 # Streaming epoch-1 train loss vs the fused run's, relative: JAX's own bar
@@ -1869,6 +1888,313 @@ def export_phase(torch, tfa, gpu, sl):
           f"{len(ids)} slides equals session.predict to the bit | {gpu}",
           flush=True)
     return launches
+
+
+# [dp]: data parallelism. Two training ranks or two serving / preprocessing
+# shards: one per card where the host has two, else both on cuda:0 (NCCL
+# refuses two ranks on one card, so those ranks join over gloo, whose
+# all-reduce and broadcast take CUDA tensors). Every child has a timeout and
+# is killed past it; a collective waits at most DP_GROUP_TIMEOUT_S.
+DP_GROUP_TIMEOUT_S = 120
+DP_CHILD_TIMEOUT_S = 300
+# A two-shard session's hazards: each shard is a one-device batch of half the
+# rows, so they must equal to the bit those of a one-device session whose
+# batch is a shard's; against the live one-device session (32 rows a batch)
+# they differ where cuBLAS sums a 16-row GEMM in another order than a 32-row
+# one (1.04e-6 relative on the H100): held to 1e-6 absolute.
+DP_HAZARD_ATOL = 1e-6
+
+DP_TRAIN_CHILD = r"""
+import hashlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from paths_tpu_torch.runtime import maybe_init_distributed
+from paths_tpu_torch.kernels import flash_attention as tfa
+from paths_tpu_torch.train import loop
+backend, device, model_dir, timeout = sys.argv[2:6]
+maybe_init_distributed(backend, device, timeout=float(timeout))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+seen, steps = {}, []
+real = loop.make_step_fns
+
+def spy(config, optimizer, mesh=None):
+    seen["opt"] = optimizer
+    update, evaluate = real(config, optimizer, mesh)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*args, **kwargs)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed, evaluate
+
+loop.make_step_fns = spy
+from paths_tpu_torch.cli.train import main
+stats = main(["-m", model_dir, "--no-wandb", "--device", device])
+digest = hashlib.sha256()
+for group in seen["opt"].param_groups:
+    for p in group["params"]:
+        digest.update(p.detach().cpu().numpy().tobytes())
+counts = {f.__name__: f.launches for f in (
+    tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd_dq,
+    tfa.masked_flash_attention_bwd_dkv)}
+print("DP_RANK " + json.dumps({
+    "rank": torch.distributed.get_rank(),
+    "backend": torch.distributed.get_backend(),
+    "device": str(torch.cuda.current_device()),
+    "loss": stats["train_loss"][1], "epoch_s": stats["epoch_wall_s"][1],
+    "steps_ms": steps, "counts": counts, "params": digest.hexdigest()}),
+    flush=True)
+"""
+
+
+def dp_layout(torch, n: int = 2):
+    """(backend, device per rank or shard, words for the lines)."""
+    if torch.cuda.device_count() >= n:
+        return "nccl", [f"cuda:{i}" for i in range(n)], "one per card (NCCL)"
+    return "gloo", ["cuda:0"] * n, ("all on cuda:0 over gloo, this host "
+                                    "having one card")
+
+
+def run_ranks(code: str, args_per_rank, timeout: float) -> list:
+    """Start one `python -c code` per rank with the environment torchrun
+    sets; returns each rank's DP_RANK JSON. A rank past `timeout` is killed
+    with all the others, and any failure raises with the ranks' output."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    world = len(args_per_rank)
+    procs = []
+    for rank, args in enumerate(args_per_rank):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, ROOT, *args], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    deadline = time.monotonic() + timeout
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, err = p.communicate()
+            logs.append((out, err + f"\nkilled after {timeout:.0f} s"))
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("a rank failed:\n" + "\n---\n".join(
+            f"rank {r} rc={p.returncode}:\n{o[-3000:]}\n{e[-6000:]}"
+            for r, (p, (o, e)) in enumerate(zip(procs, logs))))
+    results = []
+    for rank, (out, _) in enumerate(logs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("DP_RANK ")]
+        if len(lines) != 1:
+            raise AssertionError(f"rank {rank} printed no result:\n{out[-3000:]}")
+        results.append(json.loads(lines[0][len("DP_RANK "):]))
+    return results
+
+
+def dp_train_phase(torch, tfa, gpu, tr):
+    """[dp-train]: two ranks of `cli.train` over the [train] model directory
+    from its initial weights, one epoch with `mesh_shape: [2]`: the epoch's
+    loss against the one-process run's epoch 1, the ranks' parameters equal
+    to the bit, and each rank's kernel launches against the code's count."""
+    import copy
+
+    from paths_tpu_torch.parallel.mesh import ProcessMesh
+    from paths_tpu_torch.train.loop import rank_batch
+    from paths_tpu_torch.train.state import save_state
+
+    cfg = copy.deepcopy(tr["cfg"])
+    cfg.num_epochs, cfg.mesh_shape, cfg.attention_impl = 1, [2], "pallas"
+    d = os.path.join(WORK, "dp_train")
+    cfg.save(d)
+    save_state(d, tr["model"])
+    backend, devices, layout = dp_layout(torch)
+    rank_device = {"nccl": "cuda", "gloo": "cuda:0"}[backend]
+    t0 = time.perf_counter()
+    ranks = run_ranks(DP_TRAIN_CHILD, [[backend, rank_device, d,
+                                        str(DP_GROUP_TIMEOUT_S)]] * 2,
+                      DP_CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    want_loss = tr["runs"]["pallas"]["train_loss"][1]
+    want_counts = expected_train_launches(cfg, tr["splits"])
+    for r in ranks:
+        rel = abs(r["loss"] - want_loss) / abs(want_loss)
+        if not rel <= LOSS_RTOL:
+            raise AssertionError(f"[dp-train] rank {r['rank']}: epoch-1 loss "
+                                 f"{r['loss']} vs one process {want_loss} "
+                                 f"({rel:.3g} > {LOSS_RTOL})")
+        if r["counts"] != want_counts:
+            raise AssertionError(f"[dp-train] rank {r['rank']} launched "
+                                 f"{r['counts']}, the code says {want_counts}")
+        if r["backend"] != backend:
+            raise AssertionError(f"[dp-train] rank {r['rank']} ran over "
+                                 f"{r['backend']}, not {backend}")
+    if ranks[0]["params"] != ranks[1]["params"]:
+        raise AssertionError("[dp-train] the ranks' parameters differ after "
+                             "the epoch")
+    rel = max(abs(r["loss"] - want_loss) / abs(want_loss) for r in ranks)
+    print(f"[dp-train] 2 ranks of cli.train, mesh_shape [2], {layout} "
+          f"(backend {backend} passed explicitly): one epoch of "
+          f"{len(tr['splits'][0])} train slides, {len(ranks[0]['steps_ms'])} "
+          f"steps of {rank_batch(cfg.batch_size[0], ProcessMesh(0, 2))} rows a "
+          f"rank; epoch-1 loss {ranks[0]['loss']:.9f} vs "
+          f"one process {want_loss:.9f} (rel {rel:.3g}, rtol {LOSS_RTOL}); "
+          f"parameters equal to the bit on both ranks (sha256 "
+          f"{ranks[0]['params'][:12]}); launches per rank {ranks[0]['counts']}"
+          f" as the code says; {wall:.1f} s for both processes | {gpu}",
+          flush=True)
+    for r in ranks:
+        print(f"[dp-train] rank {r['rank']}: steps "
+              f"{', '.join(f'{t:.1f}' for t in r['steps_ms'])} ms wall "
+              f"(synchronised, the gradient all-reduce included), epoch "
+              f"{r['epoch_s']:.2f} s, against one process's warm "
+              f"{cfg.batch_size[0]}-row step "
+              f"{tr['step_ms']:.1f} ms and epoch "
+              f"{tr['runs']['pallas']['epoch_wall_s'][1]:.2f} s | {gpu}",
+              flush=True)
+
+
+def dp_serve_phase(torch, tfa, gpu, sl):
+    """[dp-serve]: the [slice] model behind a two-shard `ServingSession`
+    (no batch cache): hazards of a 32-slide request against the one-device
+    session's, #1's launches per shard, whether the fused forward waits for
+    the host, the warm request's wall beside the one-device request's in
+    turns; then `cli.serve --data-parallel 2` with one request."""
+    import http.client
+    import threading
+
+    from paths_tpu_torch.cli import serve as cserve
+    from paths_tpu_torch.data.dataset import collate_batch
+    from paths_tpu_torch.parallel.mesh import make_mesh
+    from paths_tpu_torch.serve import ServingSession, serving_forward
+
+    cfg, ids, one = sl["cfg"], sl["ids"], sl["sess"]
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    backend, devices, layout = dp_layout(torch)
+    t0 = time.perf_counter()
+    two = ServingSession(sl["dirs"]["pallas"], cache_batches=0,
+                         mesh=make_mesh(devices=devices))
+    open_s = time.perf_counter() - t0
+    reset_counts(tfa)
+    got = two.predict(ids)
+    torch.cuda.synchronize()
+    launches = tfa.masked_flash_attention_fwd.launches
+    if launches != 2 * per:
+        raise AssertionError(f"[dp-serve] a {len(ids)}-slide request launched #1 "
+                             f"{launches} times, want {per} per shard")
+    if [r["slide_id"] for r in got] != ids:
+        raise AssertionError("[dp-serve] rows out of order")
+    halves = ServingSession(sl["dirs"]["pallas"], cache_batches=0,
+                            batch_size=len(ids) // 2, device=devices[0])
+    if halves.predict(ids) != got:
+        raise AssertionError("[dp-serve] two shards differ from one device "
+                             "serving the same halves")
+    pairs = [(x, y) for a, b in zip(got, one.predict(ids))
+             for x, y in zip(a["hazards"], b["hazards"])]
+    diff = max(abs(x - y) for x, y in pairs)
+    rel = max(abs(x - y) / abs(y) for x, y in pairs)
+    if not diff <= DP_HAZARD_ATOL:
+        raise AssertionError(f"[dp-serve] hazards differ from the one-device "
+                             f"session's by {diff:.3g} (rel {rel:.3g})")
+
+    # does the fused forward wait for the host anywhere? a sync raises here
+    share = len(ids) // 2
+    bag, tables = collate_batch(two._dataset, list(range(share)),
+                                level0_bucket=cfg.level0_bucket,
+                                pads=two._pads, device=devices[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            serving_forward(two.model, cfg, bag, tables)
+        syncs = "none: the shards' forwards queue from one thread"
+    except RuntimeError as e:
+        import traceback
+
+        where = [f"{os.path.relpath(f.filename, ROOT)}:{f.lineno}"
+                 for f in traceback.extract_tb(e.__traceback__)
+                 if "paths_tpu_torch" in f.filename]
+        syncs = f"yes, at {where[-1] if where else '?'} ({str(e)[:120]})"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if syncs.startswith("yes"):
+        raise AssertionError(f"[dp-serve] the fused forward syncs the host: "
+                             f"{syncs}; the session's loop over shards "
+                             "would serialise them")
+
+    walls = {"one": [], "two": []}
+    for name in ("one", "two", "two", "one", "one", "two"):
+        sess = one if name == "one" else two
+        t0 = time.perf_counter()
+        sess.predict(ids)
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"[dp-serve] ServingSession(mesh=make_mesh(devices={devices})), "
+          f"2 shards {layout}: opened in {open_s:.1f} s; a {len(ids)}-slide request "
+          f"launches #1 {launches} times ({per} per shard); hazards equal to "
+          f"the bit to a one-device session at batch {len(ids) // 2}, and "
+          f"{'equal to the bit' if diff == 0 else f'within {diff:.3g} (rel {rel:.3g})'} "
+          f"of the one-device session's at {one.batch_size} (atol "
+          f"{DP_HAZARD_ATOL}); host syncs "
+          f"in the fused forward (torch.cuda.set_sync_debug_mode): {syncs} "
+          f"| {gpu}", flush=True)
+    print(f"[dp-serve] warm {len(ids)}-slide request in turns: two shards "
+          f"{', '.join(f'{t:.1f}' for t in walls['two'])} ms, one device "
+          f"{', '.join(f'{t:.1f}' for t in walls['one'])} ms | {gpu}",
+          flush=True)
+
+    servers, real = [], cserve.make_server
+
+    def capture(*args, **kwargs):
+        servers.append(real(*args, **kwargs))
+        return servers[-1]
+
+    argv = ["-m", sl["dirs"]["pallas"], "--port", "0", "--cache-batches", "0",
+            "--data-parallel", "2"]
+    if backend == "gloo":
+        argv += ["--device", "cuda:0"]
+    cserve.make_server = capture
+    th = threading.Thread(target=cserve.main, args=(argv,), daemon=True)
+    th.start()
+    try:
+        for _ in range(1200):
+            if servers:
+                break
+            th.join(0.1)
+        if not servers:
+            raise AssertionError("[dp-serve] cli.serve --data-parallel did "
+                                 "not start")
+        conn = http.client.HTTPConnection(*servers[0].server_address[:2],
+                                          timeout=300)
+        reset_counts(tfa)
+        conn.request("POST", "/predict", body=json.dumps({"slide_ids": ids}))
+        r = conn.getresponse()
+        body = json.loads(r.read())
+        conn.close()
+        if r.status != 200 or body["predictions"] != got:
+            raise AssertionError(f"[dp-serve] cli.serve --data-parallel 2: "
+                                 f"{r.status}, rows differ from the two-shard "
+                                 "session's")
+        if tfa.masked_flash_attention_fwd.launches != 2 * per:
+            raise AssertionError(f"[dp-serve] the HTTP request launched "
+                                 f"{launch_counts(tfa)}")
+    finally:
+        cserve.make_server = real
+        for srv in servers:
+            srv.shutdown()
+        th.join(60)
+    print(f"[dp-serve] cli.serve --data-parallel 2{' --device cuda:0' if backend == 'gloo' else ''}: "
+          f"POST /predict of {len(ids)} slides equals the two-shard session's "
+          f"rows to the bit, #1 {2 * per} launches | {gpu}", flush=True)
 
 
 def http_phase(torch, tfa, gpu, sl):
@@ -3497,6 +3823,91 @@ def tiles_phase(torch, tvf, gpu, weights):
           f"{decoder}): {line} | {gpu}", flush=True)
 
 
+def dp_preprocess_phase(torch, tvf, gpu, weights):
+    """[dp-preprocess]: the two [preprocess] slides through `cli.preprocess`
+    with UNI from the [tiles] `--weights` file, on one device and over two
+    shards (`--data-shards 2`), on `fused` and on `int8`: grids against the
+    one-device run, the block kernels' launches against the code's count,
+    patches/s."""
+    import numpy as np
+
+    from paths_tpu_torch.cli.preprocess import main as preprocess_main
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.encoders import vit
+
+    slide_dir = os.path.join(WORK, "slides")
+    powers, batch = [0.625, 1.25, 2.5, 5.0, 10.0], 64
+    backend, devices, layout = dp_layout(torch)
+    on = ["--device", "cuda:0"] if backend == "gloo" else []
+    runs = {}
+    for name, impl, shards in (("one", "fused", 0), ("fused", "fused", 2),
+                               ("int8", "int8", 2)):
+        out = os.path.join(WORK, f"dp_features_{name}")
+        reset_vit_counts(tvf)
+        t0 = time.perf_counter()
+        preprocess_main(["-m", "UNI", "-d", slide_dir, "-o", out, "--ext",
+                         ".npy", "-b", str(batch), "--default-power", "10",
+                         "--block-impl", impl, "--weights", weights] + on
+                        + (["--data-shards", str(shards)] if shards else []))
+        torch.cuda.synchronize()
+        runs[name] = dict(wall=time.perf_counter() - t0, counts=vit_counts(tvf),
+                          store=FeatureStore(out))
+    patches = batches = 0
+    same, worst, int8_worst, cosine = True, 0.0, 0.0, 1.0
+    for i in range(2):
+        for power in powers:
+            want = np.asarray(runs["one"]["store"].load(f"slide{i}", power))
+            cells = np.abs(want).sum(-1) > 0
+            patches += int(cells.sum())
+            batches += math.ceil(int(cells.sum()) / batch)
+            got = np.asarray(runs["fused"]["store"].load(f"slide{i}", power))
+            q = np.asarray(runs["int8"]["store"].load(f"slide{i}", power))
+            for a in (got, q):
+                if a.shape != want.shape or not np.array_equal(
+                        cells, np.abs(a).sum(-1) > 0) or not np.isfinite(a).all():
+                    raise AssertionError(f"[dp-preprocess] slide{i} @ {power}: "
+                                         "shape, background cells or finite "
+                                         "values differ")
+            same = same and np.array_equal(got, want)
+            if cells.any():
+                worst = max(worst, feature_mismatch(got[cells], want[cells]))
+                int8_worst = max(int8_worst,
+                                 feature_mismatch(q[cells], want[cells]))
+                cosine = min(cosine, feature_cosine(q[cells], want[cells]))
+    if not same and not worst <= FEATURE_RTOL_BF16:
+        raise AssertionError(f"[dp-preprocess] two shards vs one device: "
+                             f"features differ by {worst:.3g} of their norm")
+    if not (int8_worst <= FEATURE_RTOL_INT8 and cosine >= FEATURE_COS_INT8):
+        raise AssertionError(f"[dp-preprocess] int8 over two shards vs fused: "
+                             f"{int8_worst:.3g}, cosine {cosine:.5f}")
+    per = vit.UNI.depth * batches
+    wants = {"one": vit_expect(tvf, fused_attn_block=per, fused_mlp_block=per),
+             "fused": vit_expect(tvf, fused_attn_block=2 * per,
+                                 fused_mlp_block=2 * per),
+             "int8": vit_expect(tvf, fused_attn_block_i8=2 * per,
+                                fused_mlp_block_i8=2 * per)}
+    for name, want in wants.items():
+        if runs[name]["counts"] != want:
+            raise AssertionError(f"[dp-preprocess] {name} launched "
+                                 f"{runs[name]['counts']}, the code says {want}")
+    rate = {n: patches / r["wall"] for n, r in runs.items()}
+    print(f"[dp-preprocess] cli.preprocess -m UNI --weights (bf16, -b {batch}) "
+          f"over {patches} tissue patches in {batches} batches: one device "
+          f"fused {runs['one']['wall']:.1f} s = {rate['one']:.1f} patches/s; "
+          f"--data-shards 2 ({layout}) fused {runs['fused']['wall']:.1f} s = "
+          f"{rate['fused']:.1f} patches/s, int8 {runs['int8']['wall']:.1f} s = "
+          f"{rate['int8']:.1f} patches/s | {gpu}", flush=True)
+    print(f"[dp-preprocess] two shards vs one device on fused: grids "
+          f"{'equal to the bit' if same else f'within {worst:.3g} of the norm (bar {FEATURE_RTOL_BF16})'}; "
+          f"int8 over two shards vs one-device fused {int8_worst:.3g} of the "
+          f"norm, cosine {cosine:.5f}; launches: one device "
+          f"{ {k: v for k, v in runs['one']['counts'].items() if v} }, two "
+          f"shards fused { {k: v for k, v in runs['fused']['counts'].items() if v} }, "
+          f"int8 { {k: v for k, v in runs['int8']['counts'].items() if v} } "
+          f"(each batch splits into two encodes of {batch // 2}) | {gpu}",
+          flush=True)
+
+
 def resnet_mirror(torch, arch, seed=0):
     """A random torchvision-keyed mirror with non-trivial BatchNorm
     statistics."""
@@ -3741,6 +4152,8 @@ def main() -> int:
         ckpt_phase(torch, gpu, sl, tr, cli_out)
         orbax_phase(torch, gpu, sl, tr, cli_out)
         export_launches = export_phase(torch, tfa, gpu, sl)
+        dp_train_phase(torch, tfa, gpu, tr)
+        dp_serve_phase(torch, tfa, gpu, sl)
         http_phase(torch, tfa, gpu, sl)
         uni_weights = heatmap_phase(torch, tfa, tvf, gpu, sl)
         native_phase(torch, gpu, sl)
@@ -3749,6 +4162,7 @@ def main() -> int:
         vit_cases.update(vit_new_kernel_phase(torch, tvf, tvi, gpu))
         vit_launches = preprocess_phase(torch, tfa, tvf, gpu)
         tiles_phase(torch, tvf, gpu, uni_weights)
+        dp_preprocess_phase(torch, tvf, gpu, uni_weights)
         r50_weights = resnet_phase(torch, gpu)
         verify_phase(torch, tvf, gpu, uni_weights, r50_weights)
     finally:

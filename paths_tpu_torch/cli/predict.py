@@ -10,7 +10,9 @@ the cumulative survival), hazard_0..n. Subtype columns: slide_id, pred
 (argmax), p_<class> softmax probabilities. The live model runs on the fused
 engine, as in the JAX package, on the card unless `--device cpu` is given.
 `--artifact` runs the split through a `cli.export` artifact instead
-(`ServingSession(artifact=...)`): no model code runs.
+(`ServingSession(artifact=...)`): no model code runs. Under `torchrun`
+every process predicts the whole split on its own card, as JAX's processes
+each run a one-device program, and rank 0 writes the CSV.
 """
 from __future__ import annotations
 
@@ -19,7 +21,6 @@ import csv
 import sys
 
 import numpy as np
-import torch
 
 
 def main(argv=None) -> list:
@@ -40,6 +41,8 @@ def main(argv=None) -> list:
     from paths_tpu_torch.config import Config
     from paths_tpu_torch.data.dataset import load_splits
     from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.parallel.mesh import ProcessMesh
+    from paths_tpu_torch.runtime import maybe_init_distributed, rank_device
     from paths_tpu_torch.serve import prediction_rows
     from paths_tpu_torch.train.loop import (
         _epoch_batches,
@@ -49,10 +52,12 @@ def main(argv=None) -> list:
     )
     from paths_tpu_torch.train.state import load_state
 
+    maybe_init_distributed(device=args.device)   # no-op without torchrun
+    device = rank_device(args.device)
+    rank0 = ProcessMesh.current().rank == 0
     config = Config.load(args.model_dir)
     set_matmul_precision(config.compute_dtype)
     np.random.seed(config.seed)
-    device = torch.device(args.device)
 
     if args.split == "all":
         ds = load_splits([0.7, 0.15, 0.15], config.seed, config, combined=True)
@@ -83,8 +88,9 @@ def main(argv=None) -> list:
             args.model_dir, RecursiveModel(config),
             checkpoint_backend=config.checkpoint_backend)
         model = model.to(device).eval()
-        print(f"Loaded checkpoint from epoch {stats.get('epoch')}",
-              file=sys.stderr)
+        if rank0:
+            print(f"Loaded checkpoint from epoch {stats.get('epoch')}",
+                  file=sys.stderr)
 
         _, evaluate = make_step_fns(config,
                                     make_optimizer(config, model.parameters()))
@@ -108,6 +114,8 @@ def main(argv=None) -> list:
         header = ["slide_id", "pred"] + [f"p_{c}"
                                          for c in config.filter_to_subtypes]
 
+    if not rank0:
+        return rows
     out = open(args.out, "w", newline="") if args.out else sys.stdout
     try:
         writer = csv.writer(out)

@@ -10,6 +10,9 @@ initialised from seed 0, and `-m resnet50` / `resnet18` refuse to run);
 `--ext` selects the slide extension (`.svs` via OpenSlide, `.npy` array
 pyramids, `.tiles` JPEG-tiled pyramids); `-w N` (N >= 2) decodes in N spawn
 processes. The run is on the card unless `--device cpu` asks otherwise.
+`--data-shards N` shards every batch over the host's first N cards (or N
+shards on one named `--device`, such as `cuda:0` or `cpu`): the encoder is
+built once and its weights copied to each.
 """
 from __future__ import annotations
 
@@ -73,23 +76,22 @@ def main(argv=None) -> dict:
                              "int8 projections (weights quantised at start)")
     parser.add_argument("--data-shards", type=int, default=0,
                         help="Shard encode batches over this many devices "
-                             "(0 = single device; more is not ported yet: "
-                             "ROADMAP.md Queue 1, 'Parallel', item 8)")
+                             "(0 = single device); with a named --device, "
+                             "that many shards on it")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Where the encoder runs (cuda, or cpu on request)")
     parser.add_argument("--verbose", action="store_true")
     args = parser.parse_args(argv)
 
-    if args.data_shards:
-        raise NotImplementedError(
-            "--data-shards > 0 (batches sharded over several cards) is not "
-            "ported yet: ROADMAP.md Queue 1, 'Parallel' (item 8)")
-
     from paths_tpu_torch.encoders.registry import from_name
+    from paths_tpu_torch.parallel.mesh import device_mesh
 
+    mesh = (device_mesh(args.data_shards, args.device)
+            if args.data_shards else None)
     encode, dim, _ = from_name(args.model, weights_path=args.weights,
                                fast_math=args.fast_math,
-                               block_impl=args.block_impl, device=args.device)
+                               block_impl=args.block_impl, device=args.device,
+                               mesh=mesh)
 
     store = FeatureStore(args.out, create=True,
                          save_format=args.store_format)
@@ -110,7 +112,7 @@ def main(argv=None) -> dict:
         threads=args.threads, default_power=args.default_power,
         decode_workers=args.decode_workers, load_mode=args.load_mode,
         store_dtype=args.store_dtype, stats=stats, device=args.device,
-        verbose=args.verbose)
+        mesh=mesh, verbose=args.verbose)
     return stats
 
 

@@ -3,7 +3,7 @@
 
     python -m paths_tpu_torch.cli.serve -m models/DIR [--artifact FILE] \
         [--store DIR] [--host 127.0.0.1] [--port 8000] [--batch-size N] \
-        [--device cuda]
+        [--device cuda] [--data-parallel N]
 
 Routes (JSON in and out):
     GET  /healthz   -> {"ok": true, ...session info}
@@ -16,8 +16,9 @@ Routes (JSON in and out):
 Requests are threads of a `ThreadingHTTPServer`; the session runs one batch
 on the device at a time. With `--artifact` the session runs a `cli.export`
 artifact at its export-time shapes, and a request for slides beyond them is
-a client error (400). Not ported: `--data-parallel` (ROADMAP.md Queue 1
-item 8) raises NotImplementedError.
+a client error (400). `--data-parallel N` serves the live model over the
+host's first N cards (`ServingSession(mesh=...)`), or N shards on one
+named `--device`.
 """
 from __future__ import annotations
 
@@ -131,8 +132,9 @@ def main(argv=None):
     parser.add_argument("--no-cache-slides", action="store_true",
                         help="rebuild slide tables per request (lower RAM)")
     parser.add_argument("--data-parallel", type=int, default=0,
-                        help="serve data-parallel over this many cards "
-                             "(not ported; 0 = one device)")
+                        help="serve data-parallel over this many cards (live "
+                             "model only; 0 = one device); with a named "
+                             "--device, that many shards on it")
     parser.add_argument("--cache-batches", type=int, default=4,
                         help="device-resident LRU of collated batches "
                              "(repeat requests skip collation and the copy "
@@ -140,19 +142,19 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on (default: cuda)")
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "data-parallel serving is not ported (ROADMAP.md Queue 1 item 8, "
-            "'Parallel')")
 
+    from paths_tpu_torch.parallel.mesh import device_mesh
     from paths_tpu_torch.serve import ServingSession
     from paths_tpu_torch.train.loop import set_matmul_precision
 
+    mesh = (device_mesh(args.data_parallel, args.device)
+            if args.data_parallel else None)
     session = ServingSession(args.model_dir, store_root=args.store,
                              batch_size=args.batch_size,
                              cache_slides=not args.no_cache_slides,
                              cache_batches=args.cache_batches,
-                             device=args.device, artifact=args.artifact)
+                             device=args.device, artifact=args.artifact,
+                             mesh=mesh)
     set_matmul_precision(session.config.compute_dtype)
 
     server = make_server(session, args.host, args.port)

@@ -23,6 +23,7 @@ from paths_tpu_torch.encoders.convert_vit import vit_from_torch_file
 from paths_tpu_torch.encoders.resnet import resnet_apply, resnet_from_torchvision
 from paths_tpu_torch.encoders.transforms import TransformSpec, apply_transform
 from paths_tpu_torch.kernels import vit_int8
+from paths_tpu_torch.parallel.mesh import place_replicas
 
 _VIT_SPECS = {
     "uni": (vit.UNI, T.UNI_TRANSFORM),
@@ -53,7 +54,7 @@ def _resolve_block_impl(impl: str, device: torch.device) -> str:
 def from_name(name: str, weights_path: Optional[str] = None,
               compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
               fast_math: bool = False, block_impl: str = "auto",
-              device: str = "cuda") -> Tuple[Callable, int, TransformSpec]:
+              device: str = "cuda", mesh=None) -> Tuple[Callable, int, TransformSpec]:
     """:return: (encode_fn taking (B, H, W, 3) uint8 or [0, 1] float images
     on `device` -> (B, dim) float32 features, feature dim, transform spec).
 
@@ -66,26 +67,35 @@ def from_name(name: str, weights_path: Optional[str] = None,
         route: their convolutions are the library's.
     :param device: where the weights live and the encode runs; "cuda" unless
         the caller asks for the CPU.
+    :param mesh: a data mesh (`parallel.mesh.make_mesh`): the encoder is
+        built (and, for "int8", quantised) once on the host, its weights are
+        copied to each mesh device, and the first element is a list of
+        encode functions, one per mesh device, as `process_slides(mesh=)`
+        takes them; `device` is then unused.
     """
     name = name.lower()
-    dev = torch.device(device)
+    devices = [torch.device(device)] if mesh is None else mesh.devices
     if name in ("resnet50", "resnet18"):
         if not weights_path:
             raise ValueError(
                 "resnet encoders require a torchvision state_dict file "
                 "(random-init conv nets are not useful even for smoke tests "
                 "that care about magnitudes)")
-        rmodel = _load_resnet(weights_path, name).to(dev)
+        host = _load_resnet(weights_path, name)
 
-        def encode_resnet(images: torch.Tensor) -> torch.Tensor:
-            x = apply_transform(_to_float01(images), T.IDENTITY_TRANSFORM)
-            return resnet_apply(rmodel, x, compute_dtype=compute_dtype)
+        def bind_resnet(rmodel):
+            def encode_resnet(images: torch.Tensor) -> torch.Tensor:
+                x = apply_transform(_to_float01(images), T.IDENTITY_TRANSFORM)
+                return resnet_apply(rmodel, x, compute_dtype=compute_dtype)
+            return encode_resnet
 
-        return encode_resnet, rmodel.out_dim, T.IDENTITY_TRANSFORM
+        encoders = [bind_resnet(m) for m in place_replicas(host, devices)]
+        return (encoders if mesh is not None else encoders[0], host.out_dim,
+                T.IDENTITY_TRANSFORM)
     if name not in _VIT_SPECS:
         raise ValueError(f"Invalid patch encoder '{name}'.")
     spec, tspec = _VIT_SPECS[name]
-    impl = _resolve_block_impl(block_impl, dev)
+    impl = _resolve_block_impl(block_impl, devices[0])
     vit.check_block_impl(impl)
     if fast_math:
         spec = dataclasses.replace(spec, gelu="tanh")
@@ -95,15 +105,17 @@ def from_name(name: str, weights_path: Optional[str] = None,
         model = vit.vit_init(seed, spec)
     if impl == "int8":
         vit_int8.quantize_vit_blocks(model)    # once, on the host
-    model = model.to(dev)
 
-    def encode(images: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad():
-            x = apply_transform(_to_float01(images), tspec)
-            return vit.vit_apply(model, x, compute_dtype=compute_dtype,
-                                 block_impl=impl)
+    def bind(vmodel):
+        def encode(images: torch.Tensor) -> torch.Tensor:
+            with torch.no_grad():
+                x = apply_transform(_to_float01(images), tspec)
+                return vit.vit_apply(vmodel, x, compute_dtype=compute_dtype,
+                                     block_impl=impl)
+        return encode
 
-    return encode, spec.out_dim, tspec
+    encoders = [bind(m) for m in place_replicas(model, devices)]
+    return encoders if mesh is not None else encoders[0], spec.out_dim, tspec
 
 
 def _load_resnet(path: str, arch: str):

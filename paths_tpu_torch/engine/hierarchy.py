@@ -29,10 +29,6 @@ from paths_tpu_torch.models.recursive import RecursiveModel, recursive_apply
 from paths_tpu_torch.ops.losses import cross_entropy_loss, nll_survival_loss
 from paths_tpu_torch.ops.masking import masked_topk
 
-# Child quadrant offsets, in the order the children are concatenated.
-CHILD_OFFSETS = ((0, 0), (0, 1), (1, 0), (1, 1))
-
-
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather along axis 1 with a (B, S) index, broadcasting trailing dims."""
     idx = idx.reshape(idx.shape + (1,) * (a.dim() - 2))
@@ -69,8 +65,12 @@ def select_children(bag: PatchBag, out: dict, k: int, patch_size: int) -> dict:
     kept_locs = _take(bag.locs // patch_size, idx)
     kept_ctx = _take(ctx_patch, idx)
 
-    # groups [(2y,2x)], [(2y,2x+1)], [(2y+1,2x)], [(2y+1,2x+1)]
-    offsets = torch.tensor(CHILD_OFFSETS, dtype=kept_locs.dtype, device=dev)
+    # child quadrant offsets (0,0), (0,1), (1,0), (1,1), in the order the
+    # children are concatenated: groups [(2y,2x)], [(2y,2x+1)], [(2y+1,2x)],
+    # [(2y+1,2x+1)]. Made on the device: a copy from the host would make the
+    # host wait for the card at every level
+    quad = torch.arange(4, device=dev)
+    offsets = torch.stack([quad // 2, quad % 2], dim=-1).to(kept_locs.dtype)
     child_locs = ((kept_locs * 2)[:, None] + offsets[None, :, None]).reshape(b, 4 * k, 2)
     child_parent = torch.arange(k, device=dev).repeat(4)
     child_kvalid = kvalid.repeat(1, 4)
@@ -199,17 +199,21 @@ def end2end_forward(model: RecursiveModel, config: Config, bag0: PatchBag,
     return outs
 
 
-def task_loss(config: Config, logits: torch.Tensor, labels: dict):
+def task_loss(config: Config, logits: torch.Tensor, labels: dict,
+              denom=None):
     """Final-level loss and prediction. labels: {"survival_bin",
-    "censored"} or {"subtype"}, optionally with "weight"."""
+    "censored"} or {"subtype"}, optionally with "weight"; `denom` is the
+    global batch's weight sum when these rows are one rank's share."""
     weights = labels.get("weight")
     if config.task == "survival":
         pred = torch.sigmoid(logits)
         loss = nll_survival_loss(pred, labels["survival_bin"],
-                                 labels["censored"], weights=weights)
+                                 labels["censored"], weights=weights,
+                                 denom=denom)
     elif config.task == "subtype_classification":
         pred = logits
-        loss = cross_entropy_loss(logits, labels["subtype"], weights=weights)
+        loss = cross_entropy_loss(logits, labels["subtype"], weights=weights,
+                                  denom=denom)
     else:
         raise ValueError(config.task)
     return loss, pred
@@ -218,14 +222,14 @@ def task_loss(config: Config, logits: torch.Tensor, labels: dict):
 def end2end_loss(model: RecursiveModel, config: Config, bag0: PatchBag,
                  tables: List[LevelTable], labels: dict, *,
                  training: bool = False,
-                 generator: Optional[torch.Generator] = None):
-    """Forward through all levels and the final-level loss. Returns (loss,
-    aux) with aux = {"pred": hazards or logits, "logits", "importances":
-    per-level (B, N) importances}."""
+                 generator: Optional[torch.Generator] = None, denom=None):
+    """Forward through all levels and the final-level loss (`task_loss`,
+    with `denom`). Returns (loss, aux) with aux = {"pred": hazards or
+    logits, "logits", "importances": per-level (B, N) importances}."""
     outs = end2end_forward(model, config, bag0, tables, training=training,
                            generator=generator)
     logits = outs[-1]["logits"]
-    loss, pred = task_loss(config, logits, labels)
+    loss, pred = task_loss(config, logits, labels, denom)
     aux = {"pred": pred, "logits": logits,
            "importances": [o["importance"] for o in outs]}
     return loss, aux

@@ -149,22 +149,25 @@ class StreamingEngine:
 
     @torch.no_grad()
     def evaluate(self, model: RecursiveModel, bag0: PatchBag, host_tables,
-                 labels: dict):
-        """Loss and prediction without dropout or gradient."""
+                 labels: dict, denom=None):
+        """Loss and prediction without dropout or gradient (`denom` as in
+        `hierarchy.task_loss`)."""
         outs, _ = self.forward(model, bag0, host_tables)
-        return task_loss(self.config, outs[-1]["logits"], labels)
+        return task_loss(self.config, outs[-1]["logits"], labels, denom)
 
     def loss_and_grad(self, model: RecursiveModel, bag0: PatchBag,
                       host_tables, labels: dict, *, training: bool = True,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      denom=None):
         """One forward with autograd on, then one backward. Returns (loss,
         pred, grads): detached loss and prediction, and the gradients by
         parameter name (also left in each parameter's `.grad`; the model's
-        earlier gradients are cleared first)."""
+        earlier gradients are cleared first). `denom` as in
+        `hierarchy.task_loss`."""
         model.zero_grad(set_to_none=True)
         outs, _ = self.forward(model, bag0, host_tables, training=training,
                                generator=generator)
-        loss, pred = task_loss(self.config, outs[-1]["logits"], labels)
+        loss, pred = task_loss(self.config, outs[-1]["logits"], labels, denom)
         loss.backward()
         grads = {n: p.grad for n, p in model.named_parameters()
                  if p.grad is not None}

@@ -1,0 +1,195 @@
+"""The port's `data` meshes (counterpart of `paths_tpu.parallel.mesh`).
+
+JAX lays a `data` axis over devices, replicates the parameters and lets XLA
+insert the collectives. PyTorch has no partitioner, so the axis takes one of
+two forms here, and both split a padded batch into contiguous blocks of
+rows, as `NamedSharding(P("data"))` lays rows out:
+
+* `Mesh` (`make_mesh`): devices of this process. The serving session and
+  preprocessing keep one replica of their model per device and run each
+  block on its own device, as JAX's inference paths run in one process.
+* `ProcessMesh` (`mesh_from_config`): the process group, one process per
+  card (`torchrun`, `runtime.maybe_init_distributed`). Training and
+  `cli.evaluate` run on it: rank r of W collates and runs block r of every
+  padded global batch, the gradients meet in one all-reduce, and every rank
+  applies the same clip and AdamW step, so the replicas stay equal to the
+  bit.
+
+The `[dp, sp>1]` meshes of sequence parallelism are not ported (ROADMAP.md
+Queue 1 item 8b).
+"""
+from __future__ import annotations
+
+import copy
+from typing import Iterable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from paths_tpu_torch.data.dataset import pad_batch_indices  # noqa: F401
+
+
+class Mesh:
+    """A 1-D `data` axis over devices of this process. A device may appear
+    more than once (shards that share a card)."""
+
+    def __init__(self, devices: Sequence):
+        self.devices = [torch.device(d) for d in devices]
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self.devices)}
+
+
+class ProcessMesh:
+    """The `data` axis over the process group: this process is `rank` of
+    `size`. Without a group it is one process, rank 0 of 1."""
+
+    def __init__(self, rank: int = 0, size: int = 1):
+        self.rank, self.size = rank, size
+
+    @classmethod
+    def current(cls) -> "ProcessMesh":
+        if dist.is_initialized():
+            return cls(dist.get_rank(), dist.get_world_size())
+        return cls()
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.size}
+
+    def rows(self, n: int) -> slice:
+        """This rank's contiguous block of an n-row padded batch (n is a
+        multiple of the axis)."""
+        share = n // self.size
+        return slice(self.rank * share, (self.rank + 1) * share)
+
+
+def make_mesh(n_data: Optional[int] = None,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A data mesh over the first `n_data` of `devices` (default: every CUDA
+    device of this host, and all of them when `n_data` is None)."""
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    n = len(devices) if n_data is None else n_data
+    if not 1 <= n <= len(devices):
+        raise ValueError(f"a data mesh of {n} shard(s) over "
+                         f"{len(devices)} device(s): {devices}")
+    return Mesh(devices[:n])
+
+
+def device_mesh(n_data: int, device="cuda") -> Mesh:
+    """The mesh of a CLI's `--data-parallel N` / `--data-shards N` with its
+    `--device`: an unindexed "cuda" means the host's first N cards; a named
+    device (`cuda:0`, `cpu`) holds all N shards."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return make_mesh(n_data)
+    return make_mesh(n_data, [device] * n_data)
+
+
+def place_replicas(module: torch.nn.Module, devices: Sequence) -> list:
+    """`module` on each of `devices`, in order: moved to the first, copied
+    to every other distinct device; shards that share a device share its
+    replica."""
+    placed: dict = {}
+    for d in map(torch.device, devices):
+        if d not in placed:
+            placed[d] = (copy.deepcopy(module) if placed else module).to(d)
+    return [placed[torch.device(d)] for d in devices]
+
+
+def mesh_from_config(config) -> ProcessMesh:
+    """The training mesh of `config.mesh_shape` over the process group:
+
+    * None / []     -> every process of the group (one without torchrun)
+    * [dp], [dp, 1] -> dp must be the group's size
+    * [dp, sp>1]    -> NotImplementedError (sequence parallelism)
+    """
+    ms = list(getattr(config, "mesh_shape", None) or [])
+    if len(ms) > 1 and ms[1] > 1:
+        raise NotImplementedError(
+            f"mesh_shape={ms}: sequence parallelism is not ported "
+            "(ROADMAP.md Queue 1 item 8b)")
+    mesh = ProcessMesh.current()
+    if ms and ms[0] != mesh.size:
+        raise ValueError(
+            f"mesh_shape={ms}: the data axis is the process group, which "
+            f"has {mesh.size} process(es); launch {ms[0]} with `torchrun "
+            f"--nproc-per-node {ms[0]}`")
+    return mesh
+
+
+def data_axis_size(mesh) -> int:
+    return 1 if mesh is None else int(mesh.shape.get("data", 1))
+
+
+def seq_axis_size(mesh) -> int:
+    return 1 if mesh is None else int(mesh.shape.get("model", 1))
+
+
+def _each_dtype(tensors: Iterable[torch.Tensor]) -> List[List[torch.Tensor]]:
+    groups: dict = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t)
+    return list(groups.values())
+
+
+@torch.no_grad()
+def replicate(mesh, model: torch.nn.Module, optimizer=None) -> None:
+    """Broadcast rank 0's parameters, buffers and optimizer state to every
+    rank, in place: after `load_state`, every replica starts from rank 0's
+    bits. One broadcast per dtype, over a flat copy on the model's device
+    (NCCL takes no host tensor; AdamW keeps its step counts there)."""
+    if data_axis_size(mesh) == 1:
+        return
+    params = list(model.parameters())
+    tensors = params + list(model.buffers())
+    if optimizer is not None:
+        for p in params:
+            state = optimizer.state.get(p, {})
+            tensors += [state[k] for k in sorted(state)
+                        if torch.is_tensor(state[k])]
+    device = params[0].device
+    for group in _each_dtype(tensors):
+        flat = torch.cat([t.reshape(-1).to(device) for t in group])
+        dist.broadcast(flat, src=0)
+        off = 0
+        for t in group:
+            t.copy_(flat[off: off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+@torch.no_grad()
+def all_reduce_grads(mesh, params: Iterable[torch.nn.Parameter]) -> None:
+    """Sum every gradient over the ranks, in place, with one all-reduce per
+    dtype over a flat buffer. Each rank's loss is already divided by the
+    global batch's weight (`ops.losses`), so the sum is the gradient of the
+    global loss. Every rank runs the same graph, so the same parameters
+    hold gradients on every rank."""
+    if data_axis_size(mesh) == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    for group in _each_dtype(grads):
+        flat = torch.cat([g.reshape(-1) for g in group])
+        dist.all_reduce(flat)
+        off = 0
+        for g in group:
+            g.copy_(flat[off: off + g.numel()].view_as(g))
+            off += g.numel()
+
+
+def gather_objects(mesh, obj) -> list:
+    """`obj` of every rank, in rank order (host objects: gloo's all-gather
+    takes no CUDA tensor)."""
+    if data_axis_size(mesh) == 1:
+        return [obj]
+    out = [None] * mesh.size
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def barrier(mesh) -> None:
+    if data_axis_size(mesh) > 1:
+        dist.barrier()

@@ -22,9 +22,11 @@ How the host and the card overlap:
     parallel and feed one bounded queue (the reference pipeline's shape:
     many decode processes fanning into one accelerator); the children never
     touch the card, and the parent stages and encodes
-
-Not ported yet (ROADMAP.md Queue 1, 'Parallel'): batches sharded over
-several cards.
+  * with a data mesh (`parallel.mesh.make_mesh`), every bucket rounds up to
+    a multiple of the mesh size, the staging thread copies each device's
+    contiguous slice of a batch to that device, one encoder per device
+    encodes its slice, and the level's embeddings come back in order: the
+    grids are those of one device
 """
 from __future__ import annotations
 
@@ -130,47 +132,78 @@ class _AsyncStager:
         self._pool.shutdown(wait=False)
 
 
-def _staged(arr) -> torch.Tensor:
-    """Resolve a staged batch into a tensor the encode may read: the Future
-    an `_AsyncStager` returned (a transfer error re-raises here, at the
-    consuming site), a `_StagedBatch`, or a host array when staging is off.
-    The current stream waits for the copy's event, and the tensor is
-    recorded on it so that its memory is not reused while the encode reads."""
+def _staged(arr, shards: int = 1) -> list:
+    """Resolve a staged batch into the tensors the encode may read, one per
+    shard: the Future an `_AsyncStager` returned (a transfer error re-raises
+    here, at the consuming site), a list of `_StagedBatch` or host tensors,
+    or a host array when staging is off (split into `shards` contiguous
+    slices). Each shard's stream waits for its copy's event, and the tensor
+    is recorded on it so that its memory is not reused while the encode
+    reads."""
     if isinstance(arr, Future):
         arr = arr.result()
-    if isinstance(arr, _StagedBatch):
-        stream = torch.cuda.current_stream(arr.dev.device)
-        stream.wait_event(arr.event)
-        arr.dev.record_stream(stream)
-        return arr.dev
     if isinstance(arr, np.ndarray):
-        return torch.from_numpy(arr)
-    return arr
+        return [torch.from_numpy(a) for a in np.split(arr, shards)]
+    out = []
+    for part in arr:
+        if isinstance(part, _StagedBatch):
+            stream = torch.cuda.current_stream(part.dev.device)
+            stream.wait_event(part.event)
+            part.dev.record_stream(stream)
+            part = part.dev
+        out.append(part)
+    return out
 
 
-def _make_stager(stage_h2d: bool, device):
+def _make_stager(stage_h2d: bool, devices):
     """The host->device staging step, run off the consumer's thread so the
     copy overlaps the card's encode of the previous batch. Returns None when
-    staging is off. On a CUDA device: pin the batch, copy it with
-    `non_blocking=True` on a stream of the stager's own, record an event and
-    wait for it in the staging thread. On the CPU: wrap the array."""
+    staging is off. A batch splits into one contiguous slice per device of
+    `devices`. To a CUDA device: pin the slice, copy it with
+    `non_blocking=True` on a stream of the stager's own for that device,
+    record an event; the staging thread waits for every slice's event. On
+    the CPU: wrap the slice."""
     if not stage_h2d:
         return None
-    device = torch.device(device)
-    if device.type != "cuda":
-        return lambda arr: torch.from_numpy(arr)
-    stream = torch.cuda.Stream(device)
+    devices = [torch.device(d) for d in devices]
+    streams = {d: torch.cuda.Stream(d) for d in devices if d.type == "cuda"}
 
-    def stage(arr: np.ndarray) -> _StagedBatch:
-        host = torch.from_numpy(arr).pin_memory()
-        with torch.cuda.stream(stream):
-            dev = host.to(device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        event.synchronize()
-        return _StagedBatch(dev, event, host)
+    def stage(arr: np.ndarray) -> list:
+        out = []
+        for part, device in zip(np.split(arr, len(devices)), devices):
+            if device.type != "cuda":
+                out.append(torch.from_numpy(part))
+                continue
+            host = torch.from_numpy(part).pin_memory()
+            with torch.cuda.stream(streams[device]):
+                dev = host.to(device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(streams[device])
+            out.append(_StagedBatch(dev, event, host))
+        for part in out:
+            if isinstance(part, _StagedBatch):
+                part.event.synchronize()
+        return out
 
     return stage
+
+
+def _shard_encoders(encode_fn, device, mesh):
+    """(encoders, devices): `encode_fn` on `device`, or with a mesh one
+    encoder per mesh device (a sequence as long as the mesh)."""
+    if mesh is None:
+        return [encode_fn], [torch.device(device)]
+    encoders = list(encode_fn)
+    if len(encoders) != len(mesh.devices):
+        raise ValueError(f"{len(encoders)} encoder(s) for a mesh of "
+                         f"{len(mesh.devices)} device(s)")
+    return encoders, mesh.devices
+
+
+def _encode_shards(encoders, devices, staged) -> list:
+    """Each shard's embeddings, encoded on its own device."""
+    return [enc(x.to(d)) for enc, d, x in
+            zip(encoders, devices, _staged(staged, len(devices)))]
 
 
 def _level_plan(wsi: WSIReader, power: float, patch_size: int,
@@ -230,10 +263,11 @@ def _bucket(width: int, batch_size: int, mult: int = 1) -> int:
 
 def _read_batch(wsi: WSIReader, cand: np.ndarray, bi: int, power: float,
                 patch_size: int, batch_size: int, pool: ThreadPoolExecutor,
-                camelyon: bool, stage_fn=None):
-    """Host stage 2: read one padded patch batch (thread-pooled rects). With
-    `stage_fn` the copy to the card is issued here, from the reader's side,
-    so it overlaps the card's encode of the previous batch."""
+                camelyon: bool, stage_fn=None, bucket_mult: int = 1):
+    """Host stage 2: read one padded patch batch (thread-pooled rects),
+    padded to a multiple of `bucket_mult` (the mesh size). With `stage_fn`
+    the copy to the card is issued here, from the reader's side, so it
+    overlaps the card's encode of the previous batch."""
     p = patch_size
 
     def read_cell(rc):
@@ -244,7 +278,8 @@ def _read_batch(wsi: WSIReader, cand: np.ndarray, bi: int, power: float,
     s = bi * batch_size
     e = min(s + batch_size, len(cand))
     imgs = list(pool.map(read_cell, cand[s:e]))
-    arr = np.zeros((_bucket(e - s, batch_size), p, p, 3), np.uint8)
+    arr = np.zeros((_bucket(e - s, batch_size, bucket_mult), p, p, 3),
+                   np.uint8)
     arr[: e - s] = np.stack(imgs)
     if stage_fn is not None:
         arr = stage_fn(arr)
@@ -252,30 +287,38 @@ def _read_batch(wsi: WSIReader, cand: np.ndarray, bi: int, power: float,
 
 
 def _drain_level(in_flight, cand, grid) -> None:
-    """Scatter a level's embeddings with ONE device->host copy. Batch widths
-    vary (the tail is bucketed), so rows are consumed by each batch's own
-    padded width."""
+    """Scatter a level's embeddings with ONE device->host copy per shard.
+    `in_flight` holds (per-shard embeddings, s, e) per batch. Batch widths
+    vary (the tail is bucketed), so rows are consumed by each shard's own
+    padded width, shard after shard within a batch."""
     if not in_flight:
         return
-    embs = [e for e, _, _ in in_flight]
-    emb_all = (embs[0] if len(embs) == 1 else torch.cat(embs)).cpu().numpy()
-    off = 0
-    for emb_dev, s, e in in_flight:
-        emb = emb_all[off: off + (e - s)]
-        off += emb_dev.shape[0]
+    host = []
+    for j in range(len(in_flight[0][0])):
+        embs = [shards[j] for shards, _, _ in in_flight]
+        host.append((embs[0] if len(embs) == 1 else torch.cat(embs))
+                    .cpu().numpy())
+    offs = [0] * len(host)
+    for shards, s, e in in_flight:
+        rows = []
+        for j, emb_dev in enumerate(shards):
+            rows.append(host[j][offs[j]: offs[j] + emb_dev.shape[0]])
+            offs[j] += emb_dev.shape[0]
+        emb = rows[0] if len(rows) == 1 else np.concatenate(rows)
         rs, cs = cand[s:e, 0], cand[s:e, 1]
-        grid[rs, cs] = emb
+        grid[rs, cs] = emb[: e - s]
 
 
 def process_level(wsi: WSIReader, encode_fn: Callable, dim: int, power: float,
                   *, patch_size: int = 256, tissue_threshold: float = 0.1,
                   downscale: int = 4, batch_size: int = 64, threads: int = 8,
                   camelyon: bool = False, load_mode: int = 0,
-                  store_dtype="float32", device="cuda",
+                  store_dtype="float32", device="cuda", mesh=None,
                   verbose: bool = False) -> np.ndarray:
     """One (slide, magnification) -> (rows/P, cols/P, D) grid in
     `store_dtype`. `encode_fn` takes a (B, P, P, 3) uint8 tensor on `device`
-    and returns (B, dim) float32 there."""
+    and returns (B, dim) float32 there; with a `mesh`, it is one such
+    function per mesh device, each encoding that device's slice."""
     n_rows, n_cols, cand = _level_plan(wsi, power, patch_size,
                                        tissue_threshold, downscale, camelyon)
     if verbose:
@@ -286,7 +329,8 @@ def process_level(wsi: WSIReader, encode_fn: Callable, dim: int, power: float,
     if len(cand) == 0:
         return grid
 
-    stager = _AsyncStager(_make_stager(True, device))
+    encoders, devices = _shard_encoders(encode_fn, device, mesh)
+    stager = _AsyncStager(_make_stager(True, devices))
     src = _patch_source(wsi, load_mode, power, n_rows, n_cols, patch_size)
     pool = ThreadPoolExecutor(max_workers=threads)
     try:
@@ -294,16 +338,18 @@ def process_level(wsi: WSIReader, encode_fn: Callable, dim: int, power: float,
 
         # software pipeline: read batch k+1 while the card encodes k, and
         # the copy of batch k overlaps the decode of k+1 (stager)
-        pending = pool.submit(_read_batch, src, cand, 0, power, patch_size,
-                              batch_size, pool, camelyon, stager)
-        in_flight = []  # (embeddings on the device, s, e)
+        def read(bi):
+            return pool.submit(_read_batch, src, cand, bi, power, patch_size,
+                               batch_size, pool, camelyon, stager,
+                               len(devices))
+
+        pending = read(0)
+        in_flight = []  # (per-shard embeddings on their devices, s, e)
         for bi in range(n_batches):
             arr, s, e = pending.result()
             if bi + 1 < n_batches:
-                pending = pool.submit(_read_batch, src, cand, bi + 1, power,
-                                      patch_size, batch_size, pool, camelyon,
-                                      stager)
-            in_flight.append((encode_fn(_staged(arr)), s, e))
+                pending = read(bi + 1)
+            in_flight.append((_encode_shards(encoders, devices, arr), s, e))
 
         _drain_level(in_flight, cand, grid)
     finally:
@@ -317,10 +363,11 @@ def process_slide(path: str, slide_id: str, encode_fn: Callable, dim: int,
                   patch_size: int = 256, tissue_threshold: float = 0.1,
                   downscale: int = 4, batch_size: int = 64, threads: int = 8,
                   default_power: float = 40.0, load_mode: int = 0,
-                  store_dtype="float32", device="cuda",
+                  store_dtype="float32", device="cuda", mesh=None,
                   verbose: bool = False) -> None:
     """All magnifications for one slide, with skip-if-exists resume and
-    per-(slide, power) fault tolerance."""
+    per-(slide, power) fault tolerance (`encode_fn` and `mesh` as in
+    `process_level`)."""
     wsi = open_wsi(path, default_power)
     try:
         for power in magnifications:
@@ -333,7 +380,7 @@ def process_slide(path: str, slide_id: str, encode_fn: Callable, dim: int,
                     tissue_threshold=tissue_threshold, downscale=downscale,
                     batch_size=batch_size, threads=threads,
                     load_mode=load_mode, store_dtype=store_dtype,
-                    device=device, verbose=verbose)
+                    device=device, mesh=mesh, verbose=verbose)
                 store.save(slide_id, power, grid)
             except Exception:
                 print(f"FAILED ON SLIDE {slide_id} AT POWER {power}")
@@ -377,7 +424,8 @@ def _decode_worker(wid: int, items: Sequence, magnifications: Sequence[float],
                         for bi in range(nb):
                             arr, s, e = _read_batch(
                                 src, cand, bi, power, opts["patch_size"],
-                                opts["batch_size"], pool, False)
+                                opts["batch_size"], pool, False,
+                                bucket_mult=opts["bucket_mult"])
                             q.put(("batch", (key, arr, s, e)))
                         q.put(("flush", key))
                     except Exception:
@@ -392,7 +440,7 @@ def _decode_worker(wid: int, items: Sequence, magnifications: Sequence[float],
 
 def _consume_decode_queue(q, procs, *, encode, stage_fn, dim, store,
                           verbose, grid_dtype=np.float32, device="cuda",
-                          poll_s: float = 5.0) -> None:
+                          mesh=None, poll_s: float = 5.0) -> None:
     """Parent-side consumer of the decode workers' message stream.
 
     Runs until every worker's `done` sentinel arrives, but survives workers
@@ -402,10 +450,11 @@ def _consume_decode_queue(q, procs, *, encode, stage_fn, dim, store,
     instead of blocking on `q.get()` forever. A worker `error` for a level
     whose `level` header already arrived drops the half-built grid and its
     embeddings in flight (a faulty slide must not pin memory for the rest of
-    the run). `stage_fn` (or None) moves a host batch towards `device`."""
+    the run). `stage_fn` (or None) moves a host batch towards `device` (or
+    the mesh's devices; `encode` as in `process_level`)."""
     import queue as _squeue
 
-    dev = torch.device(device)
+    encoders, devices = _shard_encoders(encode, device, mesh)
     open_levels: dict = {}   # key -> [cand, grid, in_flight]
     done = 0
 
@@ -429,8 +478,9 @@ def _consume_decode_queue(q, procs, *, encode, stage_fn, dim, store,
                       f"{n_rows * n_cols} cells pass tissue threshold")
         elif kind == "batch" and payload[0] in open_levels:
             key, arr, s, e = payload
-            x = _staged(stage_fn(arr) if stage_fn is not None else arr)
-            open_levels[key][2].append((encode(x.to(dev)), s, e))
+            staged = stage_fn(arr) if stage_fn is not None else arr
+            open_levels[key][2].append(
+                (_encode_shards(encoders, devices, staged), s, e))
         elif kind == "flush" and payload in open_levels:
             cand, grid, in_flight = open_levels.pop(payload)
             slide_id, power = payload
@@ -463,7 +513,7 @@ def _process_slides_mp(items, encode_fn, dim, magnifications, store, *,
                        decode_workers, patch_size, tissue_threshold,
                        downscale, batch_size, threads, default_power,
                        batches_ahead, stage_h2d, load_mode, store_dtype,
-                       stats, device, verbose) -> None:
+                       stats, device, mesh, verbose) -> None:
     """Multi-process decode fan-in: `decode_workers` spawn processes decode
     slide shards in parallel and feed one bounded queue; the parent stages
     each batch (pinned, on the stager's own stream) and encodes it. Spawn,
@@ -475,7 +525,8 @@ def _process_slides_mp(items, encode_fn, dim, magnifications, store, *,
     opts = {"patch_size": patch_size, "tissue_threshold": tissue_threshold,
             "downscale": downscale, "batch_size": batch_size,
             "threads": threads, "default_power": default_power,
-            "load_mode": load_mode, "store_dtype": store_dtype}
+            "load_mode": load_mode, "store_dtype": store_dtype,
+            "bucket_mult": 1 if mesh is None else len(mesh.devices)}
     shards = [list(items)[i::decode_workers] for i in range(decode_workers)]
     procs = [ctx.Process(target=_decode_worker,
                          args=(i, shards[i], list(magnifications),
@@ -484,7 +535,8 @@ def _process_slides_mp(items, encode_fn, dim, magnifications, store, *,
     for p in procs:
         p.start()
 
-    stage_fn = _make_stager(stage_h2d, device)
+    stage_fn = _make_stager(
+        stage_h2d, [device] if mesh is None else mesh.devices)
     # staged on the stager's thread, as the single-producer path does, so
     # the same counters fill; the consumer waits for each copy
     stager = _AsyncStager(stage_fn) if stage_fn is not None else None
@@ -492,7 +544,7 @@ def _process_slides_mp(items, encode_fn, dim, magnifications, store, *,
         _consume_decode_queue(q, procs, encode=encode_fn, stage_fn=stager,
                               dim=dim, store=store, verbose=verbose,
                               grid_dtype=_grid_dtype(store_dtype),
-                              device=device)
+                              device=device, mesh=mesh)
     finally:
         for p in procs:
             p.terminate()
@@ -511,7 +563,7 @@ def process_slides(items: Sequence, encode_fn: Callable, dim: int,
                    default_power: float = 40.0, batches_ahead: int = 6,
                    stage_h2d: bool = True, decode_workers: int = 0,
                    load_mode: int = 0, store_dtype="float32",
-                   stats: Optional[dict] = None, device="cuda",
+                   stats: Optional[dict] = None, device="cuda", mesh=None,
                    verbose: bool = False) -> None:
     """Pipelined multi-slide preprocessing: a producer thread walks every
     (slide, magnification), masks, reads patch batches, and stages them to
@@ -535,6 +587,8 @@ def process_slides(items: Sequence, encode_fn: Callable, dim: int,
         seconds the staging thread spent pinning and copying) and
         `h2d_bytes`.
     :param device: where `encode_fn` expects its batches.
+    :param mesh: a data mesh (`parallel.mesh.make_mesh`): `encode_fn` is then
+        one encoder per mesh device, and each batch is sharded over them.
     """
     if decode_workers and decode_workers >= 2:
         _process_slides_mp(
@@ -544,7 +598,7 @@ def process_slides(items: Sequence, encode_fn: Callable, dim: int,
             batch_size=batch_size, threads=threads,
             default_power=default_power, batches_ahead=batches_ahead,
             stage_h2d=stage_h2d, load_mode=load_mode,
-            store_dtype=store_dtype, stats=stats, device=device,
+            store_dtype=store_dtype, stats=stats, device=device, mesh=mesh,
             verbose=verbose)
         return
 
@@ -564,12 +618,12 @@ def process_slides(items: Sequence, encode_fn: Callable, dim: int,
                 continue
         return False
 
-    stage_fn = _make_stager(stage_h2d, device)
+    encoders, devices = _shard_encoders(encode_fn, device, mesh)
+    stage_fn = _make_stager(stage_h2d, devices)
     # the copy on its own thread: the producer decodes batch k+1 while batch
     # k crosses the link, so the wall tracks max(decode, copy), not the sum
     stager = _AsyncStager(stage_fn) if stage_fn is not None else None
     grid_dtype = _grid_dtype(store_dtype)
-    dev = torch.device(device)
 
     def produce():
         pool = ThreadPoolExecutor(max_workers=threads)
@@ -603,7 +657,8 @@ def process_slides(items: Sequence, encode_fn: Callable, dim: int,
                             for bi in range(nb):
                                 if not put(("batch", _read_batch(
                                         src, cand, bi, power, patch_size,
-                                        batch_size, pool, False, stager))):
+                                        batch_size, pool, False, stager,
+                                        len(devices)))):
                                     return
                             if not put(("flush", None)):
                                 return
@@ -640,7 +695,7 @@ def process_slides(items: Sequence, encode_fn: Callable, dim: int,
                           f"{n_rows * n_cols} cells pass tissue threshold")
             elif kind == "batch" and cur is not None:
                 arr, s, e = payload
-                cur[4].append((encode_fn(_staged(arr).to(dev)), s, e))
+                cur[4].append((_encode_shards(encoders, devices, arr), s, e))
             elif kind == "flush" and cur is not None:
                 slide_id, power, cand, grid, in_flight = cur
                 try:

@@ -11,8 +11,13 @@ store's fused batch fits the device's memory). A device-resident LRU keeps
 the last few collated batches, so a repeated request skips collation and the
 copy to the card. With `artifact=`, the session runs an exported serving
 program (`paths_tpu_torch.export`) in place of the live forward, collated at
-the program's own pads. The multi-device branch of the JAX package is not
-ported yet.
+the program's own pads.
+
+With `mesh=make_mesh(n)` a live fused session serves data parallel in one
+process: one replica of the model per device, batch widths in multiples of
+n, and each batch split into n contiguous shards, each collated and copied
+to its own device and run by that device's replica; the predictions are
+gathered in order.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from paths_tpu_torch.export import (
     tables_to_dicts,
 )
 from paths_tpu_torch.models.recursive import RecursiveModel
+from paths_tpu_torch.parallel.mesh import Mesh, data_axis_size, place_replicas
 from paths_tpu_torch.train.metrics import class_probs, survival_risk
 from paths_tpu_torch.train.state import load_model
 
@@ -101,20 +107,29 @@ class ServingSession:
         export-time shapes (a fixed-batch artifact always runs its batch; a
         `poly_batch` one pads to power-of-two widths up to `batch_size`). A
         weights-as-arguments artifact takes its weights from `model_dir`.
-    :param mesh: the JAX package's multi-device session; not ported
-        (NotImplementedError)
+    :param mesh: a `parallel.mesh.make_mesh` data mesh (live fused
+        sessions only): one model replica per device, requests padded to
+        multiples of its size and sharded over its devices; `device` is then
+        its first device. `batch_size` must be a multiple of its size.
     """
 
     def __init__(self, model_dir: str, store_root: str = None,
                  batch_size: int = None, cache_slides: bool = True,
                  cache_batches: int = 4, device="cuda", *, artifact=None,
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is not ported (ROADMAP.md Queue 1 "
-                "item 8)")
+                 mesh: Mesh = None):
         self.config = Config.load(model_dir, test_mode=True)
-        self.device = torch.device(device)
+        self._mesh = mesh if mesh is not None else Mesh([device])
+        self.device = self._mesh.devices[0]
+        if mesh is not None:
+            # real raises, not asserts: -O must not drop a mesh's checks
+            if artifact is not None:
+                raise ValueError(
+                    "mesh serving is implemented for live fused sessions")
+            n, bs = data_axis_size(mesh), batch_size or self.config.batch_size[0]
+            if bs % n:
+                raise ValueError(
+                    f"batch_size {bs} must be a multiple of the data axis "
+                    f"({n}) so every bucket shards evenly")
         self.model_dir = model_dir
         self.store = FeatureStore(store_root or self.config.preprocess_dir)
         self.slide_ids = store_slide_ids(self.store, self.config.base_power)
@@ -131,19 +146,25 @@ class ServingSession:
         if artifact is not None:
             self._open_artifact(artifact, batch_size)
             return
+        shards = data_axis_size(self._mesh)
         if self.config.engine == "auto":
-            # resolve from the store's shape bounds; the session owns its
-            # config copy, so recording the decision on it is safe
+            # resolve from the store's shape bounds, pricing one shard of a
+            # batch per device; the session owns its config copy, so
+            # recording the decision on it is safe
             self.config.engine = resolve_engine(
                 self.config,
                 self._dataset.global_pads() if self.slide_ids else None,
-                self.batch_size, device=self.device)
+                self.batch_size // shards, device=self.device)
         self._streaming = self.config.engine == "streaming"
+        if mesh is not None and self._streaming:
+            raise ValueError(
+                "mesh serving is implemented for live fused sessions")
         # store-wide pads: every request of a batch width has one shape; the
         # streaming engine pads only the level-0 bag
         self._pads = (self._dataset.global_pads(level0_only=self._streaming)
                       if self.config.static_shapes and self.slide_ids else None)
         self.model = self._load_model()
+        self._replicas = place_replicas(self.model, self._mesh.devices)
         if self._streaming:
             self._eng = StreamingEngine(self.config, self.device)
 
@@ -192,10 +213,11 @@ class ServingSession:
 
     def _pad_width(self, n: int) -> int:
         """Batch width for an n-slide chunk: a fixed-batch artifact's batch,
-        else the next power of two, capped at the session's batch size."""
+        else the mesh size times the next power of two, capped at the
+        session's batch size."""
         if self._exp is not None and not self._poly_artifact:
             return self.batch_size
-        width = 1
+        width = data_axis_size(self._mesh)
         while width < min(n, self.batch_size):
             width *= 2
         return min(width, self.batch_size)
@@ -246,12 +268,19 @@ class ServingSession:
                 for s in slides:
                     s.unload()
         else:
-            bag, tables = self._cached(padded, lambda: collate_batch(
-                self._dataset, padded, level0_bucket=bucket, pads=self._pads,
-                device=self.device))
+            devices = self._mesh.devices
+            share = len(padded) // len(devices)
+            shards = self._cached(padded, lambda: [collate_batch(
+                self._dataset, padded[i * share: (i + 1) * share],
+                level0_bucket=bucket, pads=self._pads, device=d)
+                for i, d in enumerate(devices)])
             with torch.inference_mode():
-                pred = serving_forward(self.model, self.config, bag,
-                                       tables)["pred"]
+                # the forward never waits for its card, so this loop queues
+                # every device's shard before the first copy back waits
+                preds = [serving_forward(model, self.config, bag, tables)["pred"]
+                         for model, (bag, tables) in zip(self._replicas,
+                                                         shards)]
+            pred = torch.cat([p.float().cpu() for p in preds])
         return pred[:n].float().cpu().numpy()
 
     def predict(self, slide_ids: Sequence[str]) -> List[dict]:

@@ -18,12 +18,19 @@ the device's memory).
 With `remat`, each level's forward is recomputed in the backward
 (`engine/hierarchy.py`): between forward and backward only the levels'
 inputs are held. Checkpoints go to `model.npz` / `opt.npz` or, under
-`checkpoint_backend: "orbax"`, to an Orbax checkpoint (`train/state.py`). Not
-ported: a mesh over more than one device raises NotImplementedError.
+`checkpoint_backend: "orbax"`, to an Orbax checkpoint (`train/state.py`).
+
+Data parallelism (the JAX package's `data` mesh) runs one process per card
+under `torchrun` (`parallel/mesh.py::mesh_from_config`). Every rank builds
+the same padded global batches, collates only its own contiguous block of
+rows, and divides its loss by the global batch's weight sum; after the
+backward one all-reduce sums the gradients, and every rank clips and steps
+alike. Predictions and losses are gathered to every rank in global row
+order, so evaluators and early stopping see what one process sees. Rank 0
+alone writes checkpoints and logs.
 """
 from __future__ import annotations
 
-import math
 import queue
 import threading
 import time
@@ -45,6 +52,14 @@ from paths_tpu_torch.engine.auto import resolve_engine
 from paths_tpu_torch.engine.hierarchy import end2end_loss
 from paths_tpu_torch.engine.streaming import StreamingEngine
 from paths_tpu_torch.models.recursive import RecursiveModel
+from paths_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    barrier,
+    data_axis_size,
+    gather_objects,
+    mesh_from_config,
+    replicate,
+)
 from paths_tpu_torch.profiling import host_rss_mb
 from paths_tpu_torch.train.evaluators import make_evaluator
 from paths_tpu_torch.train.logging import MetricsLogger
@@ -83,12 +98,15 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
-def optimizer_step(config: Config, optimizer: torch.optim.Optimizer) -> None:
-    """Apply the gradients in `.grad`: the optional global-norm clip, then
-    AdamW. Both engines' train steps end here."""
+def optimizer_step(config: Config, optimizer: torch.optim.Optimizer,
+                   mesh=None) -> None:
+    """Apply the gradients in `.grad`: summed over the ranks of `mesh`, the
+    optional global-norm clip, then AdamW. Both engines' train steps end
+    here."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    all_reduce_grads(mesh, params)
     if config.clip_grad_norm:
-        clip_by_global_norm_([p.grad for g in optimizer.param_groups
-                              for p in g["params"] if p.grad is not None],
+        clip_by_global_norm_([p.grad for p in params if p.grad is not None],
                              config.clip_grad_norm)
     optimizer.step()
 
@@ -98,29 +116,35 @@ def epoch_lr(config: Config, epoch: int) -> float:
     return config.lr * config.lr_decay_per_epoch ** (epoch - 1)
 
 
-def make_step_fns(config: Config, optimizer: torch.optim.Optimizer):
+def make_step_fns(config: Config, optimizer: torch.optim.Optimizer,
+                  mesh=None):
     """(update, evaluate), both eager.
 
-    `update(model, bag0, tables, labels, generator, epoch=None) -> (loss,
-    aux)`: one optimizer step on the batch, in training mode (dropout
-    masks from `generator`); with `epoch` (counted from 1) the learning
-    rate is set to `config.lr * lr_decay_per_epoch ** (epoch - 1)`. `evaluate(model, bag0, tables, labels) -> (loss, aux)`:
-    the loss without dropout or gradient. The returned tensors are detached
-    and stay on the device."""
+    `update(model, bag0, tables, labels, generator, epoch=None, denom=None)
+    -> (loss, aux)`: one optimizer step on the batch, in training mode
+    (dropout masks from `generator`), the gradients summed over the ranks of
+    `mesh`; with `epoch` (counted from 1) the learning rate is set to
+    `config.lr * lr_decay_per_epoch ** (epoch - 1)`. `evaluate(model, bag0,
+    tables, labels, denom=None) -> (loss, aux)`: the loss without dropout or
+    gradient. `denom` is the global batch's weight sum where the batch is
+    one rank's share (`hierarchy.task_loss`). The returned tensors are
+    detached and stay on the device."""
 
-    def update(model, bag0, tables, labels, generator=None, epoch=None):
+    def update(model, bag0, tables, labels, generator=None, epoch=None,
+               denom=None):
         if epoch is not None:
             set_lr(optimizer, epoch_lr(config, epoch))
         optimizer.zero_grad(set_to_none=True)
         loss, aux = end2end_loss(model, config, bag0, tables, labels,
-                                 training=True, generator=generator)
+                                 training=True, generator=generator,
+                                 denom=denom)
         loss.backward()
-        optimizer_step(config, optimizer)
+        optimizer_step(config, optimizer, mesh)
         return loss.detach(), _detach(aux)
 
     @torch.no_grad()
-    def evaluate(model, bag0, tables, labels):
-        return end2end_loss(model, config, bag0, tables, labels)
+    def evaluate(model, bag0, tables, labels, denom=None):
+        return end2end_loss(model, config, bag0, tables, labels, denom=denom)
 
     return update, evaluate
 
@@ -171,27 +195,43 @@ def _prefetch(iterator, depth: int = 2):
         cancelled.set()
 
 
+def _padded_batches(dataset: SlideDataset, batch_size: int, shuffle: bool,
+                    seed: int, pads, mesh):
+    """(padded global indices, their weights, this rank's block of rows) of
+    every batch of an epoch. The order is shuffled with
+    `np.random.default_rng(seed)`. Batches pad to a multiple of the data
+    axis with duplicates of weight 0 and, under static shapes (`pads`), the
+    last partial batch pads to ceil(batch_size / W) * W, so every batch of a
+    run has one shape (`paths_tpu/train/loop.py::_epoch_batches`)."""
+    size = data_axis_size(mesh)
+    target = -(-batch_size // size) * size if pads is not None else size
+    order = np.arange(len(dataset))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    for s in range(0, len(order), batch_size):
+        idx, w = pad_batch_indices(order[s: s + batch_size].tolist(), target)
+        rows = mesh.rows(len(idx)) if size > 1 else slice(None)
+        yield idx, w, rows
+
+
 def _epoch_batches(dataset: SlideDataset, batch_size: int, *, shuffle: bool,
-                   seed: int, config: Config, pads=None, device="cuda"):
+                   seed: int, config: Config, pads=None, device="cuda",
+                   mesh=None):
     """Yield (bag0, tables, labels, weights) on `device`, collated on a
-    background thread (`_prefetch`). Under static shapes (`pads`), the last
-    partial batch is padded to the full batch width with duplicates of
-    weight 0, so every batch has one shape; the labels carry those weights
-    as "weight". The order is shuffled with `np.random.default_rng(seed)`."""
-    target = batch_size if pads is not None else 1
+    background thread (`_prefetch`); batches as `_padded_batches` makes
+    them. The labels carry the weights of their rows as "weight"; bag0,
+    tables and labels hold this rank's rows only, and `weights` is the
+    global batch's (numpy)."""
 
     def gen():
-        order = np.arange(len(dataset))
-        if shuffle:
-            np.random.default_rng(seed).shuffle(order)
-        for s in range(0, len(order), batch_size):
-            idx, w = pad_batch_indices(order[s: s + batch_size].tolist(),
-                                       target)
+        for idx, w, rows in _padded_batches(dataset, batch_size, shuffle,
+                                            seed, pads, mesh):
+            own = idx[rows]
             bag0, tables = collate_batch(
-                dataset, idx, level0_bucket=config.level0_bucket, pads=pads,
+                dataset, own, level0_bucket=config.level0_bucket, pads=pads,
                 device=device)
-            labels = labels_on(dataset, idx, device)
-            labels["weight"] = torch.from_numpy(w).to(device)
+            labels = labels_on(dataset, own, device)
+            labels["weight"] = torch.from_numpy(w[rows]).to(device)
             yield bag0, tables, labels, w
 
     yield from _prefetch(gen())
@@ -199,29 +239,25 @@ def _epoch_batches(dataset: SlideDataset, batch_size: int, *, shuffle: bool,
 
 def _epoch_batches_streaming(dataset: SlideDataset, batch_size: int, *,
                              shuffle: bool, seed: int, config: Config,
-                             pads=None, device="cuda"):
+                             pads=None, device="cuda", mesh=None):
     """Streaming-engine batches: (bag0 on `device`, per-slide host table
     lists, labels on `device`, weights, slides). The deeper tables never
     leave host memory. A background thread (`_prefetch`) loads the next
     batch's tables and collates its level-0 bag while the card runs the
-    current one. Under static shapes (`pads`) the last partial batch is
-    padded to the full width, as in `_epoch_batches`."""
-    target = batch_size if pads is not None else 1
+    current one. Batches as `_padded_batches` makes them: all but `weights`
+    (the global batch's) hold this rank's rows only."""
 
     def gen():
-        order = np.arange(len(dataset))
-        if shuffle:
-            np.random.default_rng(seed).shuffle(order)
-        for s in range(0, len(order), batch_size):
-            idx, w = pad_batch_indices(order[s: s + batch_size].tolist(),
-                                       target)
-            bag0 = collate_bag0(dataset, idx,
+        for idx, w, rows in _padded_batches(dataset, batch_size, shuffle,
+                                            seed, pads, mesh):
+            own = idx[rows]
+            bag0 = collate_bag0(dataset, own,
                                 level0_bucket=config.level0_bucket, pads=pads,
                                 device=device)
-            slides = [dataset.slides[i] for i in idx]
+            slides = [dataset.slides[i] for i in own]
             host_tables = [s_.tables for s_ in slides]
-            labels = labels_on(dataset, idx, device)
-            labels["weight"] = torch.from_numpy(w).to(device)
+            labels = labels_on(dataset, own, device)
+            labels["weight"] = torch.from_numpy(w[rows]).to(device)
             yield bag0, host_tables, labels, w, slides
 
     yield from _prefetch(gen())
@@ -230,10 +266,15 @@ def _epoch_batches_streaming(dataset: SlideDataset, batch_size: int, *,
 class _DeferredRegister:
     """Register batch k's outputs with an evaluator only when batch k+1's
     are pushed: reading the loss and predictions waits for the card, and
-    doing it one step late lets the host queue the next step first."""
+    doing it one step late lets the host queue the next step first. Under
+    a data mesh, each rank's rows (labels, predictions) are gathered in rank
+    order, which is global row order, and the ranks' losses summed: every
+    rank registers the global batch, trimmed to its real rows (`weights` is
+    the global batch's)."""
 
-    def __init__(self, evaluator):
+    def __init__(self, evaluator, mesh=None):
         self.ev = evaluator
+        self.mesh = mesh
         self.pending = None
 
     def push(self, labels, pred, loss, w):
@@ -245,17 +286,37 @@ class _DeferredRegister:
             return
         labels, pred, loss, w = self.pending
         self.pending = None
+        parts = gather_objects(self.mesh, (
+            {k: v.cpu().numpy() for k, v in labels.items()},
+            pred.float().cpu().numpy(), float(loss)))
         n_real = int(w.sum())
-        host = {k: v.cpu().numpy()[:n_real] for k, v in labels.items()}
-        self.ev.register(host, pred.float().cpu().numpy()[:n_real],
-                         float(loss))
+        host = {k: np.concatenate([p[0][k] for p in parts])[:n_real]
+                for k in parts[0][0]}
+        self.ev.register(host, np.concatenate([p[1] for p in parts])[:n_real],
+                         sum(p[2] for p in parts))
 
 
-def _refuse_unported(config: Config) -> None:
-    if config.mesh_shape and math.prod(config.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"mesh_shape={config.mesh_shape}: the port trains on one device "
-            "(ROADMAP.md Queue 1 item 8, 'Parallel')")
+class _NoLog:
+    """The logger of ranks other than 0: rank 0 writes the run's metrics."""
+
+    def log(self, metrics: dict) -> None:
+        pass
+
+    def finish(self) -> None:
+        pass
+
+
+def rank_batch(batch_size: int, mesh) -> int:
+    """Rows of a padded global batch that one rank holds: ceil(batch_size /
+    W)."""
+    return -(-batch_size // data_axis_size(mesh))
+
+
+def dropout_seed(config: Config, mesh) -> int:
+    """The seed of a rank's dropout generator: rank 0 draws the one-process
+    stream, every other rank a stream of its own (JAX draws one global mask,
+    which no split over processes reproduces: ROADMAP.md Queue 3 note 9)."""
+    return config.seed + 1 + 1_000_003 * (mesh.rank if mesh else 0)
 
 
 def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
@@ -264,19 +325,32 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
                device="cuda") -> dict:
     """Train on `train_ds`, validating on `val_ds` every `eval_epochs`, and
     evaluate on `test_ds` at the end; checkpoints go to `model_dir`, and a
-    run there resumes from its saved epoch. Returns train_stats."""
-    _refuse_unported(config)
+    run there resumes from its saved epoch. Returns train_stats. Under a
+    process group (`runtime.maybe_init_distributed`) the run is data
+    parallel over its ranks (`parallel/mesh.py::mesh_from_config`), each on
+    its own `device`."""
+    mesh = mesh_from_config(config)
+    rank0 = mesh.rank == 0
+    verbose = verbose and rank0
     set_matmul_precision(config.compute_dtype)
     device = torch.device(device)
-    log = logger or MetricsLogger(model_dir, config.to_dict(), use_wandb="no")
+    if rank0:
+        log = logger or MetricsLogger(model_dir, config.to_dict(),
+                                      use_wandb="no")
+    else:
+        log = _NoLog()
     splits = [d for d in (train_ds, val_ds, test_ds) if d is not None]
+    batch_size = config.batch_size[0]
 
     engine = config.engine
     if engine == "auto":
         # price the fused engine's residency from the full-shape scan; the
-        # same pads then drive static collation
+        # same pads then drive static collation. A rank prices its share of
+        # the batch against its card; JAX prices the global batch against
+        # one device (`paths_tpu/engine/auto.py`), though each device holds
+        # a share there too: the two agree on one device
         auto_pads = union_pads(*(d.global_pads() for d in splits))
-        engine = resolve_engine(config, auto_pads, config.batch_size[0],
+        engine = resolve_engine(config, auto_pads, rank_batch(batch_size, mesh),
                                 verbose=verbose, device=device)
     streaming = engine == "streaming"
 
@@ -297,17 +371,26 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
     model, optimizer, train_stats = load_state(
         model_dir, model, optimizer, clip_grad_norm=clip,
         checkpoint_backend=config.checkpoint_backend)
+    replicate(mesh, model, optimizer)
     start_epoch = train_stats["epoch"]
     metric = "c-index" if config.task == "survival" else "AUC"
     for key in ["train_loss", f"train_{metric}", "val_loss", f"val_{metric}"]:
         train_stats.setdefault(key, {})
 
-    update, evaluate = make_step_fns(config, optimizer)
+    def save() -> None:
+        """Rank 0 writes; the others wait until the files are there."""
+        if rank0:
+            save_state(model_dir, model, optimizer, train_stats,
+                       clip_grad_norm=clip, backend=config.checkpoint_backend)
+        barrier(mesh)
+
+    update, evaluate = make_step_fns(config, optimizer, mesh)
     eng = StreamingEngine(config, device) if streaming else None
-    batch_size = config.batch_size[0]
-    generator = torch.Generator(device=device).manual_seed(config.seed + 1)
+    generator = torch.Generator(device=device).manual_seed(
+        dropout_seed(config, mesh))
     best_val_score = -1.0
     eval_cache: dict = {}   # id(dataset) -> batches kept on the device
+    batches = dict(config=config, pads=pads, device=device, mesh=mesh)
 
     def eval_batches(dataset, cacheable):
         """The val split's batches are the same every pass; with
@@ -316,12 +399,12 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
         cacheable = cacheable and config.cache_eval_batches
         if cacheable and id(dataset) in eval_cache:
             return eval_cache[id(dataset)]
-        batches = _epoch_batches(dataset, batch_size, shuffle=False, seed=0,
-                                 config=config, pads=pads, device=device)
+        out = _epoch_batches(dataset, batch_size, shuffle=False, seed=0,
+                             **batches)
         if cacheable:
-            eval_cache[id(dataset)] = list(batches)
+            eval_cache[id(dataset)] = list(out)
             return eval_cache[id(dataset)]
-        return batches
+        return out
 
     def streaming_eval_batches(dataset, cacheable):
         """Streaming counterpart of `eval_batches`: the cache holds the
@@ -337,8 +420,7 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
             return
         fresh = []
         for bag0, host_tables, labels, w, slides in _epoch_batches_streaming(
-                dataset, batch_size, shuffle=False, seed=0, config=config,
-                pads=pads, device=device):
+                dataset, batch_size, shuffle=False, seed=0, **batches):
             if cacheable:
                 fresh.append((bag0, labels, w, slides))
             yield bag0, host_tables, labels, w, slides
@@ -351,46 +433,48 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
                 s_.unload()
 
     def run_eval(dataset, evaluator, cacheable=False):
-        reg = _DeferredRegister(evaluator)
+        reg = _DeferredRegister(evaluator, mesh)
         if streaming:
             for bag0, host_tables, labels, w, slides in \
                     streaming_eval_batches(dataset, cacheable):
-                loss, pred = eng.evaluate(model, bag0, host_tables, labels)
+                loss, pred = eng.evaluate(model, bag0, host_tables, labels,
+                                          denom=float(w.sum()))
                 reg.push(labels, pred, loss, w)
                 unload(dataset, slides)
         else:
             for bag0, tables, labels, w in eval_batches(dataset, cacheable):
-                loss, aux = evaluate(model, bag0, tables, labels)
+                loss, aux = evaluate(model, bag0, tables, labels,
+                                     denom=float(w.sum()))
                 reg.push(labels, aux["pred"], loss, w)
         reg.flush()
 
     if verbose:
+        ranks = f", {mesh.size} ranks" if mesh.size > 1 else ""
         print(f"Training starts at epoch {start_epoch} (device {device}, "
-              f"engine {engine})")
+              f"engine {engine}{ranks})")
 
     train_eval = make_evaluator(config, "train")
     val_eval = make_evaluator(config, "val")
 
     for e in range(start_epoch, config.num_epochs + 1):
         t0 = time.time()
-        reg = _DeferredRegister(train_eval)
+        reg = _DeferredRegister(train_eval, mesh)
         seed = config.seed * 100_003 + e
         if streaming:
             set_lr(optimizer, epoch_lr(config, e))
             for bag0, host_tables, labels, w, slides in _epoch_batches_streaming(
-                    train_ds, batch_size, shuffle=True, seed=seed,
-                    config=config, pads=pads, device=device):
+                    train_ds, batch_size, shuffle=True, seed=seed, **batches):
                 loss, pred, _ = eng.loss_and_grad(model, bag0, host_tables,
-                                                  labels, generator=generator)
-                optimizer_step(config, optimizer)
+                                                  labels, generator=generator,
+                                                  denom=float(w.sum()))
+                optimizer_step(config, optimizer, mesh)
                 reg.push(labels, pred, loss, w)
                 unload(train_ds, slides)
         else:
             for bag0, tables, labels, w in _epoch_batches(
-                    train_ds, batch_size, shuffle=True, seed=seed,
-                    config=config, pads=pads, device=device):
+                    train_ds, batch_size, shuffle=True, seed=seed, **batches):
                 loss, aux = update(model, bag0, tables, labels, generator,
-                                   epoch=e)
+                                   epoch=e, denom=float(w.sum()))
                 reg.push(labels, aux["pred"], loss, w)
         reg.flush()
         log.log(train_eval.calculate(train_stats, e) | {"epoch": e})
@@ -412,8 +496,7 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
         if (config.save_epochs and e % config.save_epochs == 0
                 and not config.early_stopping):
             train_stats["epoch"] = e + 1
-            save_state(model_dir, model, optimizer, train_stats,
-                       clip_grad_norm=clip, backend=config.checkpoint_backend)
+            save()
 
         if e % config.eval_epochs == 0 and val_ds is not None and len(val_ds):
             run_eval(val_ds, val_eval, cacheable=True)
@@ -425,20 +508,18 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
                     and e >= config.min_epochs):
                 best_val_score = val_score
                 train_stats["epoch"] = e + 1
-                save_state(model_dir, model, optimizer, train_stats,
-                           clip_grad_norm=clip,
-                           backend=config.checkpoint_backend)
+                save()
 
     if config.early_stopping:
         model, optimizer, s = load_state(
             model_dir, model, optimizer, clip_grad_norm=clip,
             checkpoint_backend=config.checkpoint_backend)
+        replicate(mesh, model, optimizer)
         if verbose:
             print(f"Early stopping: loading from epoch {s['epoch']}")
 
     train_stats["epoch"] = config.num_epochs
-    save_state(model_dir, model, optimizer, train_stats, clip_grad_norm=clip,
-               backend=config.checkpoint_backend)
+    save()
 
     test_eval = make_evaluator(config, "test")
     run_eval(test_ds, test_eval)

@@ -1156,3 +1156,138 @@ def test_orbax_roundtrip_of_a_cuda_model(card, tmp_path):
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _dp_step_job(d, cfg):
+    """A one-step job for `helpers_torch_dp`: 6 slides, the last padding."""
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.serve import store_slide_ids
+
+    ids = store_slide_ids(FeatureStore(cfg.preprocess_dir), cfg.base_power)
+    labels = {"survival_bin": [1, 3, 0, 2, 2, 1],
+              "censored": [0, 1, 0, 0, 1, 0], "weight": [1, 1, 1, 1, 1, 0]}
+    return {"kind": "step", "name": "step", "dir": d, "ids": ids,
+            "idx": list(range(6)), "labels": labels}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_dp_step_matches_one_process(card, tmp_path, backend):
+    """One data-parallel AdamW step of two ranks on the kernel route, from
+    the same weights as one process's step on the whole batch: the ranks'
+    losses add up to its loss within 1e-6 relative, the parameters agree
+    within 1e-6 (a key bias within 2 lr, its gradient being rounding noise),
+    and both ranks hold the same parameters to the bit. gloo runs both
+    ranks on cuda:0 (NCCL refuses two ranks on one card); NCCL one rank per
+    card."""
+    from helpers_torch_dp import launch
+    from paths_tpu_torch import convert
+    from paths_tpu_torch.data import dataset as tdata
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train import loop as tloop
+    from paths_tpu_torch.train import state as tstate
+
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL takes one rank per card: this host has fewer than "
+                    "two cards")
+    d, cfg = _small_model_dir(str(tmp_path))
+    job = _dp_step_job(d, cfg)
+    device = "cuda:0" if backend == "gloo" else "cuda"
+    ranks = launch((2, [job], str(tmp_path / "out")), device=device,
+                   backend=backend)[0]
+    got = [dict(np.load(str(tmp_path / "out" / f"step_rank{r}.npz")))
+           for r in range(2)]
+    for k, v in got[0].items():
+        np.testing.assert_array_equal(got[1][k], v, err_msg=k)
+
+    model = RecursiveModel(cfg).to(card)
+    opt = tloop.make_optimizer(cfg, model.parameters())
+    model, opt, _ = tstate.load_state(d, model, opt)
+    store = FeatureStore(cfg.preprocess_dir)
+    ds = tdata.SlideDataset(job["ids"], cfg, store)
+    bag, tables = tdata.collate_batch(ds, job["idx"], level0_bucket=32,
+                                      pads=ds.global_pads(), device=card)
+    labels = {k: torch.tensor(v, device=card) for k, v in job["labels"].items()}
+    before = tfa.masked_flash_attention_bwd_dq.launches
+    loss, _ = tloop.make_step_fns(cfg, opt)[0](model, bag, tables, labels,
+                                                epoch=1)
+    torch.cuda.synchronize()
+    assert tfa.masked_flash_attention_bwd_dq.launches > before
+    np.testing.assert_allclose(sum(r["step"]["loss"] for r in ranks),
+                               loss.item(), rtol=1e-6)
+    for k, want in convert.to_jax_flat(model).items():
+        atol = 2 * cfg.lr if k.endswith("/k/b") else 1e-6
+        np.testing.assert_allclose(got[0][k], want, rtol=0, atol=atol,
+                                   err_msg=k)
+
+
+def _two_devices(cards: int):
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards: this host has "
+                    f"{torch.cuda.device_count()}")
+    return ["cuda:0", "cuda:0"] if cards == 1 else ["cuda:0", "cuda:1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", [1, 2])
+def test_dp_session_two_shards(card, tmp_path, cards):
+    """A two-shard `ServingSession`, both shards on cuda:0 or one per card,
+    gives the hazards of one device serving each shard as a batch, to the
+    bit, the one-device session's at the full batch within 1e-6, and
+    launches #1 once per decoder layer per level for each shard."""
+    from paths_tpu_torch.parallel.mesh import make_mesh
+    from paths_tpu_torch.serve import ServingSession
+
+    devices = _two_devices(cards)
+    d, cfg = _small_model_dir(str(tmp_path))
+    one = ServingSession(d, batch_size=4, cache_batches=0)
+    two = ServingSession(d, batch_size=4, cache_batches=0,
+                         mesh=make_mesh(devices=devices))
+    ids = one.slide_ids
+    want = [r["hazards"] for r in one.predict(ids)]
+    before = tfa.masked_flash_attention_fwd.launches
+    got = [r["hazards"] for r in two.predict(ids[:4])]
+    torch.cuda.synchronize()
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    assert tfa.masked_flash_attention_fwd.launches - before == 2 * per
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want[:4]),
+                               rtol=1e-6, atol=0)
+    halves = ServingSession(d, batch_size=2, cache_batches=0)
+    assert [r["hazards"] for r in halves.predict(ids[:4])] == got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards,impl", [(1, "fused"), (2, "fused"),
+                                        (2, "int8")])
+def test_dp_preprocess_shards(card, tmp_path, cards, impl):
+    """`process_slides` over two shards with Kaiko-S/16 (built once by
+    `from_name(mesh=...)`, its weights or int8 codes copied to each card)
+    gives the one-device grids to the bit: every row of the block kernels
+    is independent of the batch's other rows."""
+    import os
+
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.encoders.registry import from_name
+    from paths_tpu_torch.parallel.mesh import make_mesh
+    from paths_tpu_torch.preprocess.pipeline import process_slides
+
+    devices = _two_devices(cards)
+    rng = np.random.default_rng(0)
+    img = rng.integers(230, 250, (896, 896, 3), dtype=np.uint8)
+    img[100:800, 150:700] = rng.integers(60, 160, (700, 550, 3), dtype=np.uint8)
+    path = os.path.join(str(tmp_path), "s0.npy")
+    np.save(path, img)
+    kw = dict(patch_size=224, batch_size=8, default_power=10.0)
+    grids = {}
+    for name, mesh in (("one", None), ("two", make_mesh(devices=devices))):
+        enc, dim, _ = from_name("kaiko-vits16", block_impl=impl, mesh=mesh)
+        if mesh is not None:
+            assert len(enc) == 2
+        store = FeatureStore(os.path.join(str(tmp_path), name), create=True)
+        process_slides([(path, "s0")], enc, dim, [10.0, 5.0], store,
+                       mesh=mesh, **kw)
+        grids[name] = [np.asarray(store.load("s0", p)) for p in (10.0, 5.0)]
+    assert np.abs(grids["one"][0]).max() > 0
+    for a, b in zip(grids["two"], grids["one"]):
+        np.testing.assert_array_equal(a, b)

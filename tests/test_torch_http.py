@@ -166,8 +166,13 @@ def test_concurrent_requests(sessions):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--data-parallel", "2"], "item 8")])
+    (["--data-parallel", "2", "--artifact", "model.pt2z"],
+     "live fused sessions"),
+    (["--data-parallel", "2", "--batch-size", "3"],
+     "multiple of the data axis")])
 def test_unported_flags_raise(sessions, flags, item):
+    """`--data-parallel` serves the live fused model only, at batch sizes
+    the mesh divides (`tests/test_torch_parallel.py` serves with it)."""
     d = sessions[0]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         main(["-m", d, "--device", "cpu"] + flags)

@@ -197,12 +197,12 @@ def test_staging_off_gives_the_same_grids(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """Batches sharded over several cards stay refused (multi-process decode
-    and `.tiles` slides are ported: tests/test_torch_preprocess_mp.py)."""
+    """`--data-shards` over more cards than the host has raises before any
+    work (this host has none; sharded runs: tests/test_torch_parallel.py)."""
     from paths_tpu_torch.cli.preprocess import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Parallel"):
-        main(["-d", str(tmp_path), "-o", str(tmp_path / "o"), "--device", "cpu",
+    with pytest.raises(ValueError, match="data mesh of 2 shard"):
+        main(["-d", str(tmp_path), "-o", str(tmp_path / "o"),
               "--data-shards", "2"])
 
 

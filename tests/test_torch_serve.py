@@ -115,7 +115,8 @@ def test_port_imports_neither_jax_nor_reference_package():
         "'cli.heatmap', 'cli.serve', 'cli.mk_folds', 'cli.mk_datasets', "
         "'encoders.resnet', 'encoders.torch_mirror', 'native.jpeg', "
         "'native.build', 'cli.verify_conversion', 'native.zstd', "
-        "'train.ocdbt', 'train.zarr', 'train.orbax', 'export', 'cli.export'):\n"
+        "'train.ocdbt', 'train.zarr', 'train.orbax', 'export', 'cli.export', "
+        "'parallel.mesh', 'runtime'):\n"
         "    assert 'paths_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paths_tpu', 'pandas', 'matplotlib', 'PIL', "
@@ -209,10 +210,18 @@ def test_batch_lru(tmp_path, monkeypatch, served, engine):
 
 
 def test_session_info_and_unported_branches(served):
+    """A data mesh serves live fused sessions only, at batch sizes its
+    size divides, as in the JAX package (`paths_tpu/serve.py:149-159`)."""
+    from paths_tpu_torch.parallel.mesh import make_mesh
+
     _, ids, dirs = served
     sess = ServingSession(dirs["xla"], batch_size=4, device="cpu")
     assert sess.info() == {"task": "survival", "model_dir": dirs["xla"],
                            "num_slides": len(ids), "batch_size": 4,
                            "backend": "live", "device": "cpu"}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServingSession(dirs["xla"], device="cpu", mesh=2)
+    mesh = make_mesh(devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="multiple of the data axis"):
+        ServingSession(dirs["xla"], batch_size=3, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="live fused sessions"):
+        ServingSession(dirs["xla"], batch_size=4, artifact="model.pt2z",
+                       mesh=mesh)
