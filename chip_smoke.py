@@ -93,6 +93,23 @@ Phases, each printing its own lines:
      the host, or the loop over shards would serialise them), the warm
      request beside the one-device one in turns, and `cli.serve
      --data-parallel 2` with one request;
+  3g. seq (after dp-serve): sequence parallelism, `mesh_shape` [1, 2], two
+     ranks on cuda:0 over gloo (the ring's exchange through page-locked host
+     buffers), at flagship width on level-0 bags of 4096 patches (3 levels).
+     seq-attn: both schedules (`parallel/seq_attention.py`) on #1-#3, f32
+     and bf16, at B 2, H 4, N 4097 padded to 2 x 2049, D 32 with a valid
+     prefix ending inside the second block: outputs and gradients against
+     the one-device kernels, bf16 outputs and gradients also against the
+     schedule's plain version, launches per rank against the code's count,
+     and a planted fault (a ring step folded with the wrong block's length)
+     that must be caught; seq-train: one step on each schedule whose
+     world-summed gradients must equal one process's, `cli.train` for one
+     epoch on each schedule against the one-process run of the same store
+     (loss, the ranks' parameters to the bit, launches, step times), and
+     one step at the published dropout 0.05 (plain route, no kernel,
+     parameters to the bit, peak memory beside one process's); seq-eval:
+     `cli.evaluate` under [1, 2] against one process (the c-index exactly,
+     the loss to 1e-6);
   5. ViT block kernels: the fused attention, GELU-MLP and packed-SwiGLU-MLP
      block kernels against their plain versions at the UNI and Virchow2
      shapes (64 images), the attention and GELU-MLP blocks also at
@@ -2197,6 +2214,616 @@ def dp_serve_phase(torch, tfa, gpu, sl):
           f"rows to the bit, #1 {2 * per} launches | {gpu}", flush=True)
 
 
+# [seq]: sequence parallelism (`mesh_shape` [dp, sp > 1]): two ranks of one
+# sequence group, both on cuda:0 over gloo (the script needs one card when
+# run with no arguments; NCCL refuses two ranks on one card). gloo takes
+# CUDA tensors in its collectives but aborts the process on one in
+# `batch_isend_irecv`, so the ring's exchange crosses through page-locked
+# host buffers (`SeqSharding.transport`) while #1-#3 run on the card. One
+# launch of two ranks runs every job: the attention checks, the gradient
+# steps, the training runs, the dropout step and `cli.evaluate`.
+SEQ_GROUP_TIMEOUT_S = 120
+SEQ_CHILD_TIMEOUT_S = 420
+# The slice's shape at flagship width: 2 slides a batch, level-0 bags of
+# 4096 patches (a 64 x 64 grid of 1024-d features, every cell tissue), 3
+# levels (cut from 5: the deepest table is then a 256 x 256 grid, 256 MiB a
+# slide in f32, where 5 levels would need 1024 x 1024, 4 GiB a slide).
+SEQ_GRID = 64
+SEQ_LEVELS = 3
+SEQ_SLIDES = 6
+# [seq-attn] at the level-0 shape: B 2, H 4, N = 4097 rows (the special
+# token and 4096 patches) padded to 2 x 2049, D 32; batch 1's valid keys end
+# inside rank 1's block, so the ring folds a partly masked block.
+SEQ_ATTN_LENGTHS = (4097, 3001)
+# Schedules vs the one-device kernel on the whole sequence, f32: the
+# gathered schedule runs #1-#3 on the same rows and keys (only the
+# reduce-scatter adds a sum of 2 terms: the bit, or an ulp); the ring folds
+# two partials with `_combine` (a few f32 ulps) and sums dq over 2 steps:
+# KERNEL_ATOL on outputs, BWD_RTOL of each gradient's own largest value.
+# bf16: the ring rounds P against each block's own running max, so it is
+# JAX's ring to the bit, not the one-device kernel: 5e-2 (JAX's
+# `test_ring_bfloat16` bar) against the one-device result, on outputs and
+# on each gradient relative to its own largest value (the gradients are
+# about 1e-2 here, so a bar of max(1, largest) would be absolute and loose).
+# Against its own plain version (the same schedule on the CPU through the
+# same group) the bf16 flash bar on outputs (FLASH_BF16_ULPS,
+# FLASH_BF16_CHANGED), and on gradients SEQ_BF16_GRAD_RTOL (torch's bf16
+# rtol) of each gradient's own largest value: each rank's partial is within
+# the kernels' bf16 bar of its plain version, and the sum over the ranks
+# (the reduce-scatter, the ring's rotating accumulators) adds one more bf16
+# rounding, so the two differ by a few bf16 ulps (2^-8) of the largest
+# partial. Element by element, an element whose partials cancel keeps their
+# absolute error, which a relative bar cannot hold.
+SEQ_BF16_ATOL = 5e-2
+SEQ_BF16_GRAD_RTOL = 1.6e-2
+# [seq-train] one step's world-summed gradients (each rank's loss scaled by
+# 1 / sp, then one all-reduce) against one process's on the same batch from
+# the same weights: `grad_mismatch` (GRAD_RTOL of each tensor's own largest
+# gradient), since the two differ by summation order only; a factor-of-sp
+# error would move them by half or more.
+# [seq-train] against one process on the same store from the same weights:
+# the ranks' loss differs by summation order only (LOSS_RTOL); [seq-eval]:
+# the c-index exactly, the loss within CLI_EVAL_RTOL.
+
+SEQ_CHILD = r"""
+import hashlib, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+from paths_tpu_torch.runtime import maybe_init_distributed
+from paths_tpu_torch.kernels import flash_attention as tfa
+from paths_tpu_torch.parallel import seq_attention as sa
+from paths_tpu_torch.train import loop
+spec_path, out_dir = sys.argv[2:4]
+with open(spec_path) as f:
+    spec = json.load(f)
+maybe_init_distributed("gloo", "cuda:0", timeout=float(spec["timeout"]))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+rank = dist.get_rank()
+KERNELS = (tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd_dq,
+           tfa.masked_flash_attention_bwd_dkv)
+
+
+def reset():
+    torch.cuda.synchronize()
+    for f in KERNELS:
+        f.launches = 0
+
+
+def counts():
+    torch.cuda.synchronize()
+    return [f.launches for f in KERNELS]
+
+
+def digest(params):
+    h = hashlib.sha256()
+    for p in params:
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def attn(job):
+    with np.load(job["inputs"]) as f:
+        inp = dict(f)
+    res, arrays = {}, {}
+    for impl in ("gathered", "ring"):
+        sh = sa.SeqSharding(None, impl)
+        res["transport"] = sh.transport("cuda:0")
+        m = inp["q"].shape[2] // sh.size
+        rows = slice(sh.index * m, (sh.index + 1) * m)
+        lengths = torch.from_numpy(inp["lengths"]).cuda()
+        for dt, dtype, block_k in (("f32", torch.float32, 128),
+                                   ("bf16", torch.bfloat16, 512)):
+            host = [torch.from_numpy(inp[n][:, :, rows].copy()).to(dtype)
+                    for n in ("q", "k", "v", "dout")]
+            q, k, v = (t.cuda().requires_grad_() for t in host[:3])
+            dout = host[3].cuda()
+            reset()
+            out = sh.attend(q, k, v, lengths, block_k)
+            out.backward(dout)
+            c = counts()
+            arrays[f"{impl}_{dt}_out"] = out.detach().float().cpu().numpy()
+            for n, t in zip("qkv", (q, k, v)):
+                arrays[f"{impl}_{dt}_d{n}"] = t.grad.float().cpu().numpy()
+            # the warm forward + backward, synchronised (gloo through host
+            # memory, and the other rank on the same card)
+            walls = []
+            for _ in range(3):
+                for t in (q, k, v):
+                    t.grad = None
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sh.attend(q, k, v, lengths, block_k).backward(dout)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            res[f"{impl}_{dt}"] = {"launches": c, "ms": walls}
+            if dt == "bf16":
+                # the same schedule on CPU tensors: the kernels' plain versions
+                pqkv = [t.detach().requires_grad_() for t in host[:3]]
+                plain = sh.attend(*pqkv, lengths.cpu(), block_k)
+                plain.backward(host[3])
+                arrays[f"{impl}_bf16_plain_out"] = plain.detach().float().numpy()
+                for n, t in zip("qkv", pqkv):
+                    arrays[f"{impl}_bf16_plain_d{n}"] = t.grad.float().numpy()
+    # planted fault: the ring's second step folded with the block length of
+    # the wrong source rank
+    sh = sa.SeqSharding(None, "ring")
+    m = inp["q"].shape[2] // sh.size
+    rows = slice(sh.index * m, (sh.index + 1) * m)
+    qkv = [torch.from_numpy(inp[n][:, :, rows].copy()).cuda() for n in "qkv"]
+    real, calls = sa._block_lengths, []
+
+    def wrong(lengths, src, m):
+        calls.append(src)
+        return real(lengths, (src + 1) % sh.size if len(calls) == 2 else src, m)
+
+    sa._block_lengths = wrong
+    try:
+        with torch.no_grad():
+            bad = sh.attend(*qkv, torch.from_numpy(inp["lengths"]).cuda(), 128)
+    finally:
+        sa._block_lengths = real
+    arrays["ring_fault_out"] = bad.cpu().numpy()
+    np.savez(os.path.join(out_dir, f"attn_rank{rank}.npz"), **arrays)
+    return res
+
+
+def train(job):
+    seen, steps = {}, []
+    real = loop.make_step_fns
+
+    def spy(config, optimizer, mesh=None):
+        seen["opt"] = optimizer
+        update, evaluate = real(config, optimizer, mesh)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = update(*args, **kwargs)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed, evaluate
+
+    loop.make_step_fns = spy
+    try:
+        from paths_tpu_torch.cli.train import main
+        reset()
+        stats = main(["-m", job["dir"], "--no-wandb", "--device", "cuda:0"])
+        c = counts()
+    finally:
+        loop.make_step_fns = real
+    params = [p for g in seen["opt"].param_groups for p in g["params"]]
+    return {"loss": stats["train_loss"][1], "epoch_s": stats["epoch_wall_s"][1],
+            "steps_ms": steps, "launches": c, "params": digest(params)}
+
+
+def first_step(job):
+    import chip_smoke
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.parallel.mesh import mesh_from_config
+    mesh = mesh_from_config(Config.load(job["dir"]))
+    grads = job.get("grads") and os.path.join(
+        out_dir, f"{job['name']}_grads_rank{rank}.npz")
+    reset()
+    res = chip_smoke.seq_first_step(torch, job["dir"], mesh, grads)
+    return {**res, "launches": counts()}
+
+
+def evaluate(job):
+    from paths_tpu_torch.cli.evaluate import main
+    reset()
+    metrics = main(["-m", job["dir"], "--split", "test", "--device", "cuda:0"])
+    return {"metrics": metrics, "launches": counts()}
+
+
+results = {"rank": rank, "backend": str(dist.get_backend())}
+for job in spec["jobs"]:
+    t0 = time.perf_counter()
+    results[job["name"]] = {**globals()[job["kind"]](job),
+                            "wall_s": time.perf_counter() - t0}
+print("DP_RANK " + json.dumps(results), flush=True)   # what run_ranks reads
+"""
+
+
+def expected_seq_launches(cfg, splits, sp):
+    """#1-#3 launches of one rank's `cli.train` run under [1, sp], from the
+    code: as `expected_train_launches`, but level 0's decoder layers run the
+    group's schedule: one launch each under "gathered", sp under "ring"."""
+    bs = cfg.batch_size[0]
+    n_train, n_val, n_test = (len(d) if d is not None else 0 for d in splits)
+    steps = math.ceil(n_train / bs) * cfg.num_epochs
+    val_passes = cfg.num_epochs // cfg.eval_epochs if n_val else 0
+    forwards = steps + val_passes * math.ceil(n_val / bs) + math.ceil(n_test / bs)
+    layers = cfg.model_config.trans_layers
+    level0 = sp if cfg.seq_attention == "ring" else 1
+    per = layers * (cfg.num_levels - 1) + layers * level0
+    return [per * forwards, per * steps, per * steps]
+
+
+def bf16_agreement(got, want):
+    """(worst difference in bf16 ulps of its row's largest output, share of
+    outputs that differ at all) of two bf16 results held as f32 arrays."""
+    import numpy as np
+
+    diff = np.abs(got - want)
+    row = np.abs(want).max(-1, keepdims=True)
+    ulp = np.ldexp(np.ones_like(row), np.frexp(row)[1] - 8)
+    return float((diff / ulp).max()), float((got != want).mean())
+
+
+def copy_config(cfg, **changes):
+    """A copy of a port `Config` with `changes` set."""
+    from paths_tpu_torch.config import Config
+
+    c = Config(**cfg.to_dict())
+    for k, v in changes.items():
+        setattr(c, k, v)
+    return c
+
+
+def seq_first_step(torch, model_dir, mesh=None, grads_to=None):
+    """One `train_loop` update on the first 2 training slides of
+    `model_dir`'s store from its saved weights, on cuda:0: under `mesh` (a
+    rank of a sequence group) this rank's level-0 block, else the whole
+    bags. Returns the loss, the parameters' digest and the step's peak
+    device memory above what was allocated before it (MiB); `grads_to`, an
+    npz path, gets the gradients the step applied (summed over the world:
+    the config clips none)."""
+    import hashlib
+
+    import numpy as np
+
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data import dataset as tdata
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train import loop
+    from paths_tpu_torch.train.state import load_state
+
+    cfg = Config.load(model_dir)
+    if cfg.clip_grad_norm:
+        raise AssertionError("[seq-train] the step's config clips gradients")
+    model = RecursiveModel(cfg).to("cuda:0")
+    opt = loop.make_optimizer(cfg, model.parameters())
+    model, opt, _ = load_state(model_dir, model, opt)
+    train, _, _ = tdata.load_splits([0.7, 0.15, 0.15], cfg.seed, cfg)
+    idx = list(range(cfg.batch_size[0]))
+    bag, tables = tdata.collate_batch(train, idx,
+                                      level0_bucket=cfg.level0_bucket,
+                                      pads=train.global_pads(), device="cuda:0",
+                                      seq=loop.seq_block(mesh))
+    labels = tdata.labels_on(train, idx, "cuda:0")
+    gen = torch.Generator(device="cuda:0").manual_seed(
+        loop.dropout_seed(cfg, mesh))
+    update, _ = loop.make_step_fns(cfg, opt, mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = update(model, bag, tables, labels, gen, epoch=1)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    if grads_to:
+        np.savez(grads_to, **{n: p.grad.cpu().numpy()
+                              for n, p in model.named_parameters()
+                              if p.grad is not None})
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return {"loss": float(loss), "params": h.hexdigest(), "peak_mib": peak}
+
+
+def seq_store(torch, gpu):
+    """The [seq] store and model directories: one process (no mesh), [1, 2]
+    on each schedule, and one process and [1, 2] at the published
+    dropout."""
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.synthetic import (
+        make_signal_metadata,
+        make_signal_store,
+    )
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train.state import save_state
+
+    cfg = Config.load(os.path.join(ROOT, "models", "brca_paths_0"),
+                      test_mode=True)
+    published = cfg.model_config.dropout
+    cfg.preprocess_dir = os.path.join(WORK, "seq_store")
+    cfg.csv_path = os.path.join(WORK, "seq_meta.csv")
+    cfg.hipt_splits = False
+    cfg.num_levels, cfg.top_k_patches = SEQ_LEVELS, cfg.top_k_patches[:SEQ_LEVELS - 1]
+    cfg.batch_size = [2] * SEQ_LEVELS
+    cfg.num_epochs, cfg.attention_impl = 1, "pallas"
+    cfg.model_config.dropout = 0.0
+    t0 = time.perf_counter()
+    ids, z = make_signal_store(cfg.preprocess_dir, cfg, num_slides=SEQ_SLIDES,
+                               base_hw=(SEQ_GRID, SEQ_GRID), seed=0,
+                               tissue_fraction=1.0, size_jitter=1)
+    make_signal_metadata(cfg.csv_path, ids, z, seed=0)
+    print(f"[seq-train] store: {len(ids)} slides of {SEQ_GRID} x {SEQ_GRID} "
+          f"level-0 patches, {SEQ_LEVELS} levels (deepest grid "
+          f"{SEQ_GRID * 4} x {SEQ_GRID * 4}), "
+          f"{cfg.model_config.patch_embed_dim}-d f32, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    model = RecursiveModel(cfg, generator=torch.Generator().manual_seed(0))
+    dirs = {}
+    for name, changes in (("one", {}),
+                          ("gathered", {"mesh_shape": [1, 2]}),
+                          ("ring", {"mesh_shape": [1, 2],
+                                    "seq_attention": "ring"}),
+                          ("one_dropout", {}),
+                          ("dropout", {"mesh_shape": [1, 2]})):
+        c = copy_config(cfg, **changes)
+        if name.endswith("dropout"):
+            c.model_config.dropout = published
+        dirs[name] = os.path.join(WORK, f"seq_{name}")
+        c.save(dirs[name])
+        save_state(dirs[name], model)
+    return cfg, dirs
+
+
+def seq_phases(torch, tfa, gpu):
+    """[seq-attn], [seq-train], [seq-eval]: see the [seq] note above.
+    Returns rank 0's #1-#3 launches of the two training runs, for the
+    kernels line."""
+    import numpy as np
+
+    from paths_tpu_torch.cli.evaluate import main as evaluate_main
+    from paths_tpu_torch.cli.train import main as train_main
+    from paths_tpu_torch.data.dataset import load_splits
+    from paths_tpu_torch.models.batch import seq_block_width
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train.state import load_model, save_state
+
+    cfg, dirs = seq_store(torch, gpu)
+    splits = load_splits([0.7, 0.15, 0.15], cfg.seed, cfg)
+
+    # one process's first step (its gradients; at the published dropout its
+    # peak memory), then its run of the same store, from the same weights
+    one_grads = os.path.join(WORK, "seq_one_grads.npz")
+    one_step = seq_first_step(torch, dirs["one"], None, one_grads)
+    one_drop = seq_first_step(torch, dirs["one_dropout"])
+    reset_counts(tfa)
+    t0 = time.perf_counter()
+    one = train_main(["-m", dirs["one"], "--no-wandb"])
+    torch.cuda.synchronize()
+    one_s, one_counts = time.perf_counter() - t0, launch_counts(tfa)
+
+    # [seq-attn] inputs and the one-device kernels on the whole sequence
+    n = 2 * seq_block_width(SEQ_GRID * SEQ_GRID, 2)
+    gen = torch.Generator().manual_seed(0)
+    inp = {name: torch.randn(2, cfg.model_config.trans_heads, n,
+                             cfg.model_config.trans_dim
+                             // cfg.model_config.trans_heads, generator=gen)
+           for name in ("q", "k", "v", "dout")}
+    inp["lengths"] = torch.tensor(SEQ_ATTN_LENGTHS, dtype=torch.int32)
+    inputs = os.path.join(WORK, "seq_attn_inputs.npz")
+    np.savez(inputs, **{k: v.numpy() for k, v in inp.items()})
+    want = {}
+    for dt, dtype, block_k in (("f32", torch.float32, 128),
+                               ("bf16", torch.bfloat16, 512)):
+        q, k, v = (inp[x].cuda().to(dtype).detach().requires_grad_()
+                   for x in "qkv")
+        lengths = inp["lengths"].cuda()
+        out = tfa.masked_flash_attention(q, k, v, lengths, block_k)
+        out.backward(inp["dout"].cuda().to(dtype))
+        want[dt] = {"out": out.detach().float().cpu().numpy(),
+                    **{f"d{x}": t.grad.float().cpu().numpy()
+                       for x, t in zip("qkv", (q, k, v))}}
+        # the one-device call's time, for the [seq-attn] line
+        want[dt]["ms"] = cuda_ms(lambda: tfa.masked_flash_attention(
+            q, k, v, lengths, block_k).backward(inp["dout"].cuda().to(dtype)),
+            3, warmup=1)
+    del q, k, v, out
+
+    spec = os.path.join(WORK, "seq_jobs.json")
+    out_dir = os.path.join(WORK, "seq_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(spec, "w") as f:
+        json.dump({"timeout": SEQ_GROUP_TIMEOUT_S, "jobs": [
+            {"kind": "attn", "name": "attn", "inputs": inputs},
+            # the steps before the runs: these write the trained weights
+            {"kind": "first_step", "name": "step_gathered", "grads": True,
+             "dir": dirs["gathered"]},
+            {"kind": "first_step", "name": "step_ring", "grads": True,
+             "dir": dirs["ring"]},
+            {"kind": "train", "name": "gathered", "dir": dirs["gathered"]},
+            {"kind": "train", "name": "ring", "dir": dirs["ring"]},
+            {"kind": "first_step", "name": "dropout", "dir": dirs["dropout"]},
+            {"kind": "evaluate", "name": "evaluate", "dir": dirs["gathered"]}]},
+                  f)
+    t0 = time.perf_counter()
+    ranks = run_ranks(SEQ_CHILD, [[spec, out_dir]] * 2, SEQ_CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"[seq] rank {r['rank']} ran over "
+                                 f"{r['backend']}, not gloo")
+
+    # ------------------------------------------------------------ seq-attn
+    blocks = []
+    for r in range(2):
+        with np.load(os.path.join(out_dir, f"attn_rank{r}.npz")) as f:
+            blocks.append(dict(f))
+    got = {key: np.concatenate([b[key] for b in blocks], axis=2)
+           for key in blocks[0]}
+    lines, failed = [], []
+    for impl in ("gathered", "ring"):
+        per = 1 if impl == "gathered" else 2
+        for dt in ("f32", "bf16"):
+            w = want[dt]
+            err = float(np.abs(got[f"{impl}_{dt}_out"] - w["out"]).max())
+            gerr = max(float(np.abs(got[f"{impl}_{dt}_d{x}"] - w[f"d{x}"]).max())
+                       / float(np.abs(w[f"d{x}"]).max()) for x in "qkv")
+            out_bar, grad_bar = ((KERNEL_ATOL, BWD_RTOL) if dt == "f32"
+                                 else (SEQ_BF16_ATOL, SEQ_BF16_ATOL))
+            if not (err <= out_bar and gerr <= grad_bar):
+                failed.append(f"{impl} {dt} against the one-device kernels")
+            launched = [r["attn"][f"{impl}_{dt}"]["launches"] for r in ranks]
+            if launched != [[per] * 3] * 2:
+                failed.append(f"{impl} {dt} launched #1-#3 {launched} on the "
+                              f"two ranks, the code says {[per] * 3}")
+            extra = ""
+            if dt == "bf16":
+                ulps, changed = bf16_agreement(got[f"{impl}_bf16_out"],
+                                               got[f"{impl}_bf16_plain_out"])
+                gplain = max(
+                    float(np.abs(got[f"{impl}_bf16_d{x}"]
+                                 - got[f"{impl}_bf16_plain_d{x}"]).max())
+                    / float(np.abs(got[f"{impl}_bf16_plain_d{x}"]).max())
+                    for x in "qkv")
+                if not (ulps <= FLASH_BF16_ULPS and changed <= FLASH_BF16_CHANGED
+                        and gplain <= SEQ_BF16_GRAD_RTOL):
+                    failed.append(f"{impl} bf16 against its plain version")
+                extra = (f"; against its plain version (the same schedule on "
+                         f"the CPU) {ulps:.3g} bf16 ulps of a row's largest "
+                         f"(allowed {FLASH_BF16_ULPS}), {changed:.5f} of the "
+                         f"outputs changed (allowed {FLASH_BF16_CHANGED}), "
+                         f"dq/dk/dv {gplain:.3g} of their own largest (bar "
+                         f"{SEQ_BF16_GRAD_RTOL})")
+            ms = [f"{t:.1f}" for t in ranks[0]["attn"][f"{impl}_{dt}"]["ms"]]
+            lines.append(
+                f"[seq-attn] {impl} {dt} (B 2, H 4, N {n} = 2 x {n // 2}, "
+                f"D 32, lengths {list(SEQ_ATTN_LENGTHS)}): out {err:.3g} (bar "
+                f"{out_bar}), dq/dk/dv {gerr:.3g} of their own largest (bar "
+                f"{grad_bar}) against the one-device kernels{extra}; #1-#3 "
+                f"launches per rank {launched[0]} (the code says {[per] * 3}); "
+                f"forward + backward {', '.join(ms)} ms wall a rank "
+                f"(synchronised; the one-device kernels {w['ms']:.2f} ms) | "
+                f"{gpu}")
+    fault = float(np.abs(got["ring_fault_out"] - want["f32"]["out"]).max())
+    if not fault > 100 * KERNEL_ATOL:
+        failed.append(f"the planted fault (ring step 2 folded with the wrong "
+                      f"block length) was not caught: {fault:.3g}")
+    for line in lines:
+        print(line, flush=True)
+    if failed:
+        raise AssertionError("[seq-attn] " + "; ".join(failed))
+    print(f"[seq-attn] 2 ranks on cuda:0, transport "
+          f"{ranks[0]['attn']['transport']}; planted fault (the ring's second "
+          f"step folded with the other block's length) differs by {fault:.3g}:"
+          f" caught | {gpu}", flush=True)
+
+    # ----------------------------------------------------------- seq-train
+    want_g = {k: torch.from_numpy(v) for k, v in np.load(one_grads).items()}
+    for name in ("gathered", "ring"):
+        job = f"step_{name}"
+        g = [dict(np.load(os.path.join(out_dir, f"{job}_grads_rank{r}.npz")))
+             for r in range(2)]
+        for k, v in g[0].items():
+            if not np.array_equal(g[1][k], v):
+                raise AssertionError(f"[seq-train] {job}: the ranks' summed "
+                                     f"gradients of {k} differ")
+        ratio, worst = grad_mismatch(
+            {k: torch.from_numpy(v) for k, v in g[0].items()}, want_g)
+        rel = max(abs(r[job]["loss"] - one_step["loss"]) / abs(one_step["loss"])
+                  for r in ranks)
+        if not (ratio <= 1.0 and rel <= LOSS_RTOL):
+            raise AssertionError(
+                f"[seq-train] {job}: gradients at {ratio:.3g} of the limit "
+                f"({worst}), loss rel {rel:.3g}, against one process")
+        # one forward and backward: each decoder layer launches once a
+        # level, level 0's sp times under the ring
+        layers = cfg.model_config.trans_layers
+        per = layers * (cfg.num_levels - 1) + layers * (
+            2 if name == "ring" else 1)
+        for r in ranks:
+            if r[job]["launches"] != [per] * 3:
+                raise AssertionError(f"[seq-train] {job} rank {r['rank']} "
+                                     f"launched {r[job]['launches']}, the "
+                                     f"code says {[per] * 3}")
+        print(f"[seq-train] one step, seq_attention {name}: the world-summed "
+              f"gradients (loss / 2 on each rank, one all-reduce) equal on "
+              f"both ranks and against one process's at {ratio:.3g} of the "
+              f"limit (GRAD_RTOL {GRAD_RTOL} of each tensor's largest; worst "
+              f"{worst}); loss rel {rel:.3g}; #1-#3 launches per rank "
+              f"{ranks[0][job]['launches']} as the code says | {gpu}",
+              flush=True)
+    want_loss = one["train_loss"][1]
+    train_launches = [0, 0, 0]
+    for name in ("gathered", "ring"):
+        c = copy_config(cfg, mesh_shape=[1, 2], seq_attention=name)
+        expect = expected_seq_launches(c, splits, 2)
+        for r in ranks:
+            res = r[name]
+            rel = abs(res["loss"] - want_loss) / abs(want_loss)
+            if not rel <= LOSS_RTOL:
+                raise AssertionError(f"[seq-train] {name} rank {r['rank']}: "
+                                     f"epoch-1 loss {res['loss']} vs one "
+                                     f"process {want_loss} ({rel:.3g})")
+            if res["launches"] != expect:
+                raise AssertionError(f"[seq-train] {name} rank {r['rank']} "
+                                     f"launched {res['launches']}, the code "
+                                     f"says {expect}")
+        if ranks[0][name]["params"] != ranks[1][name]["params"]:
+            raise AssertionError(f"[seq-train] {name}: the ranks' parameters "
+                                 "differ after the epoch")
+        train_launches = [a + b for a, b in
+                          zip(train_launches, ranks[0][name]["launches"])]
+        rel = max(abs(r[name]["loss"] - want_loss) / abs(want_loss)
+                  for r in ranks)
+        print(f"[seq-train] cli.train mesh_shape [1, 2] seq_attention {name}, "
+              f"2 ranks on cuda:0 over gloo: {len(splits[0])} train slides, "
+              f"{len(ranks[0][name]['steps_ms'])} steps of 2 slides of "
+              f"{SEQ_GRID * SEQ_GRID} patches ({n // 2} level-0 rows a rank); "
+              f"epoch-1 loss {ranks[0][name]['loss']:.9f} vs one process "
+              f"{want_loss:.9f} (rel {rel:.3g}, rtol {LOSS_RTOL}); parameters "
+              f"equal to the bit on both ranks (sha256 "
+              f"{ranks[0][name]['params'][:12]}); #1-#3 launches per rank "
+              f"{ranks[0][name]['launches']} as the code says (one process: "
+              f"{list(one_counts.values())}); steps "
+              f"{', '.join(f'{t:.1f}' for t in ranks[0][name]['steps_ms'])} "
+              f"ms, epoch {ranks[0][name]['epoch_s']:.2f} s a rank, against "
+              f"one process's epoch {one['epoch_wall_s'][1]:.2f} s | {gpu}",
+              flush=True)
+    drop = [r["dropout"] for r in ranks]
+    if drop[0]["params"] != drop[1]["params"]:
+        raise AssertionError("[seq-train] dropout 0.05: the ranks' parameters "
+                             "differ after one step")
+    if any(d["launches"] != [0, 0, 0] for d in drop):
+        raise AssertionError(f"[seq-train] dropout 0.05 launched kernels: "
+                             f"{[d['launches'] for d in drop]}")
+    if not math.isfinite(drop[0]["loss"]):
+        raise AssertionError(f"[seq-train] dropout step loss {drop[0]['loss']}")
+    print(f"[seq-train] one step at the published dropout 0.05 (the plain "
+          f"route, K/V gathered over the group): loss {drop[0]['loss']:.6f}, "
+          f"parameters equal to the bit on both ranks (sha256 "
+          f"{drop[0]['params'][:12]}), no kernel launched; peak device memory "
+          f"of the step above its inputs {drop[0]['peak_mib']:.1f} / "
+          f"{drop[1]['peak_mib']:.1f} MiB a rank, one process "
+          f"{one_drop['peak_mib']:.1f} MiB (kernel route at dropout 0: "
+          f"{ranks[0]['step_gathered']['peak_mib']:.1f} a rank, one process "
+          f"{one_step['peak_mib']:.1f}); the launch of both ranks took "
+          f"{wall:.1f} s, the one-process run {one_s:.1f} s | {gpu}",
+          flush=True)
+
+    # ------------------------------------------------------------ seq-eval
+    d = os.path.join(WORK, "seq_eval_one")
+    c = copy_config(cfg)
+    c.save(d)
+    save_state(d, load_model(dirs["gathered"], RecursiveModel(c)))
+    reset_counts(tfa)
+    want_eval = evaluate_main(["-m", d, "--split", "test"])
+    got_eval = [r["evaluate"]["metrics"] for r in ranks]
+    if got_eval[0] != got_eval[1]:
+        raise AssertionError(f"[seq-eval] the ranks differ: {got_eval}")
+    key = "test_c-index"
+    rel = abs(got_eval[0]["test_loss"] - want_eval["test_loss"]) / abs(
+        want_eval["test_loss"])
+    if got_eval[0][key] != want_eval[key] or not rel <= CLI_EVAL_RTOL:
+        raise AssertionError(f"[seq-eval] {got_eval[0]} vs one process "
+                             f"{want_eval}")
+    print(f"[seq-eval] cli.evaluate mesh_shape [1, 2] (gathered) on the "
+          f"trained checkpoint: {got_eval[0]} against one process's "
+          f"{want_eval} (c-index equal, loss rel {rel:.3g}, rtol "
+          f"{CLI_EVAL_RTOL}); #1-#3 launches per rank "
+          f"{ranks[0]['evaluate']['launches']}; {ranks[0]['evaluate']['wall_s']:.1f}"
+          f" s a rank | {gpu}", flush=True)
+    return train_launches
+
+
 def http_phase(torch, tfa, gpu, sl):
     """`cli.serve.make_server` over the [slice] session on 127.0.0.1, serving
     in a thread: every route, a 32-slide request against `session.predict`,
@@ -3488,10 +4115,30 @@ def preprocess_phase(torch, tfa, tvf, gpu):
           f"{FEATURE_RTOL_INT8}), lowest cosine {quant_cos:.6f}", flush=True)
     del model_i8
 
+    inits = {}
+
+    def route_encoder(name, impl):
+        """from_name(name, block_impl=impl, seed=0) with the host's
+        vit_init(0) run once per encoder (about 10 s a UNI on the card's
+        host): every route gets a copy of the same weights, which the int8
+        route quantises in place."""
+        real = vit.vit_init
+
+        def init_once(seed, spec):
+            if name not in inits:
+                inits[name] = real(seed, spec)
+            return copy.deepcopy(inits[name])
+
+        vit.vit_init = init_once
+        try:
+            return from_name(name, block_impl=impl, seed=0)
+        finally:
+            vit.vit_init = real
+
     # -- Virchow2, full width and depth, bf16, through from_name on every route
     feats, ms, vcounts, vpeak = {}, {}, {}, {}
     for impl in kernel_impls + ("xla",):
-        enc, dim, _ = from_name("virchow2", block_impl=impl, seed=0)
+        enc, dim, _ = route_encoder("virchow2", impl)
         if dim != 2560:
             raise AssertionError(f"virchow2 out dim {dim}")
         reset_vit_counts(tvf)
@@ -3536,7 +4183,7 @@ def preprocess_phase(torch, tfa, tvf, gpu):
     # (#4, #7, #8)
     kfeats, kms, kcounts = {}, {}, {}
     for impl in kernel_impls + ("xla",):
-        enc, dim, _ = from_name("kaiko-vitb8", block_impl=impl, seed=0)
+        enc, dim, _ = route_encoder("kaiko-vitb8", impl)
         if dim != 768:
             raise AssertionError(f"kaiko-vitb8 out dim {dim}")
         reset_vit_counts(tvf)
@@ -4137,39 +4784,62 @@ def main() -> int:
           f"{zstd.find_library() or 'absent'}", flush=True)
 
     shutil.rmtree(WORK, ignore_errors=True)
+    walls = {}
+
+    def timed(name, phase, *args):
+        """phase(*args), its wall time kept for the [env] phases line."""
+        t0 = time.perf_counter()
+        try:
+            return phase(*args)
+        finally:
+            walls[name] = time.perf_counter() - t0
+
     try:
-        cases = kernel_phase(torch, tfa, gpu)
-        bwd = backward_kernel_phase(torch, tfa, gpu)
-        sl = serving_phase(torch, tfa, gpu)
-        launches, tr = training_phase(torch, tfa, gpu)
-        streaming_serving_phase(torch, tfa, gpu, sl)
-        streaming_training_phase(torch, tfa, gpu, tr)
-        auto_phase(sl)
-        lru_phase(torch, tfa, gpu, sl)
-        cli_out = cli_phase(torch, tfa, gpu, tr)
-        staging_probe(torch, gpu, sl)
-        remat_phase(torch, tfa, gpu, tr)
-        ckpt_phase(torch, gpu, sl, tr, cli_out)
-        orbax_phase(torch, gpu, sl, tr, cli_out)
-        export_launches = export_phase(torch, tfa, gpu, sl)
-        dp_train_phase(torch, tfa, gpu, tr)
-        dp_serve_phase(torch, tfa, gpu, sl)
-        http_phase(torch, tfa, gpu, sl)
-        uni_weights = heatmap_phase(torch, tfa, tvf, gpu, sl)
-        native_phase(torch, gpu, sl)
+        cases = timed("kernel", kernel_phase, torch, tfa, gpu)
+        bwd = timed("backward", backward_kernel_phase, torch, tfa, gpu)
+        sl = timed("slice", serving_phase, torch, tfa, gpu)
+        launches, tr = timed("train", training_phase, torch, tfa, gpu)
+        timed("streaming-serve", streaming_serving_phase, torch, tfa, gpu, sl)
+        timed("streaming-train", streaming_training_phase, torch, tfa, gpu, tr)
+        timed("auto", auto_phase, sl)
+        timed("lru", lru_phase, torch, tfa, gpu, sl)
+        cli_out = timed("cli", cli_phase, torch, tfa, gpu, tr)
+        timed("staging", staging_probe, torch, gpu, sl)
+        timed("remat", remat_phase, torch, tfa, gpu, tr)
+        timed("ckpt", ckpt_phase, torch, gpu, sl, tr, cli_out)
+        timed("orbax", orbax_phase, torch, gpu, sl, tr, cli_out)
+        export_launches = timed("export", export_phase, torch, tfa, gpu, sl)
+        timed("dp-train", dp_train_phase, torch, tfa, gpu, tr)
+        timed("dp-serve", dp_serve_phase, torch, tfa, gpu, sl)
+        seq_launches = timed("seq", seq_phases, torch, tfa, gpu)
+        timed("http", http_phase, torch, tfa, gpu, sl)
+        uni_weights = timed("heatmap", heatmap_phase, torch, tfa, tvf, gpu, sl)
+        timed("native", native_phase, torch, gpu, sl)
         del sl, tr
-        vit_cases = vit_kernel_phase(torch, tvf, gpu)
-        vit_cases.update(vit_new_kernel_phase(torch, tvf, tvi, gpu))
-        vit_launches = preprocess_phase(torch, tfa, tvf, gpu)
-        tiles_phase(torch, tvf, gpu, uni_weights)
-        dp_preprocess_phase(torch, tvf, gpu, uni_weights)
-        r50_weights = resnet_phase(torch, gpu)
-        verify_phase(torch, tvf, gpu, uni_weights, r50_weights)
+        vit_cases = timed("vit-kernel", vit_kernel_phase, torch, tvf, gpu)
+        vit_cases.update(timed("vit-new-kernel", vit_new_kernel_phase, torch,
+                               tvf, tvi, gpu))
+        vit_launches = timed("preprocess", preprocess_phase, torch, tfa, tvf,
+                             gpu)
+        timed("tiles", tiles_phase, torch, tvf, gpu, uni_weights)
+        timed("dp-preprocess", dp_preprocess_phase, torch, tvf, gpu,
+              uni_weights)
+        r50_weights = timed("resnet", resnet_phase, torch, gpu)
+        timed("verify", verify_phase, torch, tvf, gpu, uni_weights,
+              r50_weights)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+        print("[env] phases: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in walls.items()),
+              flush=True)
 
-    # #1's main path runs through [train] and the [export] artifact request
+    # #1's main path runs through [train] and the [export] artifact request;
+    # #1-#3 also through [seq-train]'s two runs (rank 0's launches)
     launches["masked_flash_attention_fwd"] += export_launches
+    for name, n in zip(("masked_flash_attention_fwd",
+                        "masked_flash_attention_bwd_dq",
+                        "masked_flash_attention_bwd_dkv"), seq_launches):
+        launches[name] += n
     # one flagship forward (or train step) of 32 slides launches each kernel
     # twice at level 0 and 8 times deeper
     weights = {"level0": 2, "deeper": 8}

@@ -7,8 +7,9 @@
 Loads the model directory's `model.npz` (or the reference's `model.pt`),
 runs the split through the model's engine (fused, streaming, or auto priced
 from the split's shapes) and prints the loss and c-index / AUC as JSON. Runs on the card unless `--device cpu`
-is given. Under `torchrun --nproc-per-node N` the split is evaluated data
-parallel, one card per process, and rank 0 prints the metrics.
+is given. Under `torchrun --nproc-per-node N` the split is evaluated over
+the config's `mesh_shape` ([N], or [dp, sp] with dp * sp = N for sequence
+parallelism), one card per process, and rank 0 prints the metrics.
 """
 from __future__ import annotations
 
@@ -34,7 +35,11 @@ def main(argv=None) -> dict:
     from paths_tpu_torch.engine.auto import resolve_engine
     from paths_tpu_torch.engine.streaming import StreamingEngine
     from paths_tpu_torch.models.recursive import RecursiveModel
-    from paths_tpu_torch.parallel.mesh import mesh_from_config, replicate
+    from paths_tpu_torch.parallel.mesh import (
+        mesh_from_config,
+        replicate,
+        seq_axis_size,
+    )
     from paths_tpu_torch.runtime import maybe_init_distributed, rank_device
     from paths_tpu_torch.train.evaluators import make_evaluator
     from paths_tpu_torch.train.loop import (
@@ -79,12 +84,13 @@ def main(argv=None) -> dict:
     engine = config.engine
     if engine == "auto":
         engine = resolve_engine(config, ds.global_pads(), rank_batch(bs, mesh),
-                                verbose=rank0, device=device)
+                                verbose=rank0, device=device,
+                                sp=seq_axis_size(mesh))
 
     batches = dict(shuffle=False, seed=0, config=config, device=device,
                    mesh=mesh)
     if engine == "streaming":
-        eng = StreamingEngine(config, device)
+        eng = StreamingEngine(config, device, mesh)
         for bag0, host_tables, labels, w, slides in _epoch_batches_streaming(
                 ds, bs, **batches):
             loss, pred = eng.evaluate(model, bag0, host_tables, labels,
@@ -95,7 +101,8 @@ def main(argv=None) -> dict:
                     s_.unload()
     else:
         _, evaluate = make_step_fns(config,
-                                    make_optimizer(config, model.parameters()))
+                                    make_optimizer(config, model.parameters()),
+                                    mesh)
         for bag0, tables, labels, w in _epoch_batches(ds, bs, **batches):
             loss, aux = evaluate(model, bag0, tables, labels,
                                  denom=float(w.sum()))

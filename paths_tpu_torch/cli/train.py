@@ -14,7 +14,9 @@ Across cards, one process per card:
     torchrun --nproc-per-node N -m paths_tpu_torch.cli.train -m DIR --no-wandb
 
 trains data parallel (`train/loop.py`); rank r runs on `cuda:{LOCAL_RANK}`,
-and rank 0 writes the metrics and checkpoints.
+and rank 0 writes the metrics and checkpoints. A config whose `mesh_shape` is
+[dp, sp] with sp > 1 trains sequence parallel on dp * sp processes: each
+level-0 bag is cut over the sp ranks of a data index (`parallel/mesh.py`).
 """
 from __future__ import annotations
 

@@ -7,10 +7,12 @@ dataclasses; scalar `top_k_patches` / `batch_size` entries are broadcast to
 per-level lists; `lstm=True` requires `hierarchical_ctx=True`; unknown keys
 raise.
 
-Fields that select JAX-side machinery (`mesh_shape`, `seq_attention`,
-`remat`, `prng_impl`, `checkpoint_backend`) are kept
-so that configs stay interchangeable; the port reads only what the serving
-path uses and refuses the values it has not ported yet where it meets them.
+The port reads `mesh_shape` (the process mesh of training and
+`cli.evaluate`, `[dp]` or `[dp, sp]` for sequence parallelism:
+`parallel/mesh.py`), `seq_attention` ("gathered" or "ring", the schedule of
+the sequence-parallel attention: `parallel/seq_attention.py`; another value
+raises), `remat` and `checkpoint_backend`. `prng_impl` selects JAX's
+generator and is kept only so that configs stay interchangeable.
 """
 from __future__ import annotations
 
@@ -133,6 +135,9 @@ class Config:
         if self.model_config.lstm and not self.model_config.hierarchical_ctx:
             raise ValueError(
                 "If LSTM mode is enabled, hierarchical context must be enabled.")
+        if self.seq_attention not in ("gathered", "ring"):
+            raise ValueError(f"seq_attention={self.seq_attention!r}: "
+                             "'gathered' or 'ring'")
         if self.magnification_factor != 2:
             print(f"WARNING: magnification_factor={self.magnification_factor}"
                   " is not honored: the preprocessed hierarchy is fixed at x2")

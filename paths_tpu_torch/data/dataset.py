@@ -36,7 +36,7 @@ from paths_tpu_torch.engine.tables import (
     stack_tables,
     wire_dtype,
 )
-from paths_tpu_torch.models.batch import PatchBag
+from paths_tpu_torch.models.batch import PatchBag, seq_block_width
 
 MAX_WORKERS = 8
 
@@ -328,20 +328,23 @@ def labels_on(dataset: "SlideDataset", indices: Sequence[int],
 def collate_batch(dataset: SlideDataset, indices: Sequence[int],
                   level0_bucket: int = 256, row_bucket: int = 256,
                   grid_bucket: int = 16, dtype: Optional[torch.dtype] = None,
-                  pads: Optional[dict] = None, device="cuda"):
+                  pads: Optional[dict] = None, device="cuda",
+                  seq: Optional[Tuple[int, int]] = None):
     """Collate slides into (PatchBag, [LevelTable]) on `device`.
 
     The level-0 width is the batch max rounded up to `level0_bucket`; table
     rows and grid dims round to `row_bucket` / `grid_bucket`. `pads` (a
-    `global_pads()` dict) replaces batch maxima with dataset-wide maxima."""
+    `global_pads()` dict) replaces batch maxima with dataset-wide maxima.
+    With `seq` = (index, sp) the level-0 bag is sequence rank `index`'s
+    block (`collate_bag0`); the tables are whole."""
     cfg = dataset.config
     if dtype is None:
         dtype = getattr(torch, cfg.table_dtype)
     slides = [dataset.slides[i] for i in indices]
 
     bag0 = collate_bag0(dataset, indices, level0_bucket=level0_bucket,
-                        dtype=dtype, pads=pads, device=device)
-    n0 = bag0.mask.shape[1]
+                        dtype=dtype, pads=pads, device=device, seq=seq)
+    n0 = bag0.patch_width or bag0.mask.shape[1]
 
     widths = bag_widths(cfg.top_k_patches, cfg.num_levels, n0)
     tables = []
@@ -369,8 +372,12 @@ def collate_batch(dataset: SlideDataset, indices: Sequence[int],
 
 def collate_bag0(dataset: SlideDataset, indices: Sequence[int],
                  level0_bucket: int = 256, dtype: Optional[torch.dtype] = None,
-                 pads: Optional[dict] = None, device="cuda") -> PatchBag:
-    """Collate only the level-0 bag, on `device`."""
+                 pads: Optional[dict] = None, device="cuda",
+                 seq: Optional[Tuple[int, int]] = None) -> PatchBag:
+    """Collate only the level-0 bag, on `device`. With `seq` = (index, sp),
+    only the m rows of sequence rank `index`'s block
+    (`models/batch.py::seq_block_width`) are collated; `patch_width` is the
+    whole bag's width."""
     cfg = dataset.config
     mc = cfg.model_config
     if dtype is None:
@@ -383,27 +390,38 @@ def collate_bag0(dataset: SlideDataset, indices: Sequence[int],
     if pads is not None:
         max_n0 = max(max_n0, pads["n0"])
     n0 = _round_up(max_n0, level0_bucket)
+    rows, first, width = n0, 0, None
+    if seq is not None:
+        index, sp = seq
+        rows = seq_block_width(n0, sp)
+        first, width = index * rows - 1, n0   # patch of the block's row 0
     # the features cross at the narrower of storage and table dtype and are
     # cast to the table dtype on the device, as in stack_tables
     host_dt = host_stack_dtype([f.dtype for f, _, _ in l0])
     device = torch.device(device)
-    fts0 = torch.zeros((b, n0, mc.patch_embed_dim),
+    fts0 = torch.zeros((b, rows, mc.patch_embed_dim),
                        dtype=wire_dtype(host_dt, dtype),
                        pin_memory=pin_staging(device))
-    locs0 = np.zeros((b, n0, 2), np.int32)
-    mask0 = np.zeros((b, n0), bool)
+    locs0 = np.zeros((b, rows, 2), np.int32)
+    mask0 = np.zeros((b, rows), bool)
     for i, (f, l, n) in enumerate(l0):
-        fill_rows(fts0, i, f)
-        locs0[i, :n] = l
-        mask0[i, :n] = True
+        lo, hi = max(first, 0), min(n, first + rows)
+        if hi > lo:
+            fill_rows(fts0[:, lo - first:], i, f[lo:hi])
+            locs0[i, lo - first: hi - first] = l[lo:hi]
+            mask0[i, lo - first: hi - first] = True
+    patch = torch.arange(first, first + rows, device=device)
+    patch = torch.where((patch >= 0) & (patch < n0), patch, 0)
 
     return PatchBag(
         fts=fts0.to(device, non_blocking=True).to(dtype),
         locs=torch.from_numpy(locs0).to(device).long(),
         mask=torch.from_numpy(mask0).to(device),
-        parent_inds=torch.arange(n0, device=device).expand(b, n0),
+        parent_inds=patch.expand(b, rows),
         ctx_slide=torch.zeros((b, 0, ds_dim), dtype=dtype, device=device),
-        ctx_patch=torch.zeros((b, n0, 0, dp_dim), dtype=dtype, device=device))
+        ctx_patch=torch.zeros((b, rows, 0, dp_dim), dtype=dtype,
+                              device=device),
+        patch_width=width)
 
 
 def iterate_batches(dataset: SlideDataset, batch_size: int, *,

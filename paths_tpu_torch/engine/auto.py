@@ -16,6 +16,12 @@ the same order as the tables. PARAM_RESERVE covers parameters, AdamW state
 and the allocator's scratch. The estimate prices only what scales with the
 dataset and errs toward streaming near the boundary: crossing it the other
 way is an out-of-memory error mid-run.
+
+A rank prices its own share: under a data mesh ceil(B / dp) slides (the
+caller's `batch_size`), and under sequence parallelism (`sp` > 1) only its
+block of m = ceil((n0 + 1) / sp) level-0 rows, plus under the gathered
+schedule the K and V that each decoder layer gathers over the whole
+sequence and keeps for the backward.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 
 from paths_tpu_torch.config import Config
 from paths_tpu_torch.engine.tables import as_torch_dtype, bag_widths
+from paths_tpu_torch.models.batch import seq_block_width
 
 RESIDENCY_FACTOR = 3.0   # live batch + prefetched batch + backward headroom
 HBM_FRACTION = 0.85      # leave the caching allocator slack
@@ -37,24 +44,29 @@ def _round_up(n: int, m: int) -> int:
 
 
 def estimate_fused_batch_bytes(config: Config, pads: dict,
-                               batch_size: int) -> int:
+                               batch_size: int, sp: int = 1) -> int:
     """Bytes of ONE fused-engine collated batch at dataset-global pads.
 
     Mirrors `data.dataset.collate_batch`'s shapes as the JAX package counts
     them: level-0 PatchBag (fts/locs/mask/ctx) and per-level LevelTables
-    (fts/locs/index/count/grid_hw), with the same bucketing."""
+    (fts/locs/index/count/grid_hw), with the same bucketing. With `sp` > 1,
+    one sequence rank's share (module docstring)."""
     mc = config.model_config
     d = mc.patch_embed_dim
     item = as_torch_dtype(config.table_dtype).itemsize
     b = batch_size
 
     n0 = _round_up(pads["n0"], config.level0_bucket)
+    rows0 = seq_block_width(n0, sp) if sp > 1 else n0
     ds_dim, dp_dim = mc.ctx_dim()
     depth = config.num_levels  # ctx stacks grow to num_levels-1; bound
-    total = b * n0 * (d * item        # bag0.fts
-                      + 2 * 4 + 1     # locs + mask
-                      + depth * dp_dim * item)   # ctx_patch (worst level)
+    total = b * rows0 * (d * item        # bag0.fts
+                         + 2 * 4 + 1     # locs + mask
+                         + depth * dp_dim * item)   # ctx_patch (worst level)
     total += b * depth * ds_dim * item           # ctx_slide
+    if sp > 1 and config.seq_attention == "gathered":
+        cd = as_torch_dtype(config.compute_dtype).itemsize
+        total += b * 2 * sp * rows0 * mc.trans_dim * cd * mc.trans_layers
 
     widths = bag_widths(config.top_k_patches, config.num_levels, n0)
     for lvl in range(1, config.num_levels):
@@ -76,11 +88,12 @@ def hbm_bytes(device="cuda", default: int = DEFAULT_HBM) -> int:
 
 def resolve_engine(config: Config, pads: Optional[dict], batch_size: int,
                    hbm: Optional[int] = None, verbose: bool = True,
-                   device="cuda") -> str:
+                   device="cuda", sp: int = 1) -> str:
     """The engine `train_loop` and serving should use. Pass-through unless
     `config.engine == "auto"`; then fused iff the estimated batch residency
-    fits the budget of `device` (or of `hbm` bytes). Prints the decision and
-    the numbers it was made from."""
+    (of a sequence rank's share when `sp` > 1) fits the budget of `device`
+    (or of `hbm` bytes). Prints the decision and the numbers it was made
+    from."""
     if config.engine != "auto":
         return config.engine
     if pads is None:
@@ -89,7 +102,7 @@ def resolve_engine(config: Config, pads: Optional[dict], batch_size: int,
             print("engine=auto: no shape bounds available -> streaming")
         return "streaming"
     hbm = hbm_bytes(device) if hbm is None else hbm
-    batch = estimate_fused_batch_bytes(config, pads, batch_size)
+    batch = estimate_fused_batch_bytes(config, pads, batch_size, sp)
     need = RESIDENCY_FACTOR * batch
     budget = HBM_FRACTION * hbm - PARAM_RESERVE
     choice = "fused" if need <= budget else "streaming"

@@ -14,6 +14,16 @@ With `config.remat`, each level's forward runs under
 `torch.utils.checkpoint` and is recomputed in the backward, as the JAX
 package wraps each level in `jax.checkpoint`: the activations held between
 forward and backward are the levels' inputs, not their internals.
+
+Under sequence parallelism (`seq_mesh`, `parallel/seq_attention.py`) the
+level-0 bag is this rank's block (`models/batch.py`) and the recursion is
+partitioned by hand, where JAX leaves it to GSPMD: level 0 runs on the
+block, its importance, mask and coordinates are all-gathered so that every
+rank of the group runs the same masked top-K over the whole bag (ties to the
+lowest global index), the kept rows' contexts are taken from the ranks that
+hold them by a differentiable sum over the group, and the levels >= 1 run
+whole on every rank. A remat recompute issues its level's collectives again,
+in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -43,11 +53,29 @@ def _compact(mask: torch.Tensor, *arrays):
     return (torch.gather(mask, 1, perm), *(_take(a, perm) for a in arrays))
 
 
-def select_children(bag: PatchBag, out: dict, k: int, patch_size: int) -> dict:
+def gather_level0(bag: PatchBag, out: dict, seq_mesh) -> dict:
+    """A sequence-parallel rank's level-0 output with the whole bag's (B, n)
+    "importance", "mask" and (B, n, 2) "locs" all-gathered from the group in
+    one collective (no gradient: the top-K reads them); "ctx_patch" stays the
+    block's."""
+    n = bag.patch_width
+    packed = torch.cat([out["importance"][..., None].double(),
+                        bag.mask[..., None].double(), bag.locs.double()], -1)
+    whole = seq_mesh.gather(packed, 1)[:, 1: n + 1]   # drop the special row
+    return {**out, "importance": whole[..., 0].to(out["importance"].dtype),
+            "mask": whole[..., 1] > 0.5, "locs": whole[..., 2:].long()}
+
+
+def select_children(bag: PatchBag, out: dict, k: int, patch_size: int,
+                    seq_mesh=None) -> dict:
     """Append context, masked top-K, x4 child expansion. Returns the
-    pre-lookup intermediates."""
-    b, n, _ = bag.fts.shape
+    pre-lookup intermediates. With `seq_mesh`, `bag` is a level-0 block and
+    `out` comes from `gather_level0`."""
     dev = bag.fts.device
+    mask, locs = bag.mask, bag.locs
+    if seq_mesh is not None:
+        mask, locs = out["mask"], out["locs"]
+    b, n = mask.shape
 
     ctx_slide = torch.cat([bag.ctx_slide, out["ctx_slide"][:, None]], dim=1)
     ctx_patch = torch.cat([bag.ctx_patch, out["ctx_patch"][:, :, None]], dim=2)
@@ -57,13 +85,22 @@ def select_children(bag: PatchBag, out: dict, k: int, patch_size: int) -> dict:
     if k == -1:
         k = n
         idx = torch.arange(n, device=dev).expand(b, n)
-        kvalid = bag.mask
+        kvalid = mask
     else:
         k = min(k, n)
-        idx, kvalid = masked_topk(out["importance"], bag.mask, k)
+        idx, kvalid = masked_topk(out["importance"], mask, k)
 
-    kept_locs = _take(bag.locs // patch_size, idx)
-    kept_ctx = _take(ctx_patch, idx)
+    kept_locs = _take(locs // patch_size, idx)
+    if seq_mesh is None:
+        kept_ctx = _take(ctx_patch, idx)
+    else:
+        # patch p is row p + 1 of the sequence: row (p + 1) % m of index
+        # (p + 1) // m; each rank takes the kept rows it holds, and the sum
+        # over the group (one term each) assembles them on every rank
+        m = bag.mask.shape[1]
+        mine = (idx + 1) // m == seq_mesh.index
+        own = _take(ctx_patch, torch.where(mine, (idx + 1) % m, 0))
+        kept_ctx = seq_mesh.sum(torch.where(mine[..., None, None], own, 0.0))
 
     # child quadrant offsets (0,0), (0,1), (1,0), (1,1), in the order the
     # children are concatenated: groups [(2y,2x)], [(2y,2x+1)], [(2y+1,2x)],
@@ -140,17 +177,18 @@ def finish_step(sel: dict, lookup: dict, patch_size: int) -> PatchBag:
 
 
 def hierarchy_step(bag: PatchBag, out: dict, table: LevelTable, k: int,
-                   patch_size: int) -> PatchBag:
+                   patch_size: int, seq_mesh=None) -> PatchBag:
     """Advance the recursion one level: `table` is level i+1's, `k` the
     top-K to keep (-1 = keep all); returns the level-(i+1) bag with 4*K
-    patch slots."""
-    sel = select_children(bag, out, k, patch_size)
+    patch slots (`seq_mesh`: `select_children`)."""
+    sel = select_children(bag, out, k, patch_size, seq_mesh)
     return finish_step(sel, lookup_device(sel, table), patch_size)
 
 
 def remat_level(model: RecursiveModel, config: Config, depth: int,
                 bag: PatchBag, *, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> dict:
+                generator: Optional[torch.Generator] = None,
+                seq_mesh=None) -> dict:
     """`recursive_apply` under `torch.utils.checkpoint`: the backward
     recomputes the level's forward. `preserve_rng_state` keeps only the
     global generators, and dropout draws from `generator`, so the recompute
@@ -165,12 +203,14 @@ def remat_level(model: RecursiveModel, config: Config, depth: int,
         if not recompute or generator is None:
             recompute = True
             return recursive_apply(model, config, depth, bag,
-                                   training=training, generator=generator)
+                                   training=training, generator=generator,
+                                   seq_mesh=seq_mesh)
         found = generator.get_state()
         generator.set_state(entry)
         try:
             return recursive_apply(model, config, depth, bag,
-                                   training=training, generator=generator)
+                                   training=training, generator=generator,
+                                   seq_mesh=seq_mesh)
         finally:
             generator.set_state(found)
 
@@ -180,22 +220,28 @@ def remat_level(model: RecursiveModel, config: Config, depth: int,
 
 def end2end_forward(model: RecursiveModel, config: Config, bag0: PatchBag,
                     tables: List[LevelTable], *, training: bool = False,
-                    generator: Optional[torch.Generator] = None) -> List[dict]:
+                    generator: Optional[torch.Generator] = None,
+                    seq_mesh=None) -> List[dict]:
     """Run all levels, returning each level's processor output plus the bag
     it was computed on (`"bag"` key). `tables[i]` feeds the transition from
     level i to i+1. In training, dropout masks come from `generator`. With
-    `config.remat` and autograd on, each level is `remat_level`."""
+    `config.remat` and autograd on, each level is `remat_level`. With
+    `seq_mesh`, `bag0` is this rank's level-0 block (module docstring) and
+    level 0's "importance" is the whole bag's (`gather_level0`)."""
     apply = (remat_level if config.remat and torch.is_grad_enabled()
              else recursive_apply)
     outs = []
     bag = bag0
     for i in range(config.num_levels):
+        seq = seq_mesh if i == 0 else None   # levels >= 1 run whole
         out = apply(model, config, i, bag, training=training,
-                    generator=generator)
+                    generator=generator, seq_mesh=seq)
+        if seq is not None:
+            out = gather_level0(bag, out, seq)
         outs.append({**out, "bag": bag})
         if i != config.num_levels - 1:
             bag = hierarchy_step(bag, out, tables[i], config.top_k_patches[i],
-                                 config.model_config.patch_size)
+                                 config.model_config.patch_size, seq)
     return outs
 
 
@@ -222,12 +268,14 @@ def task_loss(config: Config, logits: torch.Tensor, labels: dict,
 def end2end_loss(model: RecursiveModel, config: Config, bag0: PatchBag,
                  tables: List[LevelTable], labels: dict, *,
                  training: bool = False,
-                 generator: Optional[torch.Generator] = None, denom=None):
+                 generator: Optional[torch.Generator] = None, denom=None,
+                 seq_mesh=None):
     """Forward through all levels and the final-level loss (`task_loss`,
     with `denom`). Returns (loss, aux) with aux = {"pred": hazards or
-    logits, "logits", "importances": per-level (B, N) importances}."""
+    logits, "logits", "importances": per-level (B, N) importances}
+    (`seq_mesh`: `end2end_forward`)."""
     outs = end2end_forward(model, config, bag0, tables, training=training,
-                           generator=generator)
+                           generator=generator, seq_mesh=seq_mesh)
     logits = outs[-1]["logits"]
     loss, pred = task_loss(config, logits, labels, denom)
     aux = {"pred": pred, "logits": logits,

@@ -28,6 +28,11 @@ looked-up features are constants of the graph in both packages.
 
 Dropout masks come from the caller's generator in the fused engine's level
 order, so the two engines give the same results in training too.
+
+With a (data x model) `mesh` (`parallel/mesh.py`), the level-0 bag is this
+rank's block and level 0 runs over the sequence group as in the fused
+engine (`hierarchy.py`); the host lookups of the levels >= 1 run alike on
+every rank of the group, which all hold the same selections.
 """
 from __future__ import annotations
 
@@ -37,10 +42,17 @@ import numpy as np
 import torch
 
 from paths_tpu_torch.config import Config
-from paths_tpu_torch.engine.hierarchy import finish_step, select_children, task_loss
+from paths_tpu_torch.engine.hierarchy import (
+    finish_step,
+    gather_level0,
+    select_children,
+    task_loss,
+)
 from paths_tpu_torch.engine.tables import host_stack_dtype, ship_at_wire_dtype
 from paths_tpu_torch.models.batch import PatchBag
 from paths_tpu_torch.models.recursive import RecursiveModel, recursive_apply
+from paths_tpu_torch.parallel.mesh import seq_axis_size
+from paths_tpu_torch.parallel.seq_attention import SeqSharding
 
 def lookup_host(child_locs: np.ndarray, child_kvalid: np.ndarray,
                 host_tables: Sequence[dict]) -> dict:
@@ -106,11 +118,14 @@ def coords_to_host(sel: dict):
 
 
 class StreamingEngine:
-    """Streaming executor bound to a config and a device."""
+    """Streaming executor bound to a config, a device and, for sequence
+    parallelism, a `ProcessMesh` with a `model` axis."""
 
-    def __init__(self, config: Config, device="cuda"):
+    def __init__(self, config: Config, device="cuda", mesh=None):
         self.config = config
         self.device = torch.device(device)
+        self.seq_mesh = SeqSharding.from_mesh(mesh, config.seq_attention)
+        self.grad_scale = 1.0 / seq_axis_size(mesh)
 
     def _put(self, host: dict) -> dict:
         """A lookup's host tensors on the device; int32 coordinates arrive
@@ -133,11 +148,14 @@ class StreamingEngine:
         bag = bag0
         outs, recorded = [], []
         for i in range(cfg.num_levels):
+            seq = self.seq_mesh if i == 0 else None   # levels >= 1 run whole
             out = recursive_apply(model, cfg, i, bag, training=training,
-                                  generator=generator)
+                                  generator=generator, seq_mesh=seq)
+            if seq is not None:
+                out = gather_level0(bag, out, seq)
             outs.append({**out, "bag": bag})
             if i != cfg.num_levels - 1:
-                sel = select_children(bag, out, cfg.top_k_patches[i], ps)
+                sel = select_children(bag, out, cfg.top_k_patches[i], ps, seq)
                 locs_h, kvalid_h = coords_to_host(sel)
                 lk = lookup_host(locs_h, kvalid_h,
                                  [ts[i] for ts in host_tables])
@@ -163,12 +181,13 @@ class StreamingEngine:
         pred, grads): detached loss and prediction, and the gradients by
         parameter name (also left in each parameter's `.grad`; the model's
         earlier gradients are cleared first). `denom` as in
-        `hierarchy.task_loss`."""
+        `hierarchy.task_loss`; under sequence parallelism the gradient is
+        that of loss / sp (`parallel/mesh.py`)."""
         model.zero_grad(set_to_none=True)
         outs, _ = self.forward(model, bag0, host_tables, training=training,
                                generator=generator)
         loss, pred = task_loss(self.config, outs[-1]["logits"], labels, denom)
-        loss.backward()
+        (loss * self.grad_scale).backward()
         grads = {n: p.grad for n, p in model.named_parameters()
                  if p.grad is not None}
         return loss.detach(), pred.detach(), grads

@@ -44,11 +44,18 @@ class Processor(nn.Module):
 def processor_apply(proc: Processor, config: PATHSProcessorConfig,
                     train_config: Config, depth: int, bag: PatchBag, *,
                     lstm: Optional[LSTMCell] = None, training: bool = False,
-                    generator: Optional[torch.Generator] = None) -> dict:
+                    generator: Optional[torch.Generator] = None,
+                    seq_mesh=None) -> dict:
     """Process one level's bag -> {"logits": (B, C), "ctx_slide": (B, Ds),
     "ctx_patch": (B, N, Dp), "importance": (B, N)}. In training,
     `config.dropout` applies inside the aggregator only (as in the JAX
-    package), with masks drawn from `generator`."""
+    package), with masks drawn from `generator`.
+
+    With `seq_mesh` the bag is this rank's block of a sequence-parallel
+    level 0 (`models/batch.py`): the per-patch work (LSTM cell, importance,
+    positional encoding) runs on the block's rows alone, the aggregator
+    meets the group, and "ctx_patch" / "importance" are the block's while
+    "logits" / "ctx_slide" are the whole bag's, the same on every rank."""
     cd = getattr(torch, train_config.compute_dtype)
     fts = bag.fts
     b, n, d = fts.shape
@@ -84,7 +91,10 @@ def processor_apply(proc: Processor, config: PATHSProcessorConfig,
 
     # ---- positional encoding + projection
     if config.pos_encoding_mode == "1d":
-        xs = proc.agg.pos_encode_1d(fts, cd)
+        # a block's row 0 is patch index * m - 1 (the special token's row on
+        # index 0, whose encoding the token replaces)
+        start = seq_mesh.index * n - 1 if seq_mesh is not None else 0
+        xs = proc.agg.pos_encode_1d(fts, cd, start=start)
     elif config.pos_encoding_mode == "2d":
         xs = proc.agg.pos_encode_2d(fts, bag.locs // config.patch_size, cd)
     else:
@@ -97,7 +107,8 @@ def processor_apply(proc: Processor, config: PATHSProcessorConfig,
                               dropout_rate=config.dropout,
                               generator=generator, training=training,
                               compute_dtype=cd,
-                              impl=train_config.attention_impl)
+                              impl=train_config.attention_impl,
+                              seq_mesh=seq_mesh)
 
     # ---- residual slide context
     if config.slide_ctx_mode == "residual" and bag.ctx_depth > 0:

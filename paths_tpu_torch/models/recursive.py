@@ -31,8 +31,10 @@ class RecursiveModel(nn.Module):
 
 def recursive_apply(model: RecursiveModel, config: Config, depth: int,
                     bag: PatchBag, *, training: bool = False,
-                    generator: Optional[torch.Generator] = None) -> dict:
-    """Dispatch to the depth-th processor."""
+                    generator: Optional[torch.Generator] = None,
+                    seq_mesh=None) -> dict:
+    """Dispatch to the depth-th processor (`seq_mesh`: `processor_apply`)."""
     return processor_apply(model.procs[depth], config.model_config, config,
                            depth, bag, lstm=getattr(model, "lstm", None),
-                           training=training, generator=generator)
+                           training=training, generator=generator,
+                           seq_mesh=seq_mesh)

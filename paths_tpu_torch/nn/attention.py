@@ -59,7 +59,7 @@ class MultiheadAttention(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 training: bool = False,
                 compute_dtype: Optional[torch.dtype] = None,
-                impl: str = "xla") -> torch.Tensor:
+                impl: str = "xla", seq_mesh=None, shard=None) -> torch.Tensor:
         """`mha_apply`: query (B, Nq, D), key/value (B, Nk, D), key_valid
         (B, Nk) bool (True = attendable) -> (B, Nq, D).
 
@@ -77,12 +77,26 @@ class MultiheadAttention(nn.Module):
         With an empty memory (Nk == 0) the context is zero and the result is
         the broadcast out-projection bias, torch's behaviour for a
         zero-length memory.
+
+        `seq_mesh` (a `parallel.seq_attention.SeqSharding` of size sp > 1)
+        makes this self-attention over a sequence cut into sp blocks: query,
+        key and value are this rank's (B, m, D) block, `key_valid` the
+        whole sequence's (B, sp m) prefix mask, and the result this rank's
+        block. The route is decided from the whole sequence's key count, so
+        every rank of the group takes the same one. On the kernel route the
+        group's schedule runs (`SeqSharding.attend`); on the plain route
+        (also under active dropout) K and V are all-gathered over the group
+        and this rank's query rows attend to them, this rank's block of the
+        whole sequence's dropout masks on the weights (`nn.core.dropout`'s
+        `shard`). `shard` gives that block to a cross-attention whose query
+        is a rank's block.
         """
         h = self.num_heads
         b, nq, d = query.shape
         nk = key.shape[1]
         if nk == 0:
             return self.out.bias.to(query.dtype).expand(b, nq, d)
+        sp = seq_mesh.size if seq_mesh is not None else 1
 
         cd = compute_dtype or query.dtype
 
@@ -93,29 +107,36 @@ class MultiheadAttention(nn.Module):
 
         q, k, v = heads(self.q, query), heads(self.k, key), heads(self.v, value)
 
-        if kernel_route(impl, nq, nk, query.is_cuda,
+        if kernel_route(impl, sp * nq, sp * nk, query.is_cuda,
                         training and dropout_rate != 0.0):
             lengths = (key_valid.sum(dim=-1, dtype=torch.int32)
                        if key_valid is not None
-                       else torch.full((b,), nk, dtype=torch.int32,
+                       else torch.full((b,), sp * nk, dtype=torch.int32,
                                        device=query.device))
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             # the key block of JAX's call (`paths_tpu/nn/attention.py`):
             # where bf16 rounds P, it sets the running max P is taken against
             block_k = 512 if cd == torch.bfloat16 else 128
-            if torch.is_grad_enabled() and any(
+            if sp > 1:
+                ctx = seq_mesh.attend(q, k, v, lengths, block_k)
+            elif torch.is_grad_enabled() and any(
                     t.requires_grad for t in (q, k, v)):
                 ctx = masked_flash_attention(q, k, v, lengths, block_k)
             else:
                 ctx, _ = flash_attention_fwd(q, k, v, lengths, block_k)
         else:
+            drop = dict(generator=generator, training=training)
+            if sp > 1:
+                k, v = seq_mesh.all_gather(k, 2), seq_mesh.all_gather(v, 2)
+                shard = seq_mesh.dropout_shard()
+            if shard is not None:
+                drop["shard"] = shard
             scale = 1.0 / math.sqrt(d // h)
             logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
             if key_valid is not None:
                 logits = logits.masked_fill(~key_valid[:, None, None, :], NEG_INF)
             weights = torch.softmax(logits, dim=-1)
-            weights = dropout(weights, dropout_rate, generator=generator,
-                              training=training)
+            weights = dropout(weights, dropout_rate, **drop)
             ctx = torch.einsum("bhqk,bhkd->bhqd", weights.to(cd), v).to(cd)
         ctx = ctx.transpose(1, 2).reshape(b, nq, d)
         return torch.nn.functional.linear(

@@ -80,15 +80,25 @@ class LayerNorm(nn.LayerNorm):
 
 def dropout(x: torch.Tensor, rate: float, *,
             generator: Optional[torch.Generator] = None,
-            training: bool = False) -> torch.Tensor:
+            training: bool = False, shard=None) -> torch.Tensor:
     """Inverted dropout (`paths_tpu.nn.core.dropout`): in training with
     rate > 0, keep each element with probability 1 - rate and scale the
     survivors by 1 / (1 - rate); otherwise return `x`. The mask comes from
-    `generator`, which lives on x's device (`F.dropout` takes none)."""
+    `generator`, which lives on x's device (`F.dropout` takes none).
+
+    `shard` = (index, size) says that x is block `index` of `size` equal
+    blocks of a sequence-parallel group's tensor: `size` masks of x's shape
+    are drawn in turn and block `index`'s is kept, so the ranks of the group
+    draw as much from their generators, their masks make one mask of the
+    whole tensor, and no rank holds more than its own block's."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    index, size = shard if shard is not None else (0, 1)
+    for i in range(size):
+        draw = torch.rand(x.shape, generator=generator, device=x.device)
+        if i == index:
+            mask = draw < keep
     return torch.where(mask, x / keep, 0.0).to(x.dtype)

@@ -31,10 +31,10 @@ class FeedForward(nn.Module):
         self.lin1 = make_linear(dim, ff_dim, init="xavier", generator=generator)
         self.lin2 = make_linear(ff_dim, dim, init="xavier", generator=generator)
 
-    def forward(self, x, compute_dtype=None, *, rate=0.0, generator=None,
-                training=False):
+    def forward(self, x, compute_dtype=None, *, rate=0.0, **drop):
+        """`drop`: `nn.core.dropout`'s generator, training and shard."""
         h = torch.relu(linear_apply(self.lin1, x, compute_dtype))
-        h = dropout(h, rate, generator=generator, training=training)
+        h = dropout(h, rate, **drop)
         return linear_apply(self.lin2, h, compute_dtype).to(x.dtype)
 
 
@@ -70,20 +70,27 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, memory, *, tgt_valid=None, mem_valid=None,
                 rate=0.0, generator=None, training=False, compute_dtype=None,
-                impl="xla"):
+                impl="xla", seq_mesh=None):
         """`memory` may have length 0; cross-attention then returns the
         out-projection bias (see `MultiheadAttention.forward`), which still
-        goes through the output dropout."""
+        goes through the output dropout. With `seq_mesh`, x is this rank's
+        block of the target sequence and `tgt_valid` the whole sequence's
+        mask; every dropout mask is this rank's block of the whole
+        sequence's."""
         drop = dict(generator=generator, training=training)
+        rows = drop
+        if seq_mesh is not None:
+            rows = dict(drop, shard=seq_mesh.dropout_shard())
         sa = self.self_attn(x, x, x, key_valid=tgt_valid, dropout_rate=rate,
-                            compute_dtype=compute_dtype, impl=impl, **drop)
-        x = self.norm1(x + dropout(sa, rate, **drop))
+                            compute_dtype=compute_dtype, impl=impl,
+                            seq_mesh=seq_mesh, **drop)
+        x = self.norm1(x + dropout(sa, rate, **rows))
         ca = self.cross_attn(x, memory, memory, key_valid=mem_valid,
                              dropout_rate=rate, compute_dtype=compute_dtype,
-                             **drop)
-        x = self.norm2(x + dropout(ca, rate, **drop))
-        ff = self.ff(x, compute_dtype, rate=rate, **drop)
-        return self.norm3(x + dropout(ff, rate, **drop))
+                             **rows)
+        x = self.norm2(x + dropout(ca, rate, **rows))
+        ff = self.ff(x, compute_dtype, rate=rate, **rows)
+        return self.norm3(x + dropout(ff, rate, **rows))
 
 
 class _Stack(nn.Module):
@@ -108,9 +115,10 @@ class Transformer(nn.Module):
 
     def forward(self, src, tgt, *, src_valid=None, tgt_valid=None, rate=0.0,
                 generator=None, training=False, compute_dtype=None,
-                impl="xla"):
+                impl="xla", seq_mesh=None):
         """`transformer_apply`. `src` may be zero-length (B, 0, D); the
-        encoder is then skipped."""
+        encoder is then skipped. `seq_mesh` cuts the target sequence over a
+        sequence group (`DecoderLayer`); the conditional sequence is whole."""
         kw = dict(rate=rate, generator=generator, training=training,
                   compute_dtype=compute_dtype, impl=impl)
         memory = src
@@ -121,5 +129,5 @@ class Transformer(nn.Module):
         x = tgt
         for layer in self.decoder.layers:
             x = layer(x, memory, tgt_valid=tgt_valid, mem_valid=src_valid,
-                      **kw)
+                      seq_mesh=seq_mesh, **kw)
         return self.decoder.norm(x)

@@ -24,10 +24,13 @@ def _interleave(ang: torch.Tensor) -> torch.Tensor:
 
 
 def positional_encoding_1d(length: int, dim: int, k: float = 10000.0,
-                           dtype=torch.float32, device=None) -> torch.Tensor:
-    """Standard 1D sinusoidal PE, shape (length, dim):
-    pe[:, 0::2] = sin(pos * div), pe[:, 1::2] = cos(pos * div)."""
-    pos = torch.arange(length, dtype=dtype, device=device)[:, None]
+                           dtype=torch.float32, device=None,
+                           start: int = 0) -> torch.Tensor:
+    """Standard 1D sinusoidal PE of positions start ... start + length - 1,
+    shape (length, dim): pe[:, 0::2] = sin(pos * div), pe[:, 1::2] =
+    cos(pos * div)."""
+    pos = torch.arange(start, start + length, dtype=dtype,
+                       device=device)[:, None]
     div = _div_term(dim, dim, k, dtype, device)[None, :]
     return _interleave(pos * div)[:, :dim]
 

@@ -1,4 +1,5 @@
-"""The port's `data` meshes (counterpart of `paths_tpu.parallel.mesh`).
+"""The port's `data` and `(data, model)` meshes (counterpart of
+`paths_tpu.parallel.mesh`).
 
 JAX lays a `data` axis over devices, replicates the parameters and lets XLA
 insert the collectives. PyTorch has no partitioner, so the axis takes one of
@@ -10,13 +11,29 @@ rows, as `NamedSharding(P("data"))` lays rows out:
   block on its own device, as JAX's inference paths run in one process.
 * `ProcessMesh` (`mesh_from_config`): the process group, one process per
   card (`torchrun`, `runtime.maybe_init_distributed`). Training and
-  `cli.evaluate` run on it: rank r of W collates and runs block r of every
-  padded global batch, the gradients meet in one all-reduce, and every rank
-  applies the same clip and AdamW step, so the replicas stay equal to the
-  bit.
+  `cli.evaluate` run on it: each data index collates and runs its block of
+  every padded global batch, the gradients meet in one all-reduce over the
+  world, and every rank applies the same clip and AdamW step, so the
+  replicas stay equal to the bit.
 
-The `[dp, sp>1]` meshes of sequence parallelism are not ported (ROADMAP.md
-Queue 1 item 8b).
+`mesh_shape` [dp, sp>1] adds sequence parallelism, the `model` axis of
+`make_mesh_2d`, innermost: rank r sits at data index r // sp and sequence
+index r % sp, and the sp ranks of one data index form a sequence group
+(`dist.new_group`) that shares one block of slides. Each rank of a group
+collates only its block of every level-0 bag (`models/batch.py`), runs the
+per-patch work on it, and meets the group in the aggregator's attention
+(`parallel/seq_attention.py`) and in the top-K; the levels >= 1 run whole
+and alike on every rank of the group.
+
+Gradients under sequence parallelism. Every collective of the forward is an
+autograd Function whose backward is its exact adjoint (all-gather and
+reduce-scatter, the broadcast from sequence index 0 and the reduce to it,
+the all-reduce that assembles the kept rows and the all-reduce of their
+gradients), and every rank of a group scales the loss it differentiates by
+1 / sp. The sum over the world of the ranks' gradients (`all_reduce_grads`)
+is then the gradient of the global loss: work replicated in a group counts
+sp times 1 / sp, and each level-0 block counts its own rows once. Logged
+losses are not scaled.
 """
 from __future__ import annotations
 
@@ -42,11 +59,18 @@ class Mesh:
 
 
 class ProcessMesh:
-    """The `data` axis over the process group: this process is `rank` of
-    `size`. Without a group it is one process, rank 0 of 1."""
+    """The process group as a `data` axis, and with `seq` > 1 a (data x
+    model) grid: this process is `rank` of `size`, at data index rank // seq
+    and sequence index rank % seq, and `seq_group` is the group of its data
+    index. Without a group it is one process, rank 0 of 1."""
 
-    def __init__(self, rank: int = 0, size: int = 1):
-        self.rank, self.size = rank, size
+    def __init__(self, rank: int = 0, size: int = 1, seq: int = 1,
+                 seq_group=None):
+        if size % seq:
+            raise ValueError(f"{size} process(es) do not split into "
+                             f"sequence groups of {seq}")
+        self.rank, self.size, self.seq = rank, size, seq
+        self.seq_group = seq_group
 
     @classmethod
     def current(cls) -> "ProcessMesh":
@@ -55,14 +79,24 @@ class ProcessMesh:
         return cls()
 
     @property
+    def data_index(self) -> int:
+        return self.rank // self.seq
+
+    @property
+    def seq_index(self) -> int:
+        return self.rank % self.seq
+
+    @property
     def shape(self) -> dict:
+        if self.seq > 1:
+            return {"data": self.size // self.seq, "model": self.seq}
         return {"data": self.size}
 
     def rows(self, n: int) -> slice:
-        """This rank's contiguous block of an n-row padded batch (n is a
-        multiple of the axis)."""
-        share = n // self.size
-        return slice(self.rank * share, (self.rank + 1) * share)
+        """This data index's contiguous block of an n-row padded batch (n is
+        a multiple of the data axis)."""
+        share = n // data_axis_size(self)
+        return slice(self.data_index * share, (self.data_index + 1) * share)
 
 
 def make_mesh(n_data: Optional[int] = None,
@@ -100,24 +134,34 @@ def place_replicas(module: torch.nn.Module, devices: Sequence) -> list:
     return [placed[torch.device(d)] for d in devices]
 
 
+def _seq_group(size: int, sp: int, rank: int):
+    """This rank's sequence group: every rank creates every group, in data
+    index order (`dist.new_group` is collective over the world)."""
+    groups = [dist.new_group(list(range(d * sp, (d + 1) * sp)))
+              for d in range(size // sp)]
+    return groups[rank // sp]
+
+
 def mesh_from_config(config) -> ProcessMesh:
     """The training mesh of `config.mesh_shape` over the process group:
 
     * None / []     -> every process of the group (one without torchrun)
     * [dp], [dp, 1] -> dp must be the group's size
-    * [dp, sp>1]    -> NotImplementedError (sequence parallelism)
+    * [dp, sp>1]    -> dp * sp must be the group's size; rank r at data
+      index r // sp, sequence index r % sp
     """
     ms = list(getattr(config, "mesh_shape", None) or [])
-    if len(ms) > 1 and ms[1] > 1:
-        raise NotImplementedError(
-            f"mesh_shape={ms}: sequence parallelism is not ported "
-            "(ROADMAP.md Queue 1 item 8b)")
     mesh = ProcessMesh.current()
-    if ms and ms[0] != mesh.size:
+    sp = ms[1] if len(ms) > 1 else 1
+    want = ms[0] * sp if ms else mesh.size
+    if want != mesh.size:
         raise ValueError(
-            f"mesh_shape={ms}: the data axis is the process group, which "
-            f"has {mesh.size} process(es); launch {ms[0]} with `torchrun "
-            f"--nproc-per-node {ms[0]}`")
+            f"mesh_shape={ms}: the mesh is the process group, which has "
+            f"{mesh.size} process(es); launch {want} with `torchrun "
+            f"--nproc-per-node {want}`")
+    if sp > 1:
+        mesh = ProcessMesh(mesh.rank, mesh.size, sp,
+                           _seq_group(mesh.size, sp, mesh.rank))
     return mesh
 
 
@@ -127,6 +171,11 @@ def data_axis_size(mesh) -> int:
 
 def seq_axis_size(mesh) -> int:
     return 1 if mesh is None else int(mesh.shape.get("model", 1))
+
+
+def world_size(mesh) -> int:
+    """Processes of a `ProcessMesh` (1 for None)."""
+    return 1 if mesh is None else mesh.size
 
 
 def _each_dtype(tensors: Iterable[torch.Tensor]) -> List[List[torch.Tensor]]:
@@ -142,7 +191,7 @@ def replicate(mesh, model: torch.nn.Module, optimizer=None) -> None:
     rank, in place: after `load_state`, every replica starts from rank 0's
     bits. One broadcast per dtype, over a flat copy on the model's device
     (NCCL takes no host tensor; AdamW keeps its step counts there)."""
-    if data_axis_size(mesh) == 1:
+    if world_size(mesh) == 1:
         return
     params = list(model.parameters())
     tensors = params + list(model.buffers())
@@ -166,10 +215,22 @@ def all_reduce_grads(mesh, params: Iterable[torch.nn.Parameter]) -> None:
     """Sum every gradient over the ranks, in place, with one all-reduce per
     dtype over a flat buffer. Each rank's loss is already divided by the
     global batch's weight (`ops.losses`), so the sum is the gradient of the
-    global loss. Every rank runs the same graph, so the same parameters
-    hold gradients on every rank."""
-    if data_axis_size(mesh) == 1:
+    global loss (under sequence parallelism, with each rank's loss scaled
+    by 1 / sp: module docstring). Data-parallel ranks run the same graph, so
+    the same parameters hold gradients on every rank; the ranks of a
+    sequence group do not (only sequence index 0 holds level 0's special
+    token), so there a parameter that holds a gradient on any rank gets a
+    zero one where it has none."""
+    if world_size(mesh) == 1:
         return
+    params = list(params)
+    if seq_axis_size(mesh) > 1:
+        held = torch.tensor([p.grad is not None for p in params],
+                            dtype=torch.int32, device=params[0].device)
+        dist.all_reduce(held, op=dist.ReduceOp.MAX)
+        for p, h in zip(params, held.tolist()):
+            if h and p.grad is None:
+                p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params if p.grad is not None]
     for group in _each_dtype(grads):
         flat = torch.cat([g.reshape(-1) for g in group])
@@ -183,7 +244,7 @@ def all_reduce_grads(mesh, params: Iterable[torch.nn.Parameter]) -> None:
 def gather_objects(mesh, obj) -> list:
     """`obj` of every rank, in rank order (host objects: gloo's all-gather
     takes no CUDA tensor)."""
-    if data_axis_size(mesh) == 1:
+    if world_size(mesh) == 1:
         return [obj]
     out = [None] * mesh.size
     dist.all_gather_object(out, obj)
@@ -191,5 +252,5 @@ def gather_objects(mesh, obj) -> list:
 
 
 def barrier(mesh) -> None:
-    if data_axis_size(mesh) > 1:
+    if world_size(mesh) > 1:
         dist.barrier()

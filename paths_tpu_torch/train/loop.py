@@ -28,6 +28,16 @@ backward one all-reduce sums the gradients, and every rank clips and steps
 alike. Predictions and losses are gathered to every rank in global row
 order, so evaluators and early stopping see what one process sees. Rank 0
 alone writes checkpoints and logs.
+
+Sequence parallelism (`mesh_shape` [dp, sp>1]) runs dp * sp processes: the
+sp ranks of a data index share its block of rows, each collating only its
+block of every level-0 bag (`data/dataset.py::collate_bag0`'s `seq`), and
+run the recursion together (`engine/hierarchy.py`). Each differentiates its
+loss scaled by 1 / sp, so the one all-reduce over the world gives the
+global gradient (`parallel/mesh.py`); logged losses are not scaled. A rank
+draws dropout from the stream of its data index, so the ranks of a group
+draw the same masks, and predictions and losses are registered once per
+data index (from sequence index 0).
 """
 from __future__ import annotations
 
@@ -59,7 +69,9 @@ from paths_tpu_torch.parallel.mesh import (
     gather_objects,
     mesh_from_config,
     replicate,
+    seq_axis_size,
 )
+from paths_tpu_torch.parallel.seq_attention import SeqSharding
 from paths_tpu_torch.profiling import host_rss_mb
 from paths_tpu_torch.train.evaluators import make_evaluator
 from paths_tpu_torch.train.logging import MetricsLogger
@@ -128,7 +140,12 @@ def make_step_fns(config: Config, optimizer: torch.optim.Optimizer,
     tables, labels, denom=None) -> (loss, aux)`: the loss without dropout or
     gradient. `denom` is the global batch's weight sum where the batch is
     one rank's share (`hierarchy.task_loss`). The returned tensors are
-    detached and stay on the device."""
+    detached and stay on the device. When `mesh` has a `model` axis, bag0
+    is this rank's level-0 block, the recursion runs over its sequence group
+    with `config.seq_attention`'s schedule, and `update` differentiates
+    loss / sp (module docstring) but returns the loss."""
+    seq_mesh = SeqSharding.from_mesh(mesh, config.seq_attention)
+    scale = 1.0 / seq_axis_size(mesh)
 
     def update(model, bag0, tables, labels, generator=None, epoch=None,
                denom=None):
@@ -137,14 +154,15 @@ def make_step_fns(config: Config, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss, aux = end2end_loss(model, config, bag0, tables, labels,
                                  training=True, generator=generator,
-                                 denom=denom)
-        loss.backward()
+                                 denom=denom, seq_mesh=seq_mesh)
+        (loss * scale).backward()
         optimizer_step(config, optimizer, mesh)
         return loss.detach(), _detach(aux)
 
     @torch.no_grad()
     def evaluate(model, bag0, tables, labels, denom=None):
-        return end2end_loss(model, config, bag0, tables, labels, denom=denom)
+        return end2end_loss(model, config, bag0, tables, labels, denom=denom,
+                            seq_mesh=seq_mesh)
 
     return update, evaluate
 
@@ -214,6 +232,12 @@ def _padded_batches(dataset: SlideDataset, batch_size: int, shuffle: bool,
         yield idx, w, rows
 
 
+def seq_block(mesh):
+    """`collate_bag0`'s `seq` for this rank: (sequence index, sp), or None
+    without a `model` axis."""
+    return (mesh.seq_index, mesh.seq) if seq_axis_size(mesh) > 1 else None
+
+
 def _epoch_batches(dataset: SlideDataset, batch_size: int, *, shuffle: bool,
                    seed: int, config: Config, pads=None, device="cuda",
                    mesh=None):
@@ -229,7 +253,7 @@ def _epoch_batches(dataset: SlideDataset, batch_size: int, *, shuffle: bool,
             own = idx[rows]
             bag0, tables = collate_batch(
                 dataset, own, level0_bucket=config.level0_bucket, pads=pads,
-                device=device)
+                device=device, seq=seq_block(mesh))
             labels = labels_on(dataset, own, device)
             labels["weight"] = torch.from_numpy(w[rows]).to(device)
             yield bag0, tables, labels, w
@@ -253,7 +277,7 @@ def _epoch_batches_streaming(dataset: SlideDataset, batch_size: int, *,
             own = idx[rows]
             bag0 = collate_bag0(dataset, own,
                                 level0_bucket=config.level0_bucket, pads=pads,
-                                device=device)
+                                device=device, seq=seq_block(mesh))
             slides = [dataset.slides[i] for i in own]
             host_tables = [s_.tables for s_ in slides]
             labels = labels_on(dataset, own, device)
@@ -270,7 +294,8 @@ class _DeferredRegister:
     a data mesh, each rank's rows (labels, predictions) are gathered in rank
     order, which is global row order, and the ranks' losses summed: every
     rank registers the global batch, trimmed to its real rows (`weights` is
-    the global batch's)."""
+    the global batch's). The ranks of a sequence group hold the same rows
+    and loss, so only sequence index 0's count."""
 
     def __init__(self, evaluator, mesh=None):
         self.ev = evaluator
@@ -289,6 +314,7 @@ class _DeferredRegister:
         parts = gather_objects(self.mesh, (
             {k: v.cpu().numpy() for k, v in labels.items()},
             pred.float().cpu().numpy(), float(loss)))
+        parts = parts[::max(1, seq_axis_size(self.mesh))]
         n_real = int(w.sum())
         host = {k: np.concatenate([p[0][k] for p in parts])[:n_real]
                 for k in parts[0][0]}
@@ -313,10 +339,12 @@ def rank_batch(batch_size: int, mesh) -> int:
 
 
 def dropout_seed(config: Config, mesh) -> int:
-    """The seed of a rank's dropout generator: rank 0 draws the one-process
-    stream, every other rank a stream of its own (JAX draws one global mask,
-    which no split over processes reproduces: ROADMAP.md Queue 3 note 9)."""
-    return config.seed + 1 + 1_000_003 * (mesh.rank if mesh else 0)
+    """The seed of a rank's dropout generator: data index 0 draws the
+    one-process stream, every other data index a stream of its own (JAX
+    draws one global mask, which no split over processes reproduces:
+    ROADMAP.md Queue 3 note 9). The ranks of a sequence group share their
+    data index's stream, so they draw the same masks."""
+    return config.seed + 1 + 1_000_003 * (mesh.data_index if mesh else 0)
 
 
 def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
@@ -351,7 +379,8 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
         # a share there too: the two agree on one device
         auto_pads = union_pads(*(d.global_pads() for d in splits))
         engine = resolve_engine(config, auto_pads, rank_batch(batch_size, mesh),
-                                verbose=verbose, device=device)
+                                verbose=verbose, device=device,
+                                sp=seq_axis_size(mesh))
     streaming = engine == "streaming"
 
     # one padded shape for train and both eval splits; the streaming engine
@@ -385,7 +414,7 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
         barrier(mesh)
 
     update, evaluate = make_step_fns(config, optimizer, mesh)
-    eng = StreamingEngine(config, device) if streaming else None
+    eng = StreamingEngine(config, device, mesh) if streaming else None
     generator = torch.Generator(device=device).manual_seed(
         dropout_seed(config, mesh))
     best_val_score = -1.0
@@ -450,6 +479,8 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
 
     if verbose:
         ranks = f", {mesh.size} ranks" if mesh.size > 1 else ""
+        if seq_axis_size(mesh) > 1:
+            ranks += f" as {mesh.shape}, seq_attention {config.seq_attention}"
         print(f"Training starts at epoch {start_epoch} (device {device}, "
               f"engine {engine}{ranks})")
 

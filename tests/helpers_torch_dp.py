@@ -1,4 +1,6 @@
-"""A rank of the port's data-parallel CPU tests (`tests/test_torch_dp_train.py`).
+"""A rank of the port's data- and sequence-parallel CPU tests
+(`tests/test_torch_dp_train.py`, `tests/test_torch_seq_attention.py`,
+`tests/test_torch_seq_train.py`).
 
 Started by `launch` below with the environment torchrun sets (RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); joins a process group
@@ -9,10 +11,18 @@ and the port only, so the card tests (`tests/test_torch_cuda.py -k dp`)
 use it too.
 
 Jobs (`kind`):
-  step     one AdamW update on this rank's rows of a padded batch
+  step     one AdamW update on this rank's rows of a padded batch (under a
+           `model` axis, its level-0 block of them); the parameters and,
+           with "grads", the world's gradients
   train    `train_loop` over a model directory's splits
   load     `load_state` then `replicate`: what a resuming rank starts from
   evaluate `cli.evaluate` on a split
+  seq_attn both sequence-parallel schedules over the world on this rank's
+           block of an npz's q, k, v: outputs and gradients (f32), the ring
+           in bf16
+  level0   level 0 under a config's (data x model) mesh on this rank's block
+           of an npz's whole bag, on the routes and schedules asked: logits
+           and the gathered importance; with "tables" also `end2end_loss`
 """
 import json
 import os
@@ -136,14 +146,19 @@ def _run(job: dict, rank: int, out: str, device):
         pads = tdata.SlideDataset([job["ids"][i] for i in idx], cfg,
                                   store).global_pads()
         bag, tables = tdata.collate_batch(ds, idx[rows], level0_bucket=32,
-                                          pads=pads, device=device)
+                                          pads=pads, device=device,
+                                          seq=tloop.seq_block(mesh))
         labels = {k: torch.from_numpy(np.asarray(v)[rows]).to(device)
                   for k, v in job["labels"].items()}
         update, _ = tloop.make_step_fns(cfg, opt, mesh)
         loss, _ = update(model, bag, tables, labels, epoch=1,
                          denom=float(w.sum()))
         arrays = convert.to_jax_flat(model)
-        result = {"loss": float(loss)}
+        if job.get("grads"):
+            arrays.update({"grad/" + n: p.grad.cpu().numpy()
+                           for n, p in model.named_parameters()
+                           if p.grad is not None})
+        result = {"loss": float(loss), "seq_index": mesh.seq_index}
     elif kind == "train":
         cfg = Config.load(d)
         splits = tdata.load_splits(job.get("props", [0.7, 0.15, 0.15]),
@@ -167,11 +182,104 @@ def _run(job: dict, rank: int, out: str, device):
         from paths_tpu_torch.cli.evaluate import main
 
         result = main(["-m", d, "--split", "test", "--device", str(device)])
+    elif kind == "seq_attn":
+        arrays, result = _seq_attn(job, device)
+    elif kind == "level0":
+        arrays, result = _level0(job, device)
     else:
         raise ValueError(kind)
     if arrays:
         np.savez(os.path.join(out, f"{job['name']}_rank{rank}.npz"), **arrays)
     return result
+
+
+def _seq_attn(job: dict, device):
+    """Each schedule over the whole world on this rank's blocks of q, k, v
+    (B, H, N, D): the output block and the gradients of sum(out * w) (f32),
+    and the ring's output in bf16 (as f32)."""
+    import torch
+
+    from paths_tpu_torch.parallel import seq_attention as sa
+
+    with np.load(job["inputs"]) as f:
+        inp = dict(f)
+    arrays = {}
+    for impl in sa.IMPLS:
+        sharding = sa.SeqSharding(None, impl)
+        m = inp["q"].shape[2] // sharding.size
+        rows = slice(sharding.index * m, (sharding.index + 1) * m)
+        block = {k: torch.from_numpy(inp[k][:, :, rows].copy()).to(device)
+                 for k in ("q", "k", "v", "w")}
+        lengths = torch.from_numpy(inp["lengths"]).to(device)
+        q, k, v = (block[n].requires_grad_() for n in "qkv")
+        out = sharding.attend(q, k, v, lengths, block_k=job["block_k"])
+        (out * block["w"]).sum().backward()
+        arrays.update({f"{impl}_out": out.detach().cpu().numpy(),
+                       f"{impl}_dq": q.grad.cpu().numpy(),
+                       f"{impl}_dk": k.grad.cpu().numpy(),
+                       f"{impl}_dv": v.grad.cpu().numpy()})
+        if impl == "ring":
+            bf = [block[n].bfloat16() for n in "qkv"]
+            out = sharding.attend(*bf, lengths, block_k=job["block_k"])
+            arrays["ring_bf16_out"] = out.detach().float().cpu().numpy()
+            result = {"bf16_dtype": str(out.dtype)}
+    return arrays, result
+
+
+def _level0(job: dict, device):
+    """Level 0 (and with "tables" the whole recursion's loss) of this rank's
+    block under the config's mesh, for each (route, schedule) of the job."""
+    import dataclasses
+
+    import torch
+
+    from paths_tpu_torch import convert
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.engine import hierarchy as th
+    from paths_tpu_torch.engine.tables import LevelTable
+    from paths_tpu_torch.models.batch import PatchBag, shard_bag_patches
+    from paths_tpu_torch.models.recursive import recursive_apply
+    from paths_tpu_torch.parallel.mesh import mesh_from_config
+    from paths_tpu_torch.parallel.seq_attention import SeqSharding
+
+    cfg = Config.load(job["dir"], test_mode=True)
+    mesh = mesh_from_config(cfg)
+    with np.load(job["params"]) as f:
+        model = convert.from_jax_flat(dict(f), cfg).to(device)
+    with np.load(job["inputs"]) as f:
+        inp = dict(f)
+    rows = mesh.rows(inp["fts"].shape[0])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)  # noqa: E731
+    whole = PatchBag(fts=t(inp["fts"]), locs=t(inp["locs"]).long(),
+                     mask=t(inp["mask"]), parent_inds=t(inp["parent"]).long(),
+                     ctx_slide=t(inp["ctx_slide"]),
+                     ctx_patch=t(inp["ctx_patch"]))
+    bag = shard_bag_patches(whole, mesh.seq_index, mesh.seq)
+    arrays, result = {}, {}
+    for impl_attn, impl_seq in job["routes"]:
+        c = dataclasses.replace(cfg, attention_impl=impl_attn,
+                                seq_attention=impl_seq)
+        seq = SeqSharding.from_mesh(mesh, impl_seq)
+        name = f"{impl_attn}_{impl_seq}"
+        with torch.no_grad():
+            out = th.gather_level0(
+                bag, recursive_apply(model, c, 0, bag, seq_mesh=seq), seq)
+        arrays[f"{name}_logits"] = out["logits"].cpu().numpy()
+        arrays[f"{name}_importance"] = out["importance"].cpu().numpy()
+        if job.get("tables"):
+            tables = [LevelTable(**{k[len(f"t{i}_"):]: t(v) for k, v in
+                                    inp.items() if k.startswith(f"t{i}_")})
+                      for i in range(cfg.num_levels - 1)]
+            labels = {k: t(inp[f"label_{k}"]) for k in ("survival_bin",
+                                                        "censored")}
+            labels["weight"] = torch.ones(len(labels["censored"]))
+            with torch.no_grad():
+                loss, _ = th.end2end_loss(model, c, bag, tables, labels,
+                                          denom=float(inp["fts"].shape[0]),
+                                          seq_mesh=seq)
+            result[f"{name}_loss"] = float(loss)
+    result["seq_index"] = mesh.seq_index
+    return arrays, result
 
 
 def main(spec: str, out: str) -> None:

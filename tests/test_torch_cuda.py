@@ -1291,3 +1291,132 @@ def test_dp_preprocess_shards(card, tmp_path, cards, impl):
     assert np.abs(grids["one"][0]).max() > 0
     for a, b in zip(grids["two"], grids["one"]):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------- sequence parallelism
+
+def _seq_layout(backend: str, world: int):
+    """(device of every rank, skip reason or None): gloo puts every rank on
+    cuda:0, NCCL one rank per card."""
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        return None, (f"NCCL takes one rank per card: {world} ranks, "
+                      f"{torch.cuda.device_count()} card(s)")
+    return ("cuda:0" if backend == "gloo" else "cuda"), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,sp", [("gloo", 2), ("nccl", 2),
+                                        ("nccl", 4)])
+def test_seq_attention_schedules_match_one_device(card, tmp_path, backend,
+                                                  sp):
+    """Both sequence-parallel schedules on #1-#3 over `sp` ranks, against
+    the one-device kernels on the whole sequence (B 2, H 2, N 256, D 32,
+    lengths 256 and 141: the valid keys end inside a block): outputs on
+    valid rows at TOL, gradients within 1e-5 of the largest; the ring in
+    bf16 within 5e-2 of the f32 kernel, its output bf16."""
+    import os
+
+    from helpers_torch_dp import launch
+
+    device, reason = _seq_layout(backend, sp)
+    if reason:
+        pytest.skip(reason)
+    q, k, v, lengths = _inputs(2, 2, 256, 256, 32, [256, 141], card)
+    w = torch.from_numpy(np.random.default_rng(9).normal(
+        size=q.shape).astype(np.float32)).to(card)
+    valid = torch.arange(256, device=card)[None] < lengths[:, None]
+    w = torch.where(valid[:, None, :, None], w, 0.0)
+    inputs = os.path.join(str(tmp_path), "inputs.npz")
+    np.savez(inputs, **{n: t.cpu().numpy() for n, t in
+                        dict(q=q, k=k, v=v, lengths=lengths, w=w).items()})
+    job = {"kind": "seq_attn", "name": "attn", "dir": str(tmp_path),
+           "inputs": inputs, "block_k": 128}
+    launch((sp, [job], str(tmp_path / "out")), device=device,
+           backend=backend)
+    blocks = [dict(np.load(str(tmp_path / "out" / f"attn_rank{r}.npz")))
+              for r in range(sp)]
+    got = {key: np.concatenate([b[key] for b in blocks], axis=2)
+           for key in blocks[0]}
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = tfa.masked_flash_attention(qg, kg, vg, lengths, 128)
+    (out * w).sum().backward()
+    ok = valid.cpu().numpy()
+    for impl in ("gathered", "ring"):
+        mine = got[f"{impl}_out"].transpose(0, 2, 1, 3)[ok]
+        ref = out.detach().cpu().numpy().transpose(0, 2, 1, 3)[ok]
+        np.testing.assert_allclose(mine, ref, atol=TOL, err_msg=impl)
+        for name, t in zip(("dq", "dk", "dv"), (qg, kg, vg)):
+            _grad_close(torch.from_numpy(got[f"{impl}_{name}"]), t.grad.cpu())
+    bf = got["ring_bf16_out"].transpose(0, 2, 1, 3)[ok]
+    np.testing.assert_allclose(bf, ref, atol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,mesh_shape,schedule", [
+    ("gloo", [1, 2], "gathered"), ("gloo", [1, 2], "ring"),
+    ("nccl", [1, 2], "ring"), ("nccl", [2, 2], "gathered"),
+    ("nccl", [2, 2], "ring")])
+def test_seq_step_matches_one_process(card, tmp_path, backend, mesh_shape,
+                                      schedule):
+    """One sequence-parallel AdamW step on the kernel route against one
+    process's step on the whole batch: the data indices' losses add up to
+    its loss within 1e-6 relative, the world-summed gradients agree with its
+    gradients within 1e-4 of each tensor's largest (a key bias, whose
+    gradient is rounding noise, of the model's largest: AdamW's first step
+    is nearly blind to a gradient's scale, so this is what sees a wrong
+    1 / sp loss scale), the parameters agree within 1e-6 (a key bias within
+    2 lr), and every rank holds the same parameters and gradients to the
+    bit."""
+    from helpers_torch_dp import launch
+    from paths_tpu_torch import convert
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data import dataset as tdata
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.train import loop as tloop
+    from paths_tpu_torch.train import state as tstate
+
+    world = mesh_shape[0] * mesh_shape[1]
+    device, reason = _seq_layout(backend, world)
+    if reason:
+        pytest.skip(reason)
+    d, cfg = _small_model_dir(str(tmp_path))
+    seq_cfg = Config.load(d)
+    seq_cfg.mesh_shape, seq_cfg.seq_attention = mesh_shape, schedule
+    seq_cfg.save(d)
+    job = dict(_dp_step_job(d, cfg), grads=True)
+    ranks = launch((world, [job], str(tmp_path / "out")), device=device,
+                   backend=backend)[0]
+    got = [dict(np.load(str(tmp_path / "out" / f"step_rank{r}.npz")))
+           for r in range(world)]
+    for r in range(1, world):
+        for k, v in got[0].items():
+            np.testing.assert_array_equal(got[r][k], v, err_msg=f"{r} {k}")
+
+    model = RecursiveModel(cfg).to(card)
+    opt = tloop.make_optimizer(cfg, model.parameters())
+    model, opt, _ = tstate.load_state(d, model, opt)
+    ds = tdata.SlideDataset(job["ids"], cfg, FeatureStore(cfg.preprocess_dir))
+    bag, tables = tdata.collate_batch(ds, job["idx"], level0_bucket=32,
+                                      pads=ds.global_pads(), device=card)
+    labels = {k: torch.tensor(v, device=card) for k, v in job["labels"].items()}
+    loss, _ = tloop.make_step_fns(cfg, opt)[0](model, bag, tables, labels,
+                                                epoch=1)
+    np.testing.assert_allclose(
+        sum(r["step"]["loss"] for r in ranks if r["step"]["seq_index"] == 0),
+        loss.item(), rtol=1e-6)
+    for k, want in convert.to_jax_flat(model).items():
+        atol = 2 * cfg.lr if k.endswith("/k/b") else 1e-6
+        np.testing.assert_allclose(got[0][k], want, rtol=0, atol=atol,
+                                   err_msg=k)
+    grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters()
+             if p.grad is not None}
+    assert sorted("grad/" + n for n in grads) == sorted(
+        k for k in got[0] if k.startswith("grad/"))
+    largest = max(np.abs(g).max() for g in grads.values())
+    for n, want in grads.items():
+        ref = np.abs(want).max()
+        if n.endswith(".k.bias") or ref == 0:
+            ref = largest
+        np.testing.assert_allclose(got[0]["grad/" + n], want, rtol=0,
+                                   atol=1e-4 * ref, err_msg=n)

@@ -338,15 +338,16 @@ def test_checkpoints_resume_across_packages(tmp_path, store, clip):
 
 
 def test_unported_options_raise(tmp_path, store):
-    """The data axis is the process group: `mesh_shape` [2, 1] in one
-    process names torchrun; a sequence-parallel mesh is not ported (item
-    8b). Data-parallel runs: `tests/test_torch_dp_train.py`."""
+    """The mesh is the process group: `mesh_shape` [2, 1] in one process
+    names torchrun with 2 processes, and so does the sequence-parallel
+    [1, 2], which needs dp * sp = 2. Data- and sequence-parallel runs:
+    `tests/test_torch_dp_train.py`, `tests/test_torch_seq_train.py`."""
     tmp, _, _ = store
     _, tcfg = configs(tmp, mesh_shape=[2, 1])
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tloop.train_loop(tcfg, str(tmp_path), None, None, None, device="cpu")
     _, tcfg = configs(tmp, mesh_shape=[1, 2])
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tloop.train_loop(tcfg, str(tmp_path), None, None, None, device="cpu")
 
 
