@@ -40,6 +40,18 @@ Phases, each printing its own lines:
      three kernels launch once per decoder layer per level), its step time
      beside the fused step's, and one epoch of `cli.train` on the streaming
      engine held to the fused run's epoch-1 loss;
+  3b'. bf16 (after streaming): the flagship in the bf16 configuration
+     (`compute_dtype` and `table_dtype` "bfloat16") over the [slice] and
+     [train] stores, which it reuses: whether cuBLAS's reduced-precision
+     reduction changes the flagship's bf16 products; a 32-slide request on
+     the fused and streaming engines, the kernel route's hazards against the
+     plain route's, streaming equal to fused to the bit, #1's launches, each
+     launch against its plain version, bytes to the card and warm request
+     and forward times beside f32's; one [train] step at dropout 0, each
+     launch of #1-#3 against its plain version, two planted faults that the
+     check must fail, one epoch of `cli.train` on each route (launches,
+     epoch loss kernel vs plain), and step time, busy share and peak memory
+     beside f32's;
   3c. auto: `resolve_engine` picks fused from the card's memory for the
      [slice] store and streaming below the threshold; lru: a repeated
      32-slide request served from the device batch cache; cli:
@@ -1081,11 +1093,7 @@ def streaming_serving_phase(torch, tfa, gpu, sl):
     bag, tables = collate_batch(sl["sess"]._dataset, idx,
                                 level0_bucket=cfg.level0_bucket,
                                 pads=sl["sess"]._pads, device="cpu")
-    fused_bytes = (bag.fts.numel() * wire + bag.locs.numel() * 4
-                   + bag.mask.numel()
-                   + sum(t.fts.numel() * wire + 4 * (t.locs.numel()
-                         + t.count.numel() + t.index.numel()
-                         + t.grid_hw.numel()) for t in tables))
+    fused_bytes = fused_request_bytes(bag, tables, wire)
     del bag, tables
     # lookup_host gathers the slides one after another; the JAX package
     # spreads them over a pool of 8 threads: both on the level-1 coordinates
@@ -1101,7 +1109,7 @@ def streaming_serving_phase(torch, tfa, gpu, sl):
                                                            level_tables)),
                     ("pool of 8", lambda: list(pool.map(lambda f: f(), one))))
         gather = {name: [] for name, _ in variants}
-        for name, fn in variants + variants[::-1] + variants:
+        for name, fn in variants + variants[::-1]:
             t0 = time.perf_counter()
             for _ in range(10):
                 fn()
@@ -1115,6 +1123,7 @@ def streaming_serving_phase(torch, tfa, gpu, sl):
           f"gathers {fwd_ms:.1f} ms (timed pieces synchronised); bytes to the "
           f"card {stream_bytes / 2**20:.1f} MiB against the fused request's "
           f"{fused_bytes / 2**20:.1f} MiB | {gpu}", flush=True)
+    return sess
 
 
 def streaming_training_phase(torch, tfa, gpu, tr):
@@ -1217,6 +1226,389 @@ def streaming_training_phase(torch, tfa, gpu, tr):
           f"({rel:.3g} relative, rtol {STREAM_EPOCH_RTOL}); epoch wall "
           f"{stats['epoch_wall_s'][1]} s (fused {runs['pallas']['epoch_wall_s'][1]}"
           f" s), run {wall:.1f} s; kernel launches {counts} | {gpu}", flush=True)
+
+# [bf16]: the flagship in the JAX package's bf16 configuration
+# (`compute_dtype` and `table_dtype` "bfloat16") on the [slice] and [train]
+# stores. u = 2^-8, bf16's unit roundoff: an ulp of a value is at most 2u of
+# it.
+# Hazards, kernel route vs plain attention route: the kernels round P
+# against each key block's running max, the plain route after the softmax,
+# so attention outputs differ by about an ulp; the output projection, the
+# LayerNorms and the head carry a change to a logit at a gain of about 1,
+# the logits of random flagship weights are below 2 in size, and the
+# sigmoid's slope is at most 1/4: one change moves a hazard by at most
+# 2u * 2 / 4 = u, and the bar admits four (on the CPU at width 64, the
+# plain versions against the plain route: 1.3u). The step's loss: 4u
+# relative.
+BF16_PRED_ATOL = 4 * 2.0 ** -8
+BF16_LOSS_RTOL = 4 * 2.0 ** -8
+# Whole-model gradients are no yardstick in bf16: an ulp's change in an
+# attention output flips ReLU masks and moves sums that cancel, so on the
+# CPU the plain versions against the plain route differ by up to 27 times
+# 4u of a tensor's own largest (164 of 247 tensors above it), and one-ulp
+# changes planted in 0.5% of the kernels' outputs by up to 21 times. The
+# step is held where the kernels are: every launch of the step against its
+# plain version on the same inputs, outputs at the flash bf16 bar
+# (FLASH_BF16_ULPS, FLASH_BF16_CHANGED) and dq, dk, dv at SEQ_BF16_GRAD_RTOL
+# (4u) of their own largest. Planted faults that must fail it: dk zeroed,
+# and dq scaled by 1.05 (above the 1.001 of [train], which is below an ulp).
+BF16_FAULTS = {"dk zeroed": lambda dq, dk, dv: (dq, dk * 0, dv),
+               "dq scaled by 1.05": lambda dq, dk, dv: (dq * 1.05, dk, dv)}
+
+
+class Recorder:
+    """A kernel wrapper that appends (args, results) of each call to `log`.
+    The wrappers count their launches through their module names, so the
+    count is the wrapped function's: read and written through."""
+
+    def __init__(self, fn, log):
+        self.fn, self.log, self.__name__ = fn, log, fn.__name__
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.log.append((args, out))
+        return out
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+@contextlib.contextmanager
+def recorded(tfa):
+    """While inside, every call of the forward wrapper and of the backward
+    pair (through the module's names, as the model calls them) is recorded
+    in the lists of the yielded dict; restored after."""
+    log = {"fwd": [], "bwd": []}
+    fwd, bwd = tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd
+    tfa.masked_flash_attention_fwd = Recorder(fwd, log["fwd"])
+    tfa.masked_flash_attention_bwd = Recorder(bwd, log["bwd"])
+    try:
+        yield log
+    finally:
+        tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd = fwd, bwd
+
+
+def launch_agreement(tfa, log):
+    """Each recorded launch against its plain version on the same inputs:
+    (worst forward ulps of a row's largest output, worst share of changed
+    forward outputs, worst backward ratio to SEQ_BF16_GRAD_RTOL of each
+    gradient's own largest)."""
+    ulps = changed = ratio = 0.0
+    for (q, k, v, lengths, block_k), (out, _) in log["fwd"]:
+        want = tfa.flash_attention_reference(q, k, v, lengths, block_k)[0]
+        u, c = bf16_agreement(out.detach().float().cpu().numpy(),
+                              want.float().cpu().numpy())
+        ulps, changed = max(ulps, u), max(changed, c)
+    for (q, k, v, lengths, out, lse, dout), grads in log["bwd"]:
+        dq, delta = tfa.flash_bwd_dq_reference(q, k, v, lengths, out, lse, dout)
+        want = (dq, *tfa.flash_bwd_dkv_reference(q, k, v, lengths, lse, dout,
+                                                 delta))
+        for g, w in zip(grads, want):
+            tol = SEQ_BF16_GRAD_RTOL * w.float().abs().max().item()
+            err = (g.detach().float() - w.float()).abs().max().item()
+            ratio = max(ratio, err / tol if tol > 0 else
+                        (0.0 if err == 0 else math.inf))
+    return ulps, changed, ratio
+
+
+def fused_request_bytes(bag, tables, wire: int) -> int:
+    """Bytes of a collated fused batch as they cross to the card: features
+    at the wire dtype's width, coordinates and index arrays as int32."""
+    return (bag.fts.numel() * wire + bag.locs.numel() * 4 + bag.mask.numel()
+            + sum(t.fts.numel() * wire + 4 * (t.locs.numel() + t.count.numel()
+                  + t.index.numel() + t.grid_hw.numel()) for t in tables))
+
+
+def cublas_bf16_probe(torch, gpu):
+    """Share of bf16 GEMM outputs that differ from the product summed in f32
+    and rounded once (JAX's `preferred_element_type=f32`), with cuBLAS's
+    reduced-precision reduction allowed (torch's default) and not, at the
+    flagship's bf16 products of a 32-slide level 0 (8224 rows): proj_in (K
+    1024), the LSTM's packed gates (K 2048) and the feed-forward's second
+    layer (K 512)."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_bf16_reduced_precision_reduction
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shares = {}
+    try:
+        for m, k, n in ((8224, 1024, 128), (8224, 2048, 1792), (8224, 512, 128)):
+            x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+            w = torch.randn(n, k, device="cuda", generator=gen).bfloat16()
+            exact = (x.float() @ w.float().t()).bfloat16()
+            for allow in (True, False):
+                flags.allow_bf16_reduced_precision_reduction = allow
+                got = torch.nn.functional.linear(x, w)
+                shares[(k, allow)] = (got != exact).float().mean().item()
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = saved
+    print("[bf16] cuBLAS bf16 GEMM outputs off the f32-summed product, "
+          "reduced-precision reduction allowed / not: "
+          + "; ".join(f"K {k}: {shares[(k, True)]:.5f} / {shares[(k, False)]:.5f}"
+                      for k in (1024, 2048, 512)) + f" | {gpu}", flush=True)
+    return shares
+
+
+def bf16_phase(torch, tfa, gpu, sl, tr, stream_sess):
+    """[bf16] (a): one 32-slide request on the fused and streaming engines,
+    kernel route against the plain route, the engines to the bit, #1's
+    launches and per-launch agreement, bytes to the card, warm request and
+    forward times beside f32's. (b): one [train] step at dropout 0 on the
+    kernel and plain routes, each launch of #1-#3 against its plain version,
+    the planted faults, launches, and step time, busy share and peak memory
+    beside f32's. `stream_sess` is [streaming]'s f32 session. Returns the
+    kernel launches of the main-path runs."""
+    import copy
+
+    import numpy as np
+
+    from paths_tpu_torch.data.dataset import (
+        collate_bag0,
+        collate_batch,
+        labels_on,
+        union_pads,
+    )
+    from paths_tpu_torch.engine import streaming
+    from paths_tpu_torch.engine.hierarchy import end2end_loss
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.serve import ServingSession, serving_forward
+    from paths_tpu_torch.train.loop import make_optimizer, make_step_fns
+    from paths_tpu_torch.train.state import load_model
+    from torch.profiler import ProfilerActivity, profile
+
+    bf16 = dict(compute_dtype="bfloat16", table_dtype="bfloat16")
+    cublas_bf16_probe(torch, gpu)
+    ids, idx = sl["ids"], list(range(len(sl["ids"])))
+    mains = {n: 0 for n in launch_counts(tfa)}
+
+    def count(fn):
+        reset_counts(tfa)
+        out = fn()
+        torch.cuda.synchronize()
+        got = launch_counts(tfa)
+        for n, c in got.items():
+            mains[n] += c
+        return out, got
+
+    # ---- (a) one 32-slide request
+    pallas = sl["dirs"]["pallas"]
+    sess = {"f32 fused": sl["sess"], "f32 streaming": stream_sess}
+    for name, src, extra in (("bf16 fused", pallas, {}),
+                             ("bf16 streaming", pallas, {"engine": "streaming"}),
+                             ("bf16 plain", sl["dirs"]["xla"], {})):
+        sess[name] = ServingSession(model_dir_copy(
+            src, name.replace(" ", "_"), **bf16, **extra), cache_batches=0,
+            device="cuda")
+    per_forward = sl["cfg"].model_config.trans_layers * sl["cfg"].num_levels
+    rows = {name: s.predict(ids) for name, s in sess.items()}   # cold
+    with recorded(tfa) as log:
+        rows["bf16 fused"], got = count(lambda: sess["bf16 fused"].predict(ids))
+    rows["bf16 streaming"], got_s = count(
+        lambda: sess["bf16 streaming"].predict(ids))
+    want = {"masked_flash_attention_fwd": per_forward,
+            "masked_flash_attention_bwd_dq": 0,
+            "masked_flash_attention_bwd_dkv": 0}
+    if got != want or got_s != want:
+        raise AssertionError(f"a bf16 request launched {got} (fused), "
+                             f"{got_s} (streaming); the code says {want}")
+    ulps, changed, _ = launch_agreement(tfa, log)
+    if not (ulps <= FLASH_BF16_ULPS and changed <= FLASH_BF16_CHANGED):
+        raise AssertionError(f"a bf16 request's #1 launch against its plain "
+                             f"version: {ulps:.3g} ulps, {changed:.5f} changed")
+    hz = {n: np.array([r["hazards"] for r in v]) for n, v in rows.items()}
+    worst = np.abs(hz["bf16 fused"] - hz["bf16 plain"]).max()
+    if not worst <= BF16_PRED_ATOL:
+        raise AssertionError(f"bf16 hazards, kernel vs plain route: {worst:.3g}"
+                             f" > {BF16_PRED_ATOL}")
+    if not np.array_equal(hz["bf16 fused"], hz["bf16 streaming"]):
+        raise AssertionError("bf16 streaming hazards differ from the fused "
+                             "engine's")
+    if not np.all((hz["bf16 fused"] > 0) & (hz["bf16 fused"] < 1)):
+        raise AssertionError("bf16 hazards outside (0, 1)")
+    fwd_name = "masked_flash_attention_fwd"
+    print(f"[bf16] 32-slide request, kernel route: #1 launched "
+          f"{got[fwd_name]} times (fused) and {got_s[fwd_name]} "
+          f"(streaming), each launch against its plain version: worst "
+          f"{ulps:.3g} ulps of its row's largest (allowed {FLASH_BF16_ULPS}), "
+          f"{changed:.5f} of the outputs changed (allowed "
+          f"{FLASH_BF16_CHANGED}); hazards vs the plain route max |diff| "
+          f"{worst:.3g} (atol {BF16_PRED_ATOL:.4g}); streaming equal to "
+          f"fused to the bit; bf16 vs f32 hazards max |diff| "
+          f"{np.abs(hz['bf16 fused'] - hz['f32 fused']).max():.3g}", flush=True)
+
+    walls = {n: [] for n in ("f32 fused", "bf16 fused", "f32 streaming",
+                             "bf16 streaming")}
+    for _ in range(2):
+        for name in walls:
+            t0 = time.perf_counter()
+            count(lambda: sess[name].predict(ids))
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    batches = {}
+    for name in ("f32 fused", "bf16 fused"):
+        s = sess[name]
+        batches[name] = collate_batch(s._dataset, idx,
+                                      level0_bucket=s.config.level0_bucket,
+                                      pads=s._pads, device="cuda")
+    nbytes = {}
+    for name, wire in (("f32", 4), ("bf16", 2)):
+        bag, tables = batches[f"{name} fused"]
+        nbytes[f"{name} fused"] = fused_request_bytes(bag, tables, wire)
+        s = sess[f"{name} streaming"]
+        bag0 = collate_bag0(s._dataset, idx, level0_bucket=s.config.level0_bucket,
+                            pads=s._pads, device="cuda")
+        log = []
+        with timed(torch, streaming, ("lookup_host",), log), \
+                torch.inference_mode():
+            s._eng.forward(s.model, bag0, [s._dataset.slides[i].tables
+                                           for i in idx])
+        nbytes[f"{name} streaming"] = (
+            bag0.fts.numel() * wire + bag0.locs.numel() * 4
+            + bag0.mask.numel() + sum(shipped_bytes(out, wire)
+                                      for _, _, _, out in log))
+    fwd_ms = {n: [] for n in batches}
+    for _ in range(2):
+        for name, (bag, tables) in batches.items():
+            s = sess[name]
+
+            def fwd():
+                with torch.inference_mode():
+                    return serving_forward(s.model, s.config, bag, tables)
+
+            fwd_ms[name].append(cuda_ms(fwd, iters=10))
+    for name in walls:
+        print(f"[bf16] warm 32-slide request, {name}: "
+              f"{', '.join(f'{w:.1f}' for w in walls[name])} ms wall in "
+              f"turns; bytes to the card {nbytes[name] / 2**20:.1f} MiB"
+              + (f"; forward {', '.join(f'{t:.2f}' for t in fwd_ms[name])} "
+                 f"ms between CUDA events" if name in fwd_ms else "")
+              + f" | {gpu}", flush=True)
+    del batches, sess
+
+    # ---- (b) one [train] step at dropout 0
+    cfg32 = tr["cfg"]
+    cfg16 = copy.deepcopy(cfg32)
+    for key, value in bf16.items():
+        setattr(cfg16, key, value)
+    train = tr["splits"][0]
+    sidx = list(range(cfg32.batch_size[0]))
+    pads = union_pads(*(d.global_pads() for d in tr["splits"] if d is not None))
+    step_batch = {
+        name: collate_batch(train, sidx, level0_bucket=cfg32.level0_bucket,
+                            pads=pads, device="cuda", dtype=dtype)
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    labels = labels_on(train, sidx, "cuda")
+    init_dir = os.path.join(WORK, "train_init")   # written by step_checks
+
+    def step_loss(impl):
+        c = copy.deepcopy(cfg16)
+        c.attention_impl = impl
+        model = load_model(init_dir, RecursiveModel(c)).cuda()
+        loss, _ = end2end_loss(model, c, *step_batch["bf16"], labels)
+        loss.backward()
+        if any(p.dtype != torch.float32 for p in model.parameters()):
+            raise AssertionError("a bf16 step left a parameter off f32")
+        return loss.item()
+
+    with recorded(tfa) as log:
+        loss_k, got = count(lambda: step_loss("pallas"))
+    per = cfg16.model_config.trans_layers * cfg16.num_levels
+    want = {n: per for n in got}
+    if got != want:
+        raise AssertionError(f"a bf16 step launched {got}; the code says {want}")
+    loss_p = step_loss("xla")
+    if not abs(loss_k - loss_p) <= BF16_LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"bf16 step loss, kernel vs plain route: "
+                             f"{loss_k} vs {loss_p}")
+    ulps, changed, ratio = launch_agreement(tfa, log)
+    if not (ulps <= FLASH_BF16_ULPS and changed <= FLASH_BF16_CHANGED
+            and ratio <= 1.0):
+        raise AssertionError(f"a bf16 step's launches against their plain "
+                             f"versions: forward {ulps:.3g} ulps, {changed:.5f}"
+                             f" changed; backward {ratio:.3g} x its limit")
+    print(f"[bf16] one step of {len(sidx)} slides, kernel route: launches "
+          f"{got}; loss {loss_k:.6f} vs plain route {loss_p:.6f}; each launch "
+          f"against its plain version: forward worst {ulps:.3g} ulps, "
+          f"{changed:.5f} changed; dq/dk/dv worst {ratio:.3g} x their limit "
+          f"({SEQ_BF16_GRAD_RTOL} of each gradient's own largest)", flush=True)
+    for label, fault in BF16_FAULTS.items():
+        with planted_fault(tfa, fault), recorded(tfa) as log:
+            step_loss("pallas")
+        ratio = launch_agreement(tfa, log)[2]
+        if not ratio > 1.0:
+            raise AssertionError(f"the bf16 step check passes a planted fault "
+                                 f"({label}): {ratio:.3g} x its limit")
+        print(f"[bf16] planted fault, {label}: the check fails, worst "
+              f"{ratio:.3g} x its limit", flush=True)
+    reset_counts(tfa)
+
+    # one epoch of cli.train on each route from the [train] run's initial
+    # weights: the entry point's launches and epoch loss, kernel vs plain
+    from paths_tpu_torch.cli.train import main as train_main
+    from paths_tpu_torch.train.state import save_state
+
+    epoch, launched = {}, {}
+    for impl in ("pallas", "xla"):
+        c = copy.deepcopy(cfg16)
+        c.attention_impl, c.num_epochs = impl, 1
+        d = os.path.join(WORK, f"bf16_train_{impl}")
+        c.save(d)
+        save_state(d, tr["model"])
+        epoch[impl], launched[impl] = count(
+            lambda: train_main(["-m", d, "--no-wandb"]))
+        want = {n: (k if impl == "pallas" else 0) for n, k in
+                expected_train_launches(c, tr["splits"]).items()}
+        if launched[impl] != want:
+            raise AssertionError(f"bf16 cli.train ({impl}) launched "
+                                 f"{launched[impl]}; the code says {want}")
+    loss_k, loss_p = (epoch[i]["train_loss"][1] for i in ("pallas", "xla"))
+    if not (math.isfinite(loss_k)
+            and abs(loss_k - loss_p) <= BF16_LOSS_RTOL * abs(loss_p)):
+        raise AssertionError(f"bf16 cli.train epoch-1 loss, kernel vs plain "
+                             f"route: {loss_k} vs {loss_p}")
+    print(f"[bf16] cli.train, 1 epoch on each route: train_loss {loss_k:.6f} "
+          f"(kernel) vs {loss_p:.6f} (plain), {abs(loss_k - loss_p) / abs(loss_p):.3g} "
+          f"relative (rtol {BF16_LOSS_RTOL:.4g}); f32's epoch 1 "
+          f"{tr['runs']['pallas']['train_loss'][1]:.6f}; kernel route "
+          f"launches {launched['pallas']} | {gpu}", flush=True)
+
+    steps = {}
+    for name, c in (("f32", cfg32), ("bf16", cfg16)):
+        model = load_model(init_dir, RecursiveModel(c)).cuda()
+        update, _ = make_step_fns(c, make_optimizer(c, model.parameters()))
+        steps[name] = (lambda u=update, m=model, b=step_batch[name]:
+                       u(m, *b, labels, None, epoch=1))
+        steps[name]()
+    ms = {n: [] for n in steps}
+    for _ in range(2):
+        for name, step in steps.items():
+            ms[name].append(cuda_ms(step, iters=5, warmup=1))
+    for name, step in steps.items():
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        busy = kernel_us(prof) / 1e3
+        flash = [sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type.name == "CUDA" and kernel in e.key) / 1e3
+                 for kernel in ("flash_fwd_", "flash_bwd_dq_kernel",
+                                "flash_bwd_dkv_kernel")]
+        print(f"[bf16] warm step of {len(sidx)} slides ({name}): "
+              f"{', '.join(f'{t:.2f}' for t in ms[name])} ms between CUDA "
+              f"events in turns; kernel time of one profiled step {busy:.2f} "
+              f"ms (busy share {busy / min(ms[name]):.3f}), of which #1 / #2 "
+              f"/ #3 {' / '.join(f'{t:.4f}' for t in flash)} ms; peak memory "
+              f"{peak:.0f} MiB | {gpu}", flush=True)
+    reset_counts(tfa)
+    return mains
+
 
 
 def auto_phase(sl):
@@ -1790,7 +2182,7 @@ def export_phase(torch, tfa, gpu, sl):
           f"slides: #1 launched {launches} times; hazards vs the live fused "
           f"session {how}{reason} | {gpu}", flush=True)
     art_ms, live_ms = [], []
-    for _ in range(3):
+    for _ in range(2):
         for s_, log in ((sess, art_ms), (live, live_ms)):
             t0 = time.perf_counter()
             s_.predict(ids)
@@ -4008,7 +4400,7 @@ def preprocess_phase(torch, tfa, tvf, gpu):
     for impl in kernel_impls + ("xla", "flash"):
         enc = encoders[impl]
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: enc(two_batches[0]), iters=3, warmup=1)
+        ms = cuda_ms(lambda: enc(two_batches[0]), iters=2, warmup=1)
         peak = torch.cuda.max_memory_allocated() / 2**20
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             enc(two_batches[0])
@@ -4799,8 +5191,11 @@ def main() -> int:
         bwd = timed("backward", backward_kernel_phase, torch, tfa, gpu)
         sl = timed("slice", serving_phase, torch, tfa, gpu)
         launches, tr = timed("train", training_phase, torch, tfa, gpu)
-        timed("streaming-serve", streaming_serving_phase, torch, tfa, gpu, sl)
+        stream_sess = timed("streaming-serve", streaming_serving_phase, torch,
+                            tfa, gpu, sl)
         timed("streaming-train", streaming_training_phase, torch, tfa, gpu, tr)
+        bf16_launches = timed("bf16", bf16_phase, torch, tfa, gpu, sl, tr,
+                              stream_sess)
         timed("auto", auto_phase, sl)
         timed("lru", lru_phase, torch, tfa, gpu, sl)
         cli_out = timed("cli", cli_phase, torch, tfa, gpu, tr)
@@ -4815,7 +5210,7 @@ def main() -> int:
         timed("http", http_phase, torch, tfa, gpu, sl)
         uni_weights = timed("heatmap", heatmap_phase, torch, tfa, tvf, gpu, sl)
         timed("native", native_phase, torch, gpu, sl)
-        del sl, tr
+        del sl, tr, stream_sess
         vit_cases = timed("vit-kernel", vit_kernel_phase, torch, tvf, gpu)
         vit_cases.update(timed("vit-new-kernel", vit_new_kernel_phase, torch,
                                tvf, tvi, gpu))
@@ -4836,6 +5231,8 @@ def main() -> int:
     # #1's main path runs through [train] and the [export] artifact request;
     # #1-#3 also through [seq-train]'s two runs (rank 0's launches)
     launches["masked_flash_attention_fwd"] += export_launches
+    for name, n in bf16_launches.items():     # [bf16]'s request and step
+        launches[name] += n
     for name, n in zip(("masked_flash_attention_fwd",
                         "masked_flash_attention_bwd_dq",
                         "masked_flash_attention_bwd_dkv"), seq_launches):

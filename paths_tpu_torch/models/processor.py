@@ -19,7 +19,7 @@ from torch import nn
 from paths_tpu_torch.config import Config, PATHSProcessorConfig
 from paths_tpu_torch.models.aggregator import Aggregator
 from paths_tpu_torch.models.batch import PatchBag
-from paths_tpu_torch.nn.core import MLP, linear_apply, make_linear
+from paths_tpu_torch.nn.core import MLP, linear_apply, make_linear, sigmoid
 from paths_tpu_torch.nn.lstm import LSTMCell, lstm_cell_apply
 
 
@@ -77,7 +77,7 @@ def processor_apply(proc: Processor, config: PATHSProcessorConfig,
         patch_ctx = torch.cat([hs, cs], dim=-1)
 
     # ---- importance; exactly 0 on padding
-    imp = torch.sigmoid(proc.importance_mlp(fts, cd))[..., 0]
+    imp = sigmoid(proc.importance_mlp(fts, cd))[..., 0]
     importance = torch.where(mask, imp.to(fts.dtype), 0.0)
     if config.importance_mode == "mul":
         fts = fts * importance[..., None]  # Z = Y * alpha

@@ -17,7 +17,7 @@ from paths_tpu_torch.kernels.flash_attention import (
     flash_attention_fwd,
     masked_flash_attention,
 )
-from paths_tpu_torch.nn.core import dropout, make_linear
+from paths_tpu_torch.nn.core import dropout, linear_apply, make_linear
 from paths_tpu_torch.ops.masking import NEG_INF
 
 # "auto" engages the flash kernels at and above this many keys, on CUDA only:
@@ -101,8 +101,7 @@ class MultiheadAttention(nn.Module):
         cd = compute_dtype or query.dtype
 
         def heads(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-            y = torch.nn.functional.linear(x.to(cd), lin.weight.to(cd),
-                                           lin.bias.to(cd))
+            y = linear_apply(lin, x, cd)
             return y.reshape(b, -1, h, d // h).transpose(1, 2)  # B,H,N,hd
 
         q, k, v = heads(self.q, query), heads(self.k, key), heads(self.v, value)
@@ -137,8 +136,9 @@ class MultiheadAttention(nn.Module):
                 logits = logits.masked_fill(~key_valid[:, None, None, :], NEG_INF)
             weights = torch.softmax(logits, dim=-1)
             weights = dropout(weights, dropout_rate, **drop)
-            ctx = torch.einsum("bhqk,bhkd->bhqd", weights.to(cd), v).to(cd)
+            # P rounded to cd, the product summed in f32 and rounded once:
+            # JAX's preferred_element_type=f32
+            ctx = torch.einsum("bhqk,bhkd->bhqd", weights.to(cd).float(),
+                               v.float()).to(cd)
         ctx = ctx.transpose(1, 2).reshape(b, nq, d)
-        return torch.nn.functional.linear(
-            ctx.to(cd), self.out.weight.to(cd), self.out.bias.to(cd)
-        ).to(query.dtype)
+        return linear_apply(self.out, ctx, cd).to(query.dtype)

@@ -38,13 +38,93 @@ def make_linear(in_features: int, out_features: int, *, init: str = "torch",
     return lin
 
 
+def affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`x @ w^T + b` with the JAX package's rounding points (`x @ w + b`):
+    in f32 one `F.linear`; in a narrower dtype the product is rounded to
+    that dtype before the bias is added, where `F.linear` adds the bias
+    before its one rounding (in bf16 an ulp apart on about a quarter of the
+    outputs)."""
+    if x.dtype == torch.float32:
+        return F.linear(x, w, b)
+    return F.linear(x, w) + b
+
+
 def linear_apply(lin: nn.Linear, x: torch.Tensor,
                  compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """`x @ W^T + b`, with all three cast to `compute_dtype` when given."""
+    """`x @ W^T + b` (`affine`), with all three cast to `compute_dtype`
+    when given."""
     w, b = lin.weight, lin.bias
     if compute_dtype is not None:
         x, w, b = x.to(compute_dtype), w.to(compute_dtype), b.to(compute_dtype)
-    return F.linear(x, w, b)
+    return affine(x, w, b)
+
+
+class _Logistic(torch.autograd.Function):
+    """JAX's logistic in a narrow dtype: y = 1 / (1 + exp(-x)), XLA's
+    expansion, and JAX's gradient g * (y * (1 - y)), each op rounded to the
+    dtype."""
+
+    @staticmethod
+    def value(x):
+        return torch.reciprocal(torch.exp(-x) + 1)
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _Logistic.value(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+class _Tanh(torch.autograd.Function):
+    """JAX's tanh in a narrow dtype: the gradient as JAX's reverse mode
+    transposes its rule (g + g y)(1 - y): e = g (1 - y), then e + e y, each
+    op rounded to the dtype (torch's rounds once)."""
+
+    value = staticmethod(torch.tanh)
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        e = g * (1 - y)
+        return e + e * y
+
+
+def _narrow(fn, x: torch.Tensor) -> torch.Tensor:
+    """`fn` as an autograd Function where a gradient is wanted, else its
+    value alone (plain operations, which `torch.export` traces)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return fn.apply(x)
+    return fn.value(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.sigmoid` as the JAX package's programs compute it: in f32
+    `torch.sigmoid`; in a narrower dtype 1 / (1 + exp(-x)) with each op
+    rounded to that dtype, XLA's expansion of the logistic (torch's bf16
+    sigmoid rounds once and differs from it on about 30% of inputs, which
+    moves importance ties and so the top-K), with JAX's gradient rule."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return _narrow(_Logistic, x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.tanh`: torch's in f32; in a narrower dtype with JAX's gradient
+    rule and its rounding points."""
+    if x.dtype == torch.float32:
+        return torch.tanh(x)
+    return _narrow(_Tanh, x)
 
 
 class MLP(nn.Module):

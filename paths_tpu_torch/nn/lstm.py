@@ -14,7 +14,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from paths_tpu_torch.nn.core import linear_apply, make_linear
+from paths_tpu_torch.nn.core import (
+    affine,
+    linear_apply,
+    make_linear,
+    sigmoid,
+    tanh,
+)
 
 _GATES = ("forget_gate", "remember_gate", "remember_map", "out_select_gate")
 
@@ -43,11 +49,11 @@ def lstm_cell_apply(cell: LSTMCell, xs: torch.Tensor, hs: torch.Tensor,
     b = torch.cat([getattr(cell, n).bias for n in _GATES], dim=0)
     if compute_dtype is not None:
         xhs, w, b = xhs.to(compute_dtype), w.to(compute_dtype), b.to(compute_dtype)
-    packed = torch.nn.functional.linear(xhs, w, b)
+    packed = affine(xhs, w, b)
     f, r, rm, o = packed.split([cell.forget_gate.out_features] * 3
                                + [cell.out_select_gate.out_features], dim=-1)
-    cs = cs * torch.sigmoid(f)
-    cs = cs + torch.sigmoid(r) * torch.tanh(rm)
-    hs = torch.sigmoid(o) * torch.tanh(
+    cs = cs * sigmoid(f)
+    cs = cs + sigmoid(r) * tanh(rm)
+    hs = sigmoid(o) * tanh(
         linear_apply(cell.mem_to_out, cs, compute_dtype))
     return hs.to(xs.dtype), cs.to(xs.dtype)

@@ -13,9 +13,13 @@ import torch
 
 
 def _div_term(dim: int, span: int, k: float, dtype, device) -> torch.Tensor:
-    """exp(arange(0, span, 2) * (-ln(k) / dim))"""
+    """exp(arange(0, span, 2) * (-ln(k) / dim)), the factor rounded to
+    `dtype` first, as JAX rounds a Python scalar to the array's dtype (torch
+    would multiply by it unrounded). The rounding is made on the host: a
+    tensor made on the card from a Python number would make the host wait."""
+    factor = torch.tensor(-math.log(k) / dim, dtype=dtype).item()
     return torch.exp(torch.arange(0, span, 2, dtype=dtype, device=device)
-                     * (-math.log(k) / dim))
+                     * factor)
 
 
 def _interleave(ang: torch.Tensor) -> torch.Tensor:

@@ -80,7 +80,10 @@ from paths_tpu_torch.train.state import load_state, save_state
 
 def set_matmul_precision(compute_dtype: str) -> None:
     """f32 configs get exact f32 matmuls (TF32 off), as the JAX package asks
-    of XLA (`paths_tpu.runtime.set_matmul_precision`)."""
+    of XLA (`paths_tpu.runtime.set_matmul_precision`). bf16 configs keep
+    torch's defaults: at the flagship's bf16 products cuBLAS gives the same
+    results with its reduced-precision reduction allowed or not
+    (`chip_smoke.py`'s `[bf16]` probe on an H100)."""
     if compute_dtype == "float32":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

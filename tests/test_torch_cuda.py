@@ -1420,3 +1420,136 @@ def test_seq_step_matches_one_process(card, tmp_path, backend, mesh_shape,
             ref = largest
         np.testing.assert_allclose(got[0]["grad/" + n], want, rtol=0,
                                    atol=1e-4 * ref, err_msg=n)
+
+
+# The flagship in the JAX package's bf16 configuration (`compute_dtype` and
+# `table_dtype` "bfloat16"). u = 2^-8: hazards, kernel route vs plain route,
+# to 4u (the routes round P at different points, an attention output moves
+# by about an ulp, a hazard by at most u per such change; chip_smoke.py's
+# BF16_PRED_ATOL); the streaming engine to the fused one's bits; and every
+# launch of one step against its plain version on the same inputs: outputs
+# at the flash bf16 bar, dq, dk, dv to 4u of their own largest (whole-model
+# gradients are no yardstick in bf16: ReLU masks and cancelling sums move by
+# many ulps when an attention output moves by one).
+BF16_U = 2.0 ** -8
+
+
+def _bf16_flagship(tmp_path, card):
+    import os
+
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.dataset import SlideDataset, collate_batch
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.data.synthetic import make_synthetic_store
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.load(os.path.join(root, "models", "brca_paths_0"),
+                      test_mode=True)
+    cfg.attention_impl = "pallas"
+    cfg.model_config.dropout = 0.0
+    cfg.compute_dtype = cfg.table_dtype = "bfloat16"
+    cfg.batch_size = [8]
+    cfg.preprocess_dir = str(tmp_path / "store")
+    ids = make_synthetic_store(cfg.preprocess_dir, cfg, num_slides=8,
+                               base_hw=(6, 8), seed=0)
+    ds = SlideDataset(ids, cfg, FeatureStore(cfg.preprocess_dir))
+    bag, tables = collate_batch(ds, range(8), level0_bucket=cfg.level0_bucket,
+                                device=card)
+    return cfg, ids, bag, tables
+
+
+@pytest.mark.cuda
+def test_bf16_model_sessions_kernel_vs_plain_and_engines(card, tmp_path):
+    """A bf16 request of 8 slides at flagship width: the kernel route's
+    hazards within 4u of the plain route's, the streaming session's equal to
+    the fused session's to the bit, #1 launched once per decoder layer per
+    level."""
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.serve import ServingSession
+    from paths_tpu_torch.train.state import save_state
+
+    cfg, ids, _, _ = _bf16_flagship(tmp_path, card)
+    model = RecursiveModel(cfg, generator=torch.Generator().manual_seed(0))
+    hazards = {}
+    for impl, engine in (("pallas", "fused"), ("xla", "fused"),
+                         ("pallas", "streaming")):
+        cfg.attention_impl, cfg.engine = impl, engine
+        d = str(tmp_path / f"{impl}_{engine}")
+        cfg.save(d)
+        save_state(d, model)
+        sess = ServingSession(d, cache_batches=0, device=card)
+        before = tfa.masked_flash_attention_fwd.launches
+        hazards[impl, engine] = np.array([r["hazards"] for r in sess.predict(ids)])
+        torch.cuda.synchronize()
+        launched = tfa.masked_flash_attention_fwd.launches - before
+        per = cfg.model_config.trans_layers * cfg.num_levels
+        assert launched == (per if impl == "pallas" else 0), (impl, engine)
+    kernel = hazards["pallas", "fused"]
+    assert np.all((kernel > 0) & (kernel < 1))
+    assert np.abs(kernel - hazards["xla", "fused"]).max() <= 4 * BF16_U
+    np.testing.assert_array_equal(hazards["pallas", "streaming"], kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", [None, "dk zeroed", "dq scaled by 1.05"])
+def test_bf16_model_step_launches_match_plain_versions(card, tmp_path,
+                                                       monkeypatch, fault):
+    """One bf16 training step at flagship width on the kernel route: #1-#3
+    launch once per decoder layer per level, each forward launch is within
+    the flash bf16 bar of its plain version and each backward launch's dq,
+    dk, dv within 4u of the plain versions' own largest on the same inputs;
+    a planted fault in the backward's results must fail that check; the
+    parameters stay f32."""
+    from paths_tpu_torch.engine.hierarchy import end2end_loss
+    from paths_tpu_torch.models.recursive import RecursiveModel
+
+    cfg, _, bag, tables = _bf16_flagship(tmp_path, card)
+    labels = {"survival_bin": torch.arange(8, device=card) % cfg.nbins,
+              "censored": (torch.arange(8, device=card) % 3 == 0).int()}
+    model = RecursiveModel(cfg, generator=torch.Generator().manual_seed(0)).to(card)
+    faults = {"dk zeroed": lambda dq, dk, dv: (dq, dk * 0, dv),
+              "dq scaled by 1.05": lambda dq, dk, dv: (dq * 1.05, dk, dv)}
+    fwd, bwd = tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd
+    log = {"fwd": [], "bwd": []}
+
+    class Recorded:
+        """Records each call; the wrapper counts its launches through its
+        module name, so `launches` reads and writes the wrapped one's."""
+
+        def __init__(self, fn, key, post=None):
+            self.fn, self.key, self.post = fn, key, post
+
+        def __call__(self, *args):
+            out = self.fn(*args)
+            if self.post:
+                out = self.post(*out)
+            log[self.key].append((args, out))
+            return out
+
+        launches = property(lambda self: self.fn.launches,
+                            lambda self, n: setattr(self.fn, "launches", n))
+
+    monkeypatch.setattr(tfa, "masked_flash_attention_fwd", Recorded(fwd, "fwd"))
+    monkeypatch.setattr(tfa, "masked_flash_attention_bwd",
+                        Recorded(bwd, "bwd", faults.get(fault)))
+    before = [f.launches for f in (fwd, tfa.masked_flash_attention_bwd_dq,
+                                   tfa.masked_flash_attention_bwd_dkv)]
+    loss, _ = end2end_loss(model, cfg, bag, tables, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    after = [f.launches for f in (fwd, tfa.masked_flash_attention_bwd_dq,
+                                  tfa.masked_flash_attention_bwd_dkv)]
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    assert [a - b for a, b in zip(after, before)] == [per] * 3
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    for (q, k, v, ln, block_k), (out, _) in log["fwd"]:
+        _flash_bf16_close(out, tfa.flash_attention_reference(q, k, v, ln,
+                                                             block_k)[0])
+    worst = 0.0
+    for (q, k, v, ln, out, lse, dout), grads in log["bwd"]:
+        dq, delta = tfa.flash_bwd_dq_reference(q, k, v, ln, out, lse, dout)
+        want = (dq, *tfa.flash_bwd_dkv_reference(q, k, v, ln, lse, dout, delta))
+        for g, w in zip(grads, want):
+            worst = max(worst, ((g.float() - w.float()).abs().max()
+                                / (4 * BF16_U * w.float().abs().max())).item())
+    assert (worst > 1.0) == (fault is not None), worst
