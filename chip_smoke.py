@@ -162,7 +162,17 @@ Phases, each printing its own lines:
      dp-preprocess (after tiles): the two slides through `cli.preprocess`
      with UNI from the [tiles] weights on one device and with
      `--data-shards 2` on `fused` and `int8`: grids against the one-device
-     run, launches against the code's count, patches/s.
+     run, launches against the code's count, patches/s;
+  8. examples (after verify): the port's end-to-end entry points.
+     `paths_tpu_torch.examples.run_synthetic_demo` at its defaults (10 raw
+     slides through verify_conversion, preprocess with kaiko-vits16, train,
+     evaluate, predict, heatmap, export and an HTTP request to the
+     artifact), each stage's launches of #1-#5 against `DEMO_STAGES`; then
+     `examples.flagship_dress_rehearsal` for 2 epochs on its 48 slides at
+     full width (training at the published dropout 0.05 on the plain route,
+     every evaluation on #1), #1's launches against the code's count, and
+     the trained model's val hazards on the kernel route against the plain
+     route on the same weights.
 The line before the last is a JSON object of per-kernel numbers, and the
 last line is `{"ok": true, "device": {...}}`. Any failed check raises, so
 the script exits non-zero and prints no result; without a CUDA device it
@@ -3432,18 +3442,11 @@ def heatmap_phase(torch, tfa, tvf, gpu, sl):
     registry.from_name = from_name
     t0 = time.perf_counter()
     try:
-        if draw:
-            with timed(torch, hm, ["run_recursion", "heatmap_slide"], log):
-                heatmap_main(["-m", mdir, "-s", slide, "-o", pdf,
-                              "--weights", weights, "--block-impl", "fused",
-                              "--no-camelyon", "--default-power", "10"])
-        else:
-            model = load_model(mdir, RecursiveModel(cfg)).cuda().eval()
-            encode, _, _ = registry.from_name("UNI", weights_path=weights,
-                                              block_impl="fused")
-            with timed(torch, hm, ["run_recursion"], log):
-                hm.run_recursion(cfg, model, encode, slide, camelyon=False,
-                                 default_power=10.0)
+        # without matplotlib the CLI runs the recursion and draws nothing
+        with timed(torch, hm, ["run_recursion", "heatmap_slide"], log):
+            heatmap_main(["-m", mdir, "-s", slide, "-o", pdf,
+                          "--weights", weights, "--block-impl", "fused",
+                          "--no-camelyon", "--default-power", "10"])
     finally:
         registry.from_name = real_from_name
     torch.cuda.synchronize()
@@ -3535,11 +3538,8 @@ def heatmap_phase(torch, tfa, tvf, gpu, sl):
     reset_counts(tfa)
     t0 = time.perf_counter()
     with timed(torch, hm, ["recursion_from_store"], log):
-        if draw:
-            heatmap_main(["-m", mdir, "--slide-id", sid, "-o",
-                          os.path.join(WORK, "heatmap_store.pdf")])
-        else:
-            hm.recursion_from_store(cfg, model, sid, sess.store)
+        heatmap_main(["-m", mdir, "--slide-id", sid, "-o",
+                      os.path.join(WORK, "heatmap_store.pdf")])
     store_s = time.perf_counter() - t0
     per = cfg.model_config.trans_layers * cfg.num_levels
     if tfa.masked_flash_attention_fwd.launches != per:
@@ -5127,6 +5127,151 @@ def verify_phase(torch, tvf, gpu, uni_weights, r50_weights):
           flush=True)
 
 
+# Which kernels each stage of the synthetic demo must launch, and no other:
+# the ViT block kernels (#4 attention, #5 GELU MLP) where kaiko-vits16
+# encodes patches, the flash kernels where the PATHS model runs (#1 every
+# forward, #2 / #3 every train step at the demo's dropout 0); the artifact
+# stage, `cli.export` to the end of the HTTP request, runs #1 through the
+# artifact's operator.
+DEMO_STAGES = (
+    ("verify", "paths_tpu_torch.cli.verify_conversion", "main", {4, 5}),
+    ("preprocess", "paths_tpu_torch.cli.preprocess", "main", {4, 5}),
+    ("train", "paths_tpu_torch.cli.train", "main", {1, 2, 3}),
+    ("evaluate", "paths_tpu_torch.cli.evaluate", "main", {1}),
+    ("predict", "paths_tpu_torch.cli.predict", "main", {1}),
+    ("heatmap", "paths_tpu_torch.examples.run_synthetic_demo",
+     "heatmap_stage", {1, 4, 5}),
+    ("artifact", "paths_tpu_torch.cli.export", "main", {1}),
+)
+EXAMPLE_KERNELS = {1: "masked_flash_attention_fwd",
+                   2: "masked_flash_attention_bwd_dq",
+                   3: "masked_flash_attention_bwd_dkv",
+                   4: "fused_attn_block", 5: "fused_mlp_block"}
+
+
+def examples_phase(torch, tfa, tvf, gpu):
+    """[examples]: the port's end-to-end entry points. The synthetic demo at
+    its defaults, each stage's launches of #1-#5 against `DEMO_STAGES`;
+    then the flagship dress rehearsal's recipe for 2 epochs on its 48
+    slides at full width (training at the published dropout 0.05 on the
+    plain route, every evaluation on #1), its launches against the code's
+    count, and the trained model's val hazards on the kernel route against
+    the plain route on the same weights (PRED_ATOL, as [slice])."""
+    import importlib
+
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.dataset import load_splits
+    from paths_tpu_torch.examples import flagship_dress_rehearsal as reh
+    from paths_tpu_torch.examples import run_synthetic_demo
+    from paths_tpu_torch.serve import ServingSession
+
+    def counts():
+        return {**launch_counts(tfa), **vit_counts(tvf)}
+
+    def launched(before, after):
+        return {k for k, name in EXAMPLE_KERNELS.items()
+                if after[name] > before[name]}
+
+    stages, patched = {}, []
+    for stage, module, attr, _ in DEMO_STAGES:
+        mod = importlib.import_module(module)
+        real = getattr(mod, attr)
+
+        def wrapper(*args, _real=real, _stage=stage, **kwargs):
+            before = counts()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                stages[_stage] = (before, counts())
+
+        patched.append((mod, attr, real))
+        setattr(mod, attr, wrapper)
+    reset_counts(tfa)
+    reset_vit_counts(tvf)
+    t0 = time.perf_counter()
+    try:
+        demo = run_synthetic_demo.main(["--workdir",
+                                        os.path.join(WORK, "demo")])
+    finally:
+        for mod, attr, real in patched:
+            setattr(mod, attr, real)
+    torch.cuda.synchronize()
+    demo_wall = time.perf_counter() - t0
+    total = counts()
+    stages["artifact"] = (stages["artifact"][0], total)
+    want = {stage: kernels for stage, _, _, kernels in DEMO_STAGES}
+    got = {stage: launched(*stages[stage]) for stage in want}
+    if got != want:
+        raise AssertionError(f"[examples] demo launches by stage {got}, "
+                             f"want {want}")
+    haz = [r["risk"] for r in demo["served"]]
+    if not (len(haz) == 2 and all(math.isfinite(h) for h in haz)
+            and math.isfinite(demo["metrics"]["test_loss"])):
+        raise AssertionError(f"[examples] demo outputs: {demo['metrics']}, "
+                             f"served risks {haz}")
+    main_path = {name: total[name] for name in EXAMPLE_KERNELS.values()}
+    print(f"[examples] run_synthetic_demo at its defaults (10 slides, "
+          f"kaiko-vits16, 3 epochs) in {demo_wall:.1f} s: nine stages, "
+          f"test loss {demo['metrics']['test_loss']:.4f}, served risks "
+          f"{[round(h, 4) for h in haz]}; kernels by stage "
+          + ", ".join(f"{s} {sorted(k)}" for s, k in got.items())
+          + f"; launches {main_path} | {gpu}", flush=True)
+
+    wd = os.path.join(WORK, "rehearsal")
+    t0 = time.perf_counter()
+    summary = reh.main(["--workdir", wd, "--epochs", "2"])
+    torch.cuda.synchronize()
+    reh_wall = time.perf_counter() - t0
+    mdir = os.path.join(wd, "model")
+    cfg = Config.load(mdir, test_mode=True)
+    splits = load_splits([0.7, 0.15, 0.15], cfg.seed, cfg)
+    bs = cfg.batch_size[0]
+    n_val, n_test = len(splits[1]), len(splits[2])
+    per = cfg.model_config.trans_layers * cfg.num_levels
+    # val every epoch and test once inside train_loop, test again in
+    # cli.evaluate; the train steps run at dropout 0.05 on the plain route
+    want = {"masked_flash_attention_fwd": per * (
+        cfg.num_epochs * math.ceil(n_val / bs) + 2 * math.ceil(n_test / bs)),
+        "masked_flash_attention_bwd_dq": 0,
+        "masked_flash_attention_bwd_dkv": 0}
+    if summary["kernel_launches"] != want:
+        raise AssertionError(f"[examples] rehearsal launches "
+                             f"{summary['kernel_launches']}, want {want}")
+    for name, n in summary["kernel_launches"].items():
+        main_path[name] += n
+    with open(os.path.join(mdir, "train_stats.json")) as f:
+        stats = json.load(f)
+    losses = [stats["train_loss"][str(e)] for e in (1, 2)]
+    test_ci = summary["test_metrics"]["test_c-index"]
+    if not (all(math.isfinite(x) for x in losses) and 0.0 <= test_ci <= 1.0):
+        raise AssertionError(f"[examples] rehearsal losses {losses}, test "
+                             f"c-index {test_ci}")
+    print(f"[examples] flagship_dress_rehearsal --epochs 2 (48 slides, "
+          f"brca_paths_0 at full width, dropout {cfg.model_config.dropout}) "
+          f"in {reh_wall:.1f} s (train {summary['train_wall_s']} s): train "
+          f"loss {losses[0]:.4f} -> {losses[1]:.4f}, val c-index "
+          f"{stats['val_c-index']['2']:.3f}, test c-index {test_ci:.3f}; #1 "
+          f"launches {want['masked_flash_attention_fwd']} as the code counts "
+          f"them, #2 / #3 0 | {gpu}", flush=True)
+
+    val_ids = splits[1].slide_ids
+    plain_dir = model_dir_copy(mdir, "rehearsal_plain", attention_impl="xla")
+    got = ServingSession(mdir, cache_batches=0, device="cuda").predict(val_ids)
+    ref = ServingSession(plain_dir, cache_batches=0,
+                         device="cuda").predict(val_ids)
+    worst = max(abs(x - y) for a, b in zip(got, ref)
+                for x, y in zip(a["hazards"], b["hazards"]))
+    if not worst <= PRED_ATOL:
+        raise AssertionError(f"[examples] rehearsal val hazards, kernel vs "
+                             f"plain route: {worst:.3g} > {PRED_ATOL}")
+    print(f"[examples] trained rehearsal model, {len(val_ids)} val slides on "
+          f"the streaming engine: kernel route vs plain route max |hazard "
+          f"diff| {worst:.3g} (atol {PRED_ATOL})", flush=True)
+    shutil.rmtree(wd, ignore_errors=True)
+    return main_path
+
+
 @contextlib.contextmanager
 def plain_int8(tvi):
     """While inside, the int8 wrappers are their plain versions, whatever the
@@ -5222,6 +5367,8 @@ def main() -> int:
         r50_weights = timed("resnet", resnet_phase, torch, gpu)
         timed("verify", verify_phase, torch, tvf, gpu, uni_weights,
               r50_weights)
+        example_launches = timed("examples", examples_phase, torch, tfa,
+                                 tvf, gpu)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
         print("[env] phases: " + ", ".join(f"{k} {v:.1f} s"
@@ -5229,7 +5376,9 @@ def main() -> int:
               flush=True)
 
     # #1's main path runs through [train] and the [export] artifact request;
-    # #1-#3 also through [seq-train]'s two runs (rank 0's launches)
+    # #1-#3 also through [seq-train]'s two runs (rank 0's launches) and the
+    # [examples] demo; #1 through the rehearsal's evaluations, #4 / #5
+    # through the demo's encoder
     launches["masked_flash_attention_fwd"] += export_launches
     for name, n in bf16_launches.items():     # [bf16]'s request and step
         launches[name] += n
@@ -5237,6 +5386,9 @@ def main() -> int:
                         "masked_flash_attention_bwd_dq",
                         "masked_flash_attention_bwd_dkv"), seq_launches):
         launches[name] += n
+    for name in ("masked_flash_attention_fwd", "masked_flash_attention_bwd_dq",
+                 "masked_flash_attention_bwd_dkv"):     # [examples]
+        launches[name] += example_launches[name]
     # one flagship forward (or train step) of 32 slides launches each kernel
     # twice at level 0 and 8 times deeper
     weights = {"level0": 2, "deeper": 8}
@@ -5284,6 +5436,8 @@ def main() -> int:
     # int8 kernels max_abs_err is the worst row, moved codes included)
     vit_src = "paths_tpu_torch/csrc/vit_fused.cu"
     i8_src = "paths_tpu_torch/csrc/vit_int8.cu"
+    example_vit = {"vit_attn": example_launches["fused_attn_block"],   # demo
+                   "vit_mlp": example_launches["fused_mlp_block"]}
     for name, kind, src, replaces in (
             ("vit_attn", "attn", vit_src, "vit_fused.py:174"),
             ("vit_mlp", "mlp", vit_src, "vit_fused.py:218"),
@@ -5293,7 +5447,7 @@ def main() -> int:
             ("vit_mlp_i8", "mlp_i8", i8_src, "vit_int8.py:224"),
             ("vit_swiglu_mlp_i8", "swiglu_i8", i8_src, "vit_int8.py:305")):
         c = vit_cases[kind]
-        launches[name] = vit_launches[name]
+        launches[name] = vit_launches[name] + example_vit.get(name, 0)
         kernels.append(row(name, src, f"paths_tpu/kernels/{replaces}",
                            c["err"], c["ms"], c["plain_ms"], c["library_ms"],
                            c["flop_ms"], c["byte_ms"]))

@@ -59,9 +59,7 @@ def main(argv=None):
     set_matmul_precision(config.compute_dtype)
     device = torch.device(args.device)
 
-    model = RecursiveModel(
-        config, generator=torch.Generator().manual_seed(config.seed))
-    model, _, stats = load_state(args.model_dir, model,
+    model, _, stats = load_state(args.model_dir, RecursiveModel(config),
                                  checkpoint_backend=config.checkpoint_backend)
     model = model.to(device).eval()
     print("Loaded from epoch", stats.get("epoch"))

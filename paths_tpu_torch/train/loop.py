@@ -61,7 +61,8 @@ from paths_tpu_torch.data.dataset import (
 from paths_tpu_torch.engine.auto import resolve_engine
 from paths_tpu_torch.engine.hierarchy import end2end_loss
 from paths_tpu_torch.engine.streaming import StreamingEngine
-from paths_tpu_torch.models.recursive import RecursiveModel
+from paths_tpu_torch.models.jax_init import fresh_model
+from paths_tpu_torch.models.recursive import RecursiveModel  # noqa: F401
 from paths_tpu_torch.parallel.mesh import (
     all_reduce_grads,
     barrier,
@@ -396,8 +397,9 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
             pads = union_pads(*(d.global_pads(level0_only=streaming)
                                 for d in splits))
 
-    model = RecursiveModel(
-        config, generator=torch.Generator().manual_seed(config.seed)).to(device)
+    # a fresh run starts from the JAX package's initial weights for the
+    # seed (`models/jax_init.py`); a saved state replaces them below
+    model = fresh_model(config, config.seed).to(device)
     optimizer = make_optimizer(config, model.parameters())
     clip = config.clip_grad_norm
     model, optimizer, train_stats = load_state(

@@ -14,7 +14,8 @@ The model runs eagerly under `torch.inference_mode()`; each depth's bag is
 padded to a power-of-two width (at least 32), so the kernels see few shapes
 and the results match the JAX package's, which pads the same way so that it
 compiles few programs. matplotlib is imported by the rendering functions
-only.
+only; on a host without it they run the recursion, draw nothing and return
+None.
 """
 from __future__ import annotations
 
@@ -177,13 +178,25 @@ def _viewport_ylim(slide, patch_size: int, height: int):
 
 
 def _pyplot(show: bool):
-    import matplotlib
-
+    """pyplot; None on a host without matplotlib unless a window is asked
+    for (the figure is then not drawn)."""
+    try:
+        import matplotlib
+    except ImportError:
+        if show:
+            raise
+        return None
     if not show:
         matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def _not_drawn(imps) -> None:
+    print(f"figure not drawn: matplotlib is not installed on this host; the "
+          f"recursion ran ({[len(i) for i in imps]} patches per depth)",
+          flush=True)
 
 
 def _make_out_dir(out_path: Optional[str]) -> None:
@@ -233,7 +246,8 @@ def heatmap_slide(config: Config, model: RecursiveModel, encode_fn: Callable,
                   show: bool = False, device="cuda"):
     """Render the two-panel heatmap: the slide with its annotation on the
     left; the slide with outlined visited patches, the folded-importance
-    overlay and an inset colorbar on the right; one viewport for both."""
+    overlay and an inset colorbar on the right; one viewport for both.
+    Returns the figure's path (None without matplotlib)."""
     plt = _pyplot(show)
     assert os.path.exists(slide_path), f"Couldn't find WSI at '{slide_path}'."
     _make_out_dir(out_path)
@@ -242,6 +256,8 @@ def heatmap_slide(config: Config, model: RecursiveModel, encode_fn: Callable,
     slide_depths, imps, _ = run_recursion(
         config, model, encode_fn, slide_path, tissue_threshold, camelyon,
         default_power, device=device)
+    if plt is None:
+        return _not_drawn(imps)
 
     bigimg = slide_depths[0].view_at_power(config.base_power)
     H, W = bigimg.shape[:2]
@@ -295,6 +311,8 @@ def heatmap_from_store(config: Config, model: RecursiveModel, slide_id: str,
     P = config.model_config.patch_size
     slide_depths, imps = recursion_from_store(config, model, slide_id, store,
                                               device)
+    if plt is None:
+        return _not_drawn(imps)
 
     grid0 = np.asarray(store.load(slide_id, config.base_power))
     tissue = np.abs(grid0).sum(-1) > 0

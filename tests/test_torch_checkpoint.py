@@ -28,6 +28,7 @@ from test_model_parity import torch_kwargs
 from test_torch_models import small_configs
 
 from paths_tpu_torch import convert
+from paths_tpu_torch.models.jax_init import fresh_model
 from paths_tpu_torch.models.recursive import RecursiveModel
 from paths_tpu_torch.serve import ServingSession
 from paths_tpu_torch.train import state as tstate
@@ -79,7 +80,7 @@ def test_port_export_loads_in_jax_bitwise(tmp_path, lstm):
     key space, which JAX's loader (strict on its keys) reads equal to the
     bit; a round trip through the port is the identity."""
     jcfg, tcfg, _ = _pair(lstm)
-    model = RecursiveModel(tcfg, generator=torch.Generator().manual_seed(4))
+    model = fresh_model(tcfg, 4)
     path = str(tmp_path / "model.pt")
     convert.save_torch_checkpoint(path, model)
     sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -139,7 +140,7 @@ def test_train_stats_pkl_resumes_as_jax(tmp_path):
 def test_npz_wins_over_model_pt(tmp_path):
     jcfg, tcfg, params = _pair(True, seed=1)
     jstate.save_state(str(tmp_path), params)
-    other = RecursiveModel(tcfg, generator=torch.Generator().manual_seed(9))
+    other = fresh_model(tcfg, 9)
     convert.save_torch_checkpoint(str(tmp_path / "model.pt"), other)
     model, _, stats = tstate.load_state(str(tmp_path), RecursiveModel(tcfg))
     _same_flat(convert.to_jax_flat(model), jstate._flatten(params))
@@ -148,7 +149,7 @@ def test_npz_wins_over_model_pt(tmp_path):
 
 def test_missing_reference_key_raises(tmp_path):
     _, tcfg, _ = _pair(True)
-    model = RecursiveModel(tcfg, generator=torch.Generator().manual_seed(0))
+    model = fresh_model(tcfg, 0)
     sd = convert.recursive_to_torch(model)
     del sd["lstm.forget_gate.0.weight"]
     with pytest.raises(KeyError):

@@ -237,6 +237,31 @@ def test_heatmap_cli_slide_id_reads_model_pt(tmp_path):
         main(["-m", mdir, "-o", out, "--device", "cpu"])
 
 
+def test_heatmap_cli_without_matplotlib_runs_the_recursion(tmp_path,
+                                                          monkeypatch, capsys):
+    """On a host without matplotlib the CLI runs the same recursion, draws
+    nothing and returns None; a window asked for still needs it."""
+    import sys
+
+    from paths_tpu_torch.cli.heatmap import main
+
+    tmp = str(tmp_path)
+    _, _, ids, mdir, _, model = _store_model(tmp)
+    convert.save_torch_checkpoint(os.path.join(mdir, "model.pt"), model)
+    calls = []
+    real = thm.recursion_from_store
+    monkeypatch.setattr(thm, "recursion_from_store",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    out = os.path.join(tmp, "hm_none.pdf")
+    assert main(["-m", mdir, "--slide-id", ids[0], "-o", out,
+                 "--device", "cpu"]) is None
+    assert calls == [1] and not os.path.exists(out)
+    assert "figure not drawn" in capsys.readouterr().out
+    with pytest.raises(ImportError):
+        thm._pyplot(show=True)
+
+
 def test_heatmap_cli_slide_path(tmp_path):
     """`--slide-path` with the kaiko-vits16 encoder (random weights, the
     plain route on the CPU) on the raw slide; a model.npz written by JAX."""

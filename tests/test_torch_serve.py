@@ -116,7 +116,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         "'encoders.resnet', 'encoders.torch_mirror', 'native.jpeg', "
         "'native.build', 'cli.verify_conversion', 'native.zstd', "
         "'train.ocdbt', 'train.zarr', 'train.orbax', 'export', 'cli.export', "
-        "'parallel.mesh', 'runtime'):\n"
+        "'parallel.mesh', 'runtime', 'examples.flagship_dress_rehearsal', "
+        "'examples.cohort_soak', 'examples.run_synthetic_demo', "
+        "'examples.rehearsal_draws', 'tools.profile_step'):\n"
         "    assert 'paths_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paths_tpu', 'pandas', 'matplotlib', 'PIL', "

@@ -40,6 +40,7 @@ from paths_tpu_torch.data import dataset as tdata
 from paths_tpu_torch.engine import hierarchy as th
 from paths_tpu_torch.engine import streaming as tstream
 from paths_tpu_torch.engine.tables import build_level_table
+from paths_tpu_torch.models.jax_init import fresh_model
 from paths_tpu_torch.train import loop as tloop
 
 IDX = [0, 1, 2, 3, 4, 5]
@@ -215,8 +216,7 @@ def test_streaming_matches_fused(store, dropout, training):
     same level order)."""
     tmp, ids, _ = store
     _, tcfg = configs(tmp, mc=dict(dropout=dropout))
-    model = tloop.RecursiveModel(tcfg,
-                                 generator=torch.Generator().manual_seed(4))
+    model = fresh_model(tcfg, 4)
     tds = _port_dataset(tcfg, ids)
     bag, tables = tdata.collate_batch(tds, IDX, level0_bucket=32, device="cpu")
     _, tlab = _labels()
