@@ -811,15 +811,13 @@ def training_phase(torch, tfa, gpu):
 
 
 @contextlib.contextmanager
-def planted_fault(tfa, fault):
+def planted_fault(tfa, fault, *modules):
     """While inside, the backward kernels' (dq, dk, dv) pass through
-    `fault` on their way to autograd."""
+    `fault` on their way to autograd (also where `modules` call them)."""
     bwd = tfa.masked_flash_attention_bwd
-    tfa.masked_flash_attention_bwd = lambda *args: fault(*bwd(*args))
-    try:
+    with repointed((tfa, *modules), masked_flash_attention_bwd=(
+            lambda *args: fault(*bwd(*args)))):
         yield
-    finally:
-        tfa.masked_flash_attention_bwd = bwd
 
 
 def grad_mismatch(got, want):
@@ -1289,18 +1287,31 @@ class Recorder:
 
 
 @contextlib.contextmanager
-def recorded(tfa):
+def recorded(tfa, *modules):
     """While inside, every call of the forward wrapper and of the backward
-    pair (through the module's names, as the model calls them) is recorded
-    in the lists of the yielded dict; restored after."""
+    pair (through the module's names, as the model calls them, and through
+    the same names in `modules`: the sequence schedules import them) is
+    recorded in the lists of the yielded dict; restored after."""
     log = {"fwd": [], "bwd": []}
     fwd, bwd = tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd
-    tfa.masked_flash_attention_fwd = Recorder(fwd, log["fwd"])
-    tfa.masked_flash_attention_bwd = Recorder(bwd, log["bwd"])
-    try:
+    with repointed((tfa, *modules),
+                   masked_flash_attention_fwd=Recorder(fwd, log["fwd"]),
+                   masked_flash_attention_bwd=Recorder(bwd, log["bwd"])):
         yield log
+
+
+@contextlib.contextmanager
+def repointed(modules, **names):
+    """While inside, each of `names` in each of `modules` is the given
+    object; restored after."""
+    saved = [(m, n, getattr(m, n)) for m in modules for n in names]
+    for m, n, _ in saved:
+        setattr(m, n, names[n])
+    try:
+        yield
     finally:
-        tfa.masked_flash_attention_fwd, tfa.masked_flash_attention_bwd = fwd, bwd
+        for m, n, old in saved:
+            setattr(m, n, old)
 
 
 def launch_agreement(tfa, log):
@@ -2640,7 +2651,8 @@ SEQ_ATTN_LENGTHS = (4097, 3001)
 # Schedules vs the one-device kernel on the whole sequence, f32: the
 # gathered schedule runs #1-#3 on the same rows and keys (only the
 # reduce-scatter adds a sum of 2 terms: the bit, or an ulp); the ring folds
-# two partials with `_combine` (a few f32 ulps) and sums dq over 2 steps:
+# two partials with `_combine` and sums dq over 2 steps, in f64 and rounded
+# once (the partials differ from the one-device kernel's by a few f32 ulps):
 # KERNEL_ATOL on outputs, BWD_RTOL of each gradient's own largest value.
 # bf16: the ring rounds P against each block's own running max, so it is
 # JAX's ring to the bit, not the one-device kernel: 5e-2 (JAX's
@@ -2658,6 +2670,26 @@ SEQ_ATTN_LENGTHS = (4097, 3001)
 # absolute error, which a relative bar cannot hold.
 SEQ_BF16_ATOL = 5e-2
 SEQ_BF16_GRAD_RTOL = 1.6e-2
+# [seq-bf16]: the bf16 configuration (`compute_dtype` and `table_dtype`
+# "bfloat16") under [1, 2] at the flagship's five levels and full width: 2
+# slides of 64 x 64 level-0 patches, so the deepest grid is 1024 x 1024 and
+# a slide holds 1,396,736 cells over the five levels (2.66 GiB at 1024-d in
+# 16 bits; written as f16, cast to bf16 at collation). Each rank holds the
+# batch's fused tables (about 5.3 GiB) on cuda:0. Bars as [bf16]'s: whole-
+# model gradients are no yardstick in bf16, so each step is held where the
+# kernels are (every launch against its plain version, BF16_FAULTS planted
+# in the schedule's backward must fail it), its loss against one process's
+# bf16 step at BF16_LOSS_RTOL, and each gradient tensor's distance from one
+# process's at SEQ_BF16_STEP_NORM of its `grad_norm_scale` (JAX's
+# `test_ring_bfloat16` bar, on whole tensors: an ulp's change of an
+# attention output moves an element behind a ReLU or a cancelling sum by
+# many ulps, a tensor's norm by the few the schedules' sums add); hazards,
+# kernel route vs plain route under the same schedule, at BF16_PRED_ATOL.
+# The bf16 `cli.train` runs take the 3-level [seq-train] store (its f32
+# features cast at collation).
+SEQ_BF16_LEVELS = 5
+SEQ_BF16_SLIDES = 2
+SEQ_BF16_STEP_NORM = 5e-2
 # [seq-train] one step's world-summed gradients (each rank's loss scaled by
 # 1 / sp, then one all-reduce) against one process's on the same batch from
 # the same weights: `grad_mismatch` (GRAD_RTOL of each tensor's own largest
@@ -2815,6 +2847,15 @@ def first_step(job):
     return {**res, "launches": counts()}
 
 
+def bf16_step(job):
+    import chip_smoke
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.parallel.mesh import mesh_from_config
+    mesh = mesh_from_config(Config.load(job["dir"]))
+    return chip_smoke.seq_bf16_step(torch, tfa, job, mesh, os.path.join(
+        out_dir, f"{job['name']}_{{}}_grads_rank{rank}.npz"))
+
+
 def evaluate(job):
     from paths_tpu_torch.cli.evaluate import main
     reset()
@@ -2917,6 +2958,214 @@ def seq_first_step(torch, model_dir, mesh=None, grads_to=None):
     return {"loss": float(loss), "params": h.hexdigest(), "peak_mib": peak}
 
 
+def bulk_signal_store(root, cfg, num_slides, grid, seed=0):
+    """A signal store (`data.synthetic.make_signal_store`'s layout: every
+    cell tissue, slide i's rows shifted by z_i along one direction) made in
+    bulk at full size: level 0's rows are drawn afresh (no two alike, so its
+    top-K sees no exact tie), the deeper levels' are gathered from a pool of
+    65536 such rows. Returns (ids, z)."""
+    import numpy as np
+
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.data.synthetic import signal_direction_z
+
+    store = FeatureStore(root, create=True)
+    rng = np.random.default_rng(seed)
+    d = cfg.model_config.patch_embed_dim
+    direction, z = signal_direction_z(rng, d, num_slides)
+    pool = rng.standard_normal((1 << 16, d), dtype=np.float32)
+    ids = []
+    for i in range(num_slides):
+        sid = f"SYN-{i:04d}-01Z-00"
+        ids.append(sid)
+        shift = (z[i] * direction).astype(np.float32)
+        shifted = (pool + shift).astype(np.float16)
+        for lvl, power in enumerate(cfg.power_levels()):
+            h = w = grid * 2 ** lvl
+            if lvl == 0:
+                rows = (rng.standard_normal((h * w, d), dtype=np.float32)
+                        + shift).astype(np.float16)
+            else:
+                rows = shifted[rng.integers(0, len(pool), h * w)]
+            store.save(sid, power, rows.reshape(h, w, d))
+    return ids, z
+
+
+def seq_bf16_store(torch, seq_cfg):
+    """The [seq-bf16] store and model directories at five levels (one
+    process, [1, 2] on each schedule), and the bf16 `cli.train` directories
+    on the 3-level [seq-train] store `seq_cfg`'s; all from JAX's seed-0
+    initial weights (`fresh_model`)."""
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.synthetic import make_signal_metadata
+    from paths_tpu_torch.models.jax_init import fresh_model
+    from paths_tpu_torch.train.state import save_state
+
+    bf16 = {"compute_dtype": "bfloat16", "table_dtype": "bfloat16"}
+    cfg = Config.load(os.path.join(ROOT, "models", "brca_paths_0"),
+                      test_mode=True)
+    if cfg.num_levels != SEQ_BF16_LEVELS:
+        raise AssertionError(f"[seq-bf16] brca_paths_0 has {cfg.num_levels} "
+                             f"levels, not {SEQ_BF16_LEVELS}")
+    cfg = copy_config(cfg, preprocess_dir=os.path.join(WORK, "seq_bf16_store"),
+                      csv_path=os.path.join(WORK, "seq_bf16_meta.csv"),
+                      hipt_splits=False, batch_size=[2] * SEQ_BF16_LEVELS,
+                      num_epochs=1, attention_impl="pallas", **bf16)
+    cfg.model_config.dropout = 0.0
+    t0 = time.perf_counter()
+    ids, z = bulk_signal_store(cfg.preprocess_dir, cfg, SEQ_BF16_SLIDES,
+                               SEQ_GRID)
+    make_signal_metadata(cfg.csv_path, ids, z, seed=0)
+    cells = sum((SEQ_GRID * 2 ** lvl) ** 2 for lvl in range(SEQ_BF16_LEVELS))
+    gib = cells * cfg.model_config.patch_embed_dim * 2 / 2 ** 30
+    written = time.perf_counter() - t0
+    model = fresh_model(cfg, 0)
+    dirs = {}
+    for name, changes in (("one", {}),
+                          ("gathered", {"mesh_shape": [1, 2]}),
+                          ("ring", {"mesh_shape": [1, 2],
+                                    "seq_attention": "ring"})):
+        dirs[name] = os.path.join(WORK, f"seq_bf16_{name}")
+        copy_config(cfg, **changes).save(dirs[name])
+        save_state(dirs[name], model)
+    model3 = fresh_model(seq_cfg, 0)
+    for name, changes in (("train_one", {}),
+                          ("train_gathered", {"mesh_shape": [1, 2]}),
+                          ("train_ring", {"mesh_shape": [1, 2],
+                                          "seq_attention": "ring"})):
+        dirs[name] = os.path.join(WORK, f"seq_bf16_{name}")
+        copy_config(seq_cfg, **bf16, **changes).save(dirs[name])
+        save_state(dirs[name], model3)
+    print(f"[seq-bf16] store: {len(ids)} slides of {SEQ_GRID} x {SEQ_GRID} "
+          f"level-0 patches, {SEQ_BF16_LEVELS} levels (deepest grid "
+          f"{SEQ_GRID * 2 ** (SEQ_BF16_LEVELS - 1)} x "
+          f"{SEQ_GRID * 2 ** (SEQ_BF16_LEVELS - 1)}), {cells} cells a slide, "
+          f"{gib:.2f} GiB a slide in 16 bits, written in {written:.1f} s",
+          flush=True)
+    return cfg, ids, dirs
+
+
+def seq_bf16_step(torch, tfa, job, mesh=None, grads_to=None):
+    """[seq-bf16]'s checks on one process or one rank of `mesh`: the 2-slide
+    batch of `job["dir"]`'s store collated once (this rank's level-0 block),
+    then for each schedule of `job` one bf16 AdamW step from the saved
+    weights with every #1-#3 launch recorded and held against its plain
+    version, its loss, launches and parameters' digest (and the gradients
+    into `grads_to.format(schedule)`); under a mesh also the BF16_FAULTS
+    planted in the schedule's backward, and the hazards of a no-grad
+    forward on the kernel and the plain route."""
+    import hashlib
+
+    import numpy as np
+
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.dataset import SlideDataset, collate_batch
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.engine.hierarchy import end2end_loss
+    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.parallel import seq_attention as sa
+    from paths_tpu_torch.train import loop
+    from paths_tpu_torch.train.state import load_state
+
+    cfg = Config.load(job["dir"])
+    t0 = time.perf_counter()
+    ds = SlideDataset(job["ids"], cfg, FeatureStore(cfg.preprocess_dir))
+    bag, tables = collate_batch(ds, [0, 1], level0_bucket=cfg.level0_bucket,
+                                device="cuda:0", seq=loop.seq_block(mesh))
+    torch.cuda.synchronize()
+    collate_s = time.perf_counter() - t0
+    table_gib = sum(t.fts.numel() * t.fts.element_size()
+                    for t in tables) / 2 ** 30
+    labels = {"survival_bin": torch.tensor([1, 2], device="cuda:0"),
+              "censored": torch.tensor([0, 1], device="cuda:0"),
+              "weight": torch.ones(2, device="cuda:0")}
+
+    def model_and_step(c):
+        model = RecursiveModel(c).to("cuda:0")
+        opt = loop.make_optimizer(c, model.parameters())
+        model, opt, _ = load_state(job["dir"], model, opt)
+        return model, loop.make_step_fns(c, opt, mesh)[0]
+
+    res = {"collate_s": collate_s, "table_gib": table_gib}
+    for schedule in job["schedules"]:
+        c = copy_config(cfg, seq_attention=schedule)
+        model, update = model_and_step(c)
+        for f in (tfa.masked_flash_attention_fwd,
+                  tfa.masked_flash_attention_bwd_dq,
+                  tfa.masked_flash_attention_bwd_dkv):
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded(tfa, sa) as log:
+            loss, _ = update(model, bag, tables, labels, epoch=1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launched = [f.launches for f in (
+                tfa.masked_flash_attention_fwd,
+                tfa.masked_flash_attention_bwd_dq,
+                tfa.masked_flash_attention_bwd_dkv)]
+            agreement = launch_agreement(tfa, log)
+        if any(p.dtype != torch.float32 for p in model.parameters()):
+            raise AssertionError("[seq-bf16] a step left a parameter off f32")
+        np.savez(grads_to.format(schedule),
+                 **{n: p.grad.float().cpu().numpy()
+                    for n, p in model.named_parameters() if p.grad is not None})
+        h = hashlib.sha256()
+        for p in model.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+        out = {"loss": float(loss), "launches": launched, "step_ms": wall,
+               "agreement": agreement, "params": h.hexdigest()}
+        if mesh is not None:
+            out["faults"] = {}
+            for label, fault in BF16_FAULTS.items():
+                model, update = model_and_step(c)
+                with planted_fault(tfa, fault, sa), recorded(tfa, sa) as log:
+                    update(model, bag, tables, labels, epoch=1)
+                    out["faults"][label] = launch_agreement(tfa, log)[2]
+            model, _ = model_and_step(c)
+            seq = sa.SeqSharding.from_mesh(mesh, schedule)
+            hazards = {}
+            with torch.no_grad():
+                for impl in ("pallas", "xla"):
+                    _, aux = end2end_loss(
+                        model, copy_config(c, attention_impl=impl), bag,
+                        tables, labels, seq_mesh=seq)
+                    hazards[impl] = aux["pred"].float().cpu().numpy()
+            out["hazard_diff"] = float(np.abs(hazards["pallas"]
+                                              - hazards["xla"]).max())
+            out["hazards"] = hazards["pallas"].tolist()
+        out["warm"] = warm_steps(torch, c, model_and_step, bag, tables, labels)
+        res[schedule] = out
+        del model
+    return res
+
+
+def warm_steps(torch, cfg, model_and_step, bag, tables, labels):
+    """A warm step's wall between CUDA events, its kernels' device time and
+    busy share, in bf16 and in f32 on the same batch (the tables widened on
+    the card): {"bf16" | "f32": {"ms", "kernel_ms", "busy"}}."""
+    import dataclasses
+
+    f32 = copy_config(cfg, compute_dtype="float32", table_dtype="float32")
+    wide = (dataclasses.replace(
+        bag, fts=bag.fts.float(), ctx_slide=bag.ctx_slide.float(),
+        ctx_patch=bag.ctx_patch.float()),
+        [dataclasses.replace(t, fts=t.fts.float()) for t in tables])
+    out = {}
+    for name, c, (b, t) in (("bf16", cfg, (bag, tables)), ("f32", f32, wide)):
+        model, update = model_and_step(c)
+
+        def step():
+            update(model, b, t, labels, epoch=1)
+
+        step()
+        ms = cuda_ms(step, iters=2, warmup=0)
+        kernel = device_ms(step, iters=1, attempts=1)
+        out[name] = {"ms": ms, "kernel_ms": kernel, "busy": kernel / ms}
+        del model
+    return out
+
+
 def seq_store(torch, gpu):
     """The [seq] store and model directories: one process (no mesh), [1, 2]
     on each schedule, and one process and [1, 2] at the published
@@ -2926,7 +3175,7 @@ def seq_store(torch, gpu):
         make_signal_metadata,
         make_signal_store,
     )
-    from paths_tpu_torch.models.recursive import RecursiveModel
+    from paths_tpu_torch.models.jax_init import fresh_model
     from paths_tpu_torch.train.state import save_state
 
     cfg = Config.load(os.path.join(ROOT, "models", "brca_paths_0"),
@@ -2949,7 +3198,8 @@ def seq_store(torch, gpu):
           f"{SEQ_GRID * 4} x {SEQ_GRID * 4}), "
           f"{cfg.model_config.patch_embed_dim}-d f32, written in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    model = RecursiveModel(cfg, generator=torch.Generator().manual_seed(0))
+    # JAX's seed-0 initial weights, what a new run trains from
+    model = fresh_model(cfg, 0)
     dirs = {}
     for name, changes in (("one", {}),
                           ("gathered", {"mesh_shape": [1, 2]}),
@@ -2981,6 +3231,14 @@ def seq_phases(torch, tfa, gpu):
 
     cfg, dirs = seq_store(torch, gpu)
     splits = load_splits([0.7, 0.15, 0.15], cfg.seed, cfg)
+    cfg16, ids16, dirs16 = seq_bf16_store(torch, cfg)
+    one16_grads = os.path.join(WORK, "seq_bf16_one_{}_grads.npz")
+    one16 = seq_bf16_step(torch, tfa, {"dir": dirs16["one"], "ids": ids16,
+                                       "schedules": ["gathered"]},
+                          None, one16_grads)
+    torch.cuda.empty_cache()
+    reset_counts(tfa)
+    one16_run = train_main(["-m", dirs16["train_one"], "--no-wandb"])
 
     # one process's first step (its gradients; at the published dropout its
     # peak memory), then its run of the same store, from the same weights
@@ -3034,8 +3292,13 @@ def seq_phases(torch, tfa, gpu):
             {"kind": "train", "name": "gathered", "dir": dirs["gathered"]},
             {"kind": "train", "name": "ring", "dir": dirs["ring"]},
             {"kind": "first_step", "name": "dropout", "dir": dirs["dropout"]},
-            {"kind": "evaluate", "name": "evaluate", "dir": dirs["gathered"]}]},
-                  f)
+            {"kind": "evaluate", "name": "evaluate", "dir": dirs["gathered"]},
+            {"kind": "bf16_step", "name": "bf16", "dir": dirs16["gathered"],
+             "ids": ids16, "schedules": ["gathered", "ring"]},
+            {"kind": "train", "name": "bf16_train_gathered",
+             "dir": dirs16["train_gathered"]},
+            {"kind": "train", "name": "bf16_train_ring",
+             "dir": dirs16["train_ring"]}]}, f)
     t0 = time.perf_counter()
     ranks = run_ranks(SEQ_CHILD, [[spec, out_dir]] * 2, SEQ_CHILD_TIMEOUT_S)
     wall = time.perf_counter() - t0
@@ -3223,7 +3486,146 @@ def seq_phases(torch, tfa, gpu):
           f"{CLI_EVAL_RTOL}); #1-#3 launches per rank "
           f"{ranks[0]['evaluate']['launches']}; {ranks[0]['evaluate']['wall_s']:.1f}"
           f" s a rank | {gpu}", flush=True)
+    seq_bf16_checks(torch, gpu, cfg16, dirs16, one16, one16_grads, one16_run,
+                    splits, ranks, out_dir)
+    for name in ("bf16_train_gathered", "bf16_train_ring"):
+        train_launches = [a + b for a, b in
+                          zip(train_launches, ranks[0][name]["launches"])]
     return train_launches
+
+
+def grad_norm_scale(grads, name):
+    """What a gradient tensor's distance from one process's is a share of
+    (numpy arrays by parameter name): its norm; a key bias's, the model's
+    largest gradient norm (its gradient is rounding noise); a query or key
+    projection's, its attention block's largest (their cotangents pass
+    through the softmax's centring, dS = P (dP - delta), so they are small
+    beside v's and out's while their rounding is the block's)."""
+    import numpy as np
+
+    if name.endswith(".k.bias"):
+        return max(np.linalg.norm(g) for g in grads.values())
+    block, proj, _ = name.rsplit(".", 2)
+    if proj in ("q", "k") and block.endswith("attn"):
+        return max(np.linalg.norm(g) for n, g in grads.items()
+                   if n.startswith(block + "."))
+    return np.linalg.norm(grads[name])
+
+
+def seq_bf16_checks(torch, gpu, cfg, dirs, one, one_grads, one_run, splits,
+                    ranks, out_dir):
+    """[seq-bf16]: see the note above SEQ_BF16_LEVELS. `one` is one
+    process's `seq_bf16_step` (gradients in `one_grads`), `one_run` its bf16
+    `cli.train` run on the 3-level store whose `splits` the ranks' runs
+    share."""
+    import numpy as np
+
+    from paths_tpu_torch.config import Config
+
+    want = dict(np.load(one_grads.format("gathered")))
+    batch, one = one, one["gathered"]
+    rank_batch = ranks[0]["bf16"]
+    layers = cfg.model_config.trans_layers
+    for schedule in ("gathered", "ring"):
+        res = [r["bf16"][schedule] for r in ranks]
+        failed = []
+        per = layers * (cfg.num_levels - 1) + layers * (
+            2 if schedule == "ring" else 1)
+        if any(r["launches"] != [per] * 3 for r in res):
+            failed.append(f"launches {[r['launches'] for r in res]}, the code "
+                          f"says {[per] * 3}")
+        if res[0]["params"] != res[1]["params"]:
+            failed.append("the ranks' parameters differ after the step")
+        rel = abs(res[0]["loss"] - one["loss"]) / abs(one["loss"])
+        if not rel <= BF16_LOSS_RTOL:
+            failed.append(f"loss {res[0]['loss']} vs one process "
+                          f"{one['loss']} ({rel:.3g})")
+        grads = [dict(np.load(os.path.join(
+            out_dir, f"bf16_{schedule}_grads_rank{r}.npz"))) for r in (0, 1)]
+        if any(not np.array_equal(grads[1][k], v) for k, v in grads[0].items()):
+            failed.append("the ranks' summed gradients differ")
+        if sorted(grads[0]) != sorted(want):
+            failed.append("gradients reach other tensors than one process's")
+        norm = max((float(np.linalg.norm(grads[0][k] - w)
+                          / max(grad_norm_scale(want, k), 1e-30)), k)
+                   for k, w in want.items() if k in grads[0])
+        if not norm[0] <= SEQ_BF16_STEP_NORM:
+            failed.append(f"gradient {norm[1]} at {norm[0]:.3g} of its norm "
+                          f"from one process's")
+        ulps = max(r["agreement"][0] for r in res)
+        changed = max(r["agreement"][1] for r in res)
+        ratio = max(r["agreement"][2] for r in res)
+        if not (ulps <= FLASH_BF16_ULPS and changed <= FLASH_BF16_CHANGED
+                and ratio <= 1.0):
+            failed.append(f"launches against their plain versions: forward "
+                          f"{ulps:.3g} ulps, {changed:.5f} changed; backward "
+                          f"{ratio:.3g} x its limit")
+        faults = {label: min(r["faults"][label] for r in res)
+                  for label in BF16_FAULTS}
+        for label, worst in faults.items():
+            if not worst > 1.0:
+                failed.append(f"planted fault ({label}) passes: {worst:.3g} x "
+                              "its limit")
+        hz = max(r["hazard_diff"] for r in res)
+        if not hz <= BF16_PRED_ATOL:
+            failed.append(f"hazards kernel vs plain route {hz:.3g}")
+        if failed:
+            raise AssertionError(f"[seq-bf16] {schedule}: " + "; ".join(failed))
+        print(f"[seq-bf16] one bf16 AdamW step under [1, 2], seq_attention "
+              f"{schedule}, {cfg.num_levels} levels at full width, 2 ranks on "
+              f"cuda:0: loss {res[0]['loss']:.6f} vs one process "
+              f"{one['loss']:.6f} (rel {rel:.3g}, rtol {BF16_LOSS_RTOL:.4g}); "
+              f"gradients equal on both ranks, worst tensor {norm[0]:.3g} of "
+              f"its norm from one process's ({norm[1]}; bar "
+              f"{SEQ_BF16_STEP_NORM}); parameters equal to the bit (sha256 "
+              f"{res[0]['params'][:12]}); #1-#3 launches per rank "
+              f"{res[0]['launches']} as the code says; each launch against "
+              f"its plain version: forward {ulps:.3g} ulps, {changed:.5f} "
+              f"changed, dq/dk/dv {ratio:.3g} x their limit; planted faults "
+              f"caught ({', '.join(f'{k} {v:.3g} x' for k, v in faults.items())}"
+              f"); hazards kernel vs plain route {hz:.3g} (atol "
+              f"{BF16_PRED_ATOL:.4g}); collate {rank_batch['collate_s']:.1f} s "
+              f"({rank_batch['table_gib']:.2f} GiB of tables a rank), first "
+              f"step {res[0]['step_ms']:.1f} ms a rank (one process "
+              f"{one['step_ms']:.1f} ms, collate {batch['collate_s']:.1f} s, "
+              f"{batch['table_gib']:.2f} GiB) | {gpu}", flush=True)
+        print(f"[seq-bf16] warm step, seq_attention {schedule}, rank 0 / one "
+              f"process, wall between CUDA events (kernels, busy share): "
+              + "; ".join(
+                  f"{dt} {res[0]['warm'][dt]['ms']:.1f} ms "
+                  f"({res[0]['warm'][dt]['kernel_ms']:.2f} ms, "
+                  f"{res[0]['warm'][dt]['busy']:.3f}) / "
+                  f"{one['warm'][dt]['ms']:.1f} ms "
+                  f"({one['warm'][dt]['kernel_ms']:.2f} ms, "
+                  f"{one['warm'][dt]['busy']:.3f})" for dt in ("bf16", "f32"))
+              + f" | {gpu}", flush=True)
+    want_loss = one_run["train_loss"][1]
+    for schedule in ("gathered", "ring"):
+        name = f"bf16_train_{schedule}"
+        c = Config.load(dirs[f"train_{schedule}"])
+        expect = expected_seq_launches(c, splits, 2)
+        rel = max(abs(r[name]["loss"] - want_loss) / abs(want_loss)
+                  for r in ranks)
+        failed = []
+        if any(r[name]["launches"] != expect for r in ranks):
+            failed.append(f"launches {[r[name]['launches'] for r in ranks]}, "
+                          f"the code says {expect}")
+        if ranks[0][name]["params"] != ranks[1][name]["params"]:
+            failed.append("the ranks' parameters differ after the epoch")
+        if not rel <= BF16_LOSS_RTOL:
+            failed.append(f"epoch-1 loss rel {rel:.3g} to one process's")
+        if failed:
+            raise AssertionError(f"[seq-bf16] {name}: " + "; ".join(failed))
+        print(f"[seq-bf16] cli.train bf16 mesh_shape [1, 2] seq_attention "
+              f"{schedule} on the 3-level [seq-train] store: epoch-1 loss "
+              f"{ranks[0][name]['loss']:.6f} vs one process {want_loss:.6f} "
+              f"(rel {rel:.3g}, rtol {BF16_LOSS_RTOL:.4g}); parameters equal "
+              f"to the bit on both ranks (sha256 "
+              f"{ranks[0][name]['params'][:12]}); #1-#3 launches per rank "
+              f"{ranks[0][name]['launches']} as the code says; steps "
+              f"{', '.join(f'{t:.1f}' for t in ranks[0][name]['steps_ms'])} ms"
+              f" a rank, epoch {ranks[0][name]['epoch_s']:.2f} s (one process "
+              f"{one_run['epoch_wall_s'][1]:.2f} s) | {gpu}", flush=True)
 
 
 def http_phase(torch, tfa, gpu, sl):
@@ -4215,15 +4617,26 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
 
 def make_blob_slide(path, side, seed):
     """A blob-on-white slide as a `.npy` array pyramid base: light background
-    with noise and a dark disc of tissue of radius 0.45 side."""
+    with noise and a dark disc of tissue of radius 0.45 side. The noise is
+    drawn as random bytes, row band by row band (a bounded integer draw
+    took most of a minute at 24576 px on the card's host)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    img = rng.integers(240, 250, (side, side, 3), dtype=np.uint8)
-    yy, xx = np.ogrid[0:side, 0:side]
-    blob = ((yy - side // 2) ** 2 + (xx - side // 2) ** 2) < (0.45 * side) ** 2
-    img[blob] = rng.integers(80, 160, (int(blob.sum()), 3), dtype=np.uint8)
-    np.save(path, img)
+    img = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint8,
+                                    shape=(side, side, 3))
+    xx = np.arange(side)[None, :]
+    band = 1024
+    for y0 in range(0, side, band):
+        yy = np.arange(y0, min(y0 + band, side))[:, None]
+        noise = np.frombuffer(rng.bytes(len(yy) * side * 3), np.uint8).reshape(
+            len(yy), side, 3)
+        blob = ((yy - side // 2) ** 2 + (xx - side // 2) ** 2
+                < (0.45 * side) ** 2)[..., None]
+        img[y0: y0 + len(yy)] = np.where(blob, 80 + (noise & 63),
+                                         240 + (noise & 7))
+    img.flush()
+    del img
 
 
 def feature_mismatch(got, want):

@@ -58,7 +58,10 @@ def build_level_table_numpy(grid: np.ndarray, min_rows: int = 0) -> dict:
     h, w, d = grid.shape
     flat = grid.reshape(-1, d)
     if flat.dtype == np.float16:
-        bg = ~np.any(flat != 0, axis=1)
+        # a half is zero when its bits but the sign's are: an integer test,
+        # several times faster than numpy's f16 compare
+        bits = np.ascontiguousarray(flat).view(np.uint16)
+        bg = ~np.any(bits & np.uint16(0x7FFF), axis=1)
     else:
         bg = flat.sum(axis=1) == 0
     nz = np.flatnonzero(~bg)           # row-major order

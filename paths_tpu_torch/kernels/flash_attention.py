@@ -27,7 +27,9 @@ TPU kernel walks the keys in blocks of `block_k` and rounds against the max
 it has seen so far), while the row sum l and the lse stay unrounded f32. The
 backward rounds dS to the input type before dS K (dq) and dS^T Q (dk); dv
 takes P unrounded. In f32 every such rounding is none and `block_k` changes
-nothing. The kernel takes `block_k` a multiple of 64, its key tile.
+nothing. The kernel takes `block_k` a multiple of 64, its key tile. The
+plain versions (CPU tensors) also take f64 and then sum in f64
+(`nn.core.wide`): a model run in f64 measures an f32 rounding gap.
 
 `masked_flash_attention_bwd(q, k, v, lengths, out, lse, dout) -> (dq, dk,
 dv)` launches the dq kernel (which also writes delta = rowsum(dO o O)) and
@@ -51,6 +53,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from paths_tpu_torch.kernels import build
+from paths_tpu_torch.nn.core import wide
 
 NEG_INF = -1e30
 L_FLOOR = 1e-30
@@ -85,11 +88,11 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"block_k {block_k} must be positive")
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
     nk = k.shape[2]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    s = torch.einsum("bhqd,bhkd->bhqk", wide(q), wide(k)) * sm_scale
     valid = _valid_keys(q, nk, lengths)
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    if q.dtype == torch.float32:
+    if q.dtype == s.dtype:
         m_key = m
     else:
         blocks = -(-nk // block_k)
@@ -101,8 +104,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(s - m_key) * valid
     rescale = torch.exp(m_key - m)
     l_safe = (p * rescale).sum(dim=-1, keepdim=True).clamp_min(L_FLOOR)
-    out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float() * rescale,
-                       v.float()) / l_safe
+    out = torch.einsum("bhqk,bhkd->bhqd", wide(p.to(q.dtype)) * rescale,
+                       wide(v)) / l_safe
     return out.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
@@ -111,7 +114,7 @@ def _probs(q, k, lengths, lse):
     as the TPU kernels do, and exactly 0 on masked keys (with length 0 the
     lse is about NEG_INF, so the exponent alone would not give 0)."""
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    s = torch.einsum("bhqd,bhkd->bhqk", wide(q), wide(k)) * sm_scale
     valid = _valid_keys(q, k.shape[2], lengths)
     s = s.masked_fill(~valid, NEG_INF)
     return torch.exp(s - lse[..., None]) * valid
@@ -123,11 +126,11 @@ def flash_bwd_dq_reference(q, k, v, lengths, out, lse, dout):
     delta) rounded to k's type (the TPU kernel's `ds.astype(k.dtype)`)."""
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, lengths, lse)
-    do = dout.float()
-    delta = (do * out.float()).sum(dim=-1)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do, v.float())
-    ds = (p * (dp - delta[..., None])).to(k.dtype).float()
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * sm_scale
+    do = wide(dout)
+    delta = (do * wide(out)).sum(dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, wide(v))
+    ds = wide((p * (dp - delta[..., None])).to(k.dtype))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, wide(k)) * sm_scale
     return dq.to(q.dtype), delta
 
 
@@ -137,11 +140,11 @@ def flash_bwd_dkv_reference(q, k, v, lengths, lse, dout, delta):
     TPU kernel's `ds.astype(q.dtype)`); rows of keys past the length are 0."""
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, lengths, lse)
-    do = dout.float()
+    do = wide(dout)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do, v.float())
-    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, wide(v))
+    ds = wide((p * (dp - delta[..., None])).to(q.dtype))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, wide(q)) * sm_scale
     return dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -19,7 +19,7 @@ from torch import nn
 from paths_tpu_torch.config import Config, PATHSProcessorConfig
 from paths_tpu_torch.models.aggregator import Aggregator
 from paths_tpu_torch.models.batch import PatchBag
-from paths_tpu_torch.nn.core import MLP, linear_apply, make_linear, sigmoid
+from paths_tpu_torch.nn.core import MLP, linear_apply, make_linear, sigmoid, wide
 from paths_tpu_torch.nn.lstm import LSTMCell, lstm_cell_apply
 
 
@@ -121,5 +121,5 @@ def processor_apply(proc: Processor, config: PATHSProcessorConfig,
         ft = slide_features
     logits = linear_apply(proc.classification, ft, cd)
 
-    return {"logits": logits.float(), "ctx_slide": slide_features,
+    return {"logits": wide(logits), "ctx_slide": slide_features,
             "ctx_patch": patch_ctx, "importance": importance}

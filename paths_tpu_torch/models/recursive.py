@@ -38,3 +38,18 @@ def recursive_apply(model: RecursiveModel, config: Config, depth: int,
                            depth, bag, lstm=getattr(model, "lstm", None),
                            training=training, generator=generator,
                            seq_mesh=seq_mesh)
+
+
+def narrow_params(model: RecursiveModel, config: Config) -> list:
+    """The parameters whose gradient on a rank is a value of
+    `config.compute_dtype` when that is narrower than f32: those the forward
+    casts to it once a step (every Linear weight and bias of the
+    processors, the special tokens). Not the LayerNorms, which normalise in
+    f32, nor the shared LSTM cell, cast once per level, whose gradient is
+    the f32 sum of one cast's per level. Empty in f32
+    (`parallel.mesh.all_reduce_grads`)."""
+    if getattr(torch, config.compute_dtype).itemsize >= 4:
+        return []
+    norms = {p for m in model.procs.modules() if isinstance(m, nn.LayerNorm)
+             for p in m.parameters(recurse=False)}
+    return [p for p in model.procs.parameters() if p not in norms]

@@ -17,7 +17,7 @@ from paths_tpu_torch.kernels.flash_attention import (
     flash_attention_fwd,
     masked_flash_attention,
 )
-from paths_tpu_torch.nn.core import dropout, linear_apply, make_linear
+from paths_tpu_torch.nn.core import dropout, linear_apply, make_linear, wide
 from paths_tpu_torch.ops.masking import NEG_INF
 
 # "auto" engages the flash kernels at and above this many keys, on CUDA only:
@@ -131,14 +131,14 @@ class MultiheadAttention(nn.Module):
             if shard is not None:
                 drop["shard"] = shard
             scale = 1.0 / math.sqrt(d // h)
-            logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+            logits = torch.einsum("bhqd,bhkd->bhqk", wide(q), wide(k)) * scale
             if key_valid is not None:
                 logits = logits.masked_fill(~key_valid[:, None, None, :], NEG_INF)
             weights = torch.softmax(logits, dim=-1)
             weights = dropout(weights, dropout_rate, **drop)
             # P rounded to cd, the product summed in f32 and rounded once:
             # JAX's preferred_element_type=f32
-            ctx = torch.einsum("bhqk,bhkd->bhqd", weights.to(cd).float(),
-                               v.float()).to(cd)
+            ctx = torch.einsum("bhqk,bhkd->bhqd", wide(weights.to(cd)),
+                               wide(v)).to(cd)
         ctx = ctx.transpose(1, 2).reshape(b, nq, d)
         return linear_apply(self.out, ctx, cd).to(query.dtype)

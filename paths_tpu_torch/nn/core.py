@@ -18,6 +18,13 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """x in the type the plain paths sum in: f32 for f32 and narrower types
+    (XLA's `preferred_element_type=f32`), f64 for f64 (so a model run in f64
+    on the CPU is f64 throughout, the yardstick of an f32 rounding gap)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def make_linear(in_features: int, out_features: int, *, init: str = "torch",
                 generator: Optional[torch.Generator] = None) -> nn.Linear:
     """An `nn.Linear` initialised from `generator` ("torch": uniform
@@ -147,14 +154,14 @@ class MLP(nn.Module):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with eps 1e-5, normalising in f32 whatever the input type."""
+    """LayerNorm with eps 1e-5, normalising in f32 (f64 for f64 inputs)."""
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
-                         self.bias.float(), self.eps)
+        y = F.layer_norm(wide(x), self.normalized_shape, wide(self.weight),
+                         wide(self.bias), self.eps)
         return y.to(x.dtype)
 
 

@@ -34,6 +34,11 @@ gradients), and every rank of a group scales the loss it differentiates by
 is then the gradient of the global loss: work replicated in a group counts
 sp times 1 / sp, and each level-0 block counts its own rows once. Logged
 losses are not scaled.
+
+In the bf16 configuration the sums round where JAX's partitioned program
+rounds: a weight's bf16 partial gradients are summed in f32 and the sum is
+rounded to bf16 once (`all_reduce_grads`' `narrow`), and the sequence
+group's sums of bf16 tensors run in f32 (`parallel/seq_attention.py`).
 """
 from __future__ import annotations
 
@@ -211,7 +216,9 @@ def replicate(mesh, model: torch.nn.Module, optimizer=None) -> None:
 
 
 @torch.no_grad()
-def all_reduce_grads(mesh, params: Iterable[torch.nn.Parameter]) -> None:
+def all_reduce_grads(mesh, params: Iterable[torch.nn.Parameter],
+                     narrow: Iterable[torch.nn.Parameter] = (),
+                     dtype: Optional[torch.dtype] = None) -> None:
     """Sum every gradient over the ranks, in place, with one all-reduce per
     dtype over a flat buffer. Each rank's loss is already divided by the
     global batch's weight (`ops.losses`), so the sum is the gradient of the
@@ -220,7 +227,15 @@ def all_reduce_grads(mesh, params: Iterable[torch.nn.Parameter]) -> None:
     the same parameters hold gradients on every rank; the ranks of a
     sequence group do not (only sequence index 0 holds level 0's special
     token), so there a parameter that holds a gradient on any rank gets a
-    zero one where it has none."""
+    zero one where it has none.
+
+    `narrow` (`models.recursive.narrow_params`): parameters whose gradient
+    on a rank is a value of the compute type `dtype` (bf16), which the sum
+    then takes to that type with one rounding: where JAX's partitioned
+    program sums the ranks' bf16 partial products (in f32 on XLA's CPU and
+    GPU backends) and converts the sum to bf16 before the f32 parameter's
+    convert, so a rank's f32 sum alone would keep up to half a bf16 ulp
+    that JAX's gradient does not have."""
     if world_size(mesh) == 1:
         return
     params = list(params)
@@ -239,6 +254,9 @@ def all_reduce_grads(mesh, params: Iterable[torch.nn.Parameter]) -> None:
         for g in group:
             g.copy_(flat[off: off + g.numel()].view_as(g))
             off += g.numel()
+    for p in narrow:
+        if p.grad is not None:
+            p.grad.copy_(p.grad.to(dtype))
 
 
 def gather_objects(mesh, obj) -> list:

@@ -15,14 +15,16 @@ Function` over the group, on the flash kernels #1-#3
 * ring (`ring_flash_attention`): sp steps of #1 on the K/V block held, which
   came from rank src = (index - i) mod sp and is masked to its slice of the
   global prefix, blk_len = clip(lengths - src m, 0, m); the partials fold
-  into an f32 (out, lse) carry with `_combine` in JAX's order, and the
-  blocks rotate to the next rank. Backward: sp steps of #2 / #3 on each
-  block with the GLOBAL out and lse, the dK / dV accumulators rotating with
-  their blocks until they are home.
+  into an (out, lse) carry with `_combine` in JAX's order, and the blocks
+  rotate to the next rank. Backward: sp steps of #2 / #3 on each block with
+  the GLOBAL out and lse, the dQ sum and the dK / dV accumulators rotating
+  with their blocks until they are home. The fold is f64 for f32 inputs
+  and JAX's (an f32 carry, bf16 accumulators) for bf16 (`_fold_dtype`).
 
 The collectives of the forward and their adjoints (also the broadcast, the
 sum and the gathers that the model and the hierarchy use) are `SeqSharding`
-methods. They run over the group's backend: NCCL when each rank has its own
+methods; their sums take bf16 in f32 and round once, as XLA sums a bf16
+all-reduce. They run over the group's backend: NCCL when each rank has its own
 card; gloo on the CPU and when the ranks share one card. gloo takes CUDA
 tensors in its collectives, but its send and receive abort the process on
 one (torch 2.11), so the ring's exchange alone crosses through page-locked
@@ -100,16 +102,20 @@ class SeqSharding:
 
     def scatter_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block along `dim` of the sum of x over the group (the
-        adjoint of `gather`)."""
-        x = x.movedim(dim, 0).contiguous()
-        out = x.new_empty((x.shape[0] // self.size,) + x.shape[1:])
-        self._collective(dist.reduce_scatter_tensor, out, x)
-        return out.movedim(0, dim).contiguous()
+        adjoint of `gather`; a narrow type summed as `sum_` sums it)."""
+        y = _summand(x).movedim(dim, 0).contiguous()
+        out = y.new_empty((y.shape[0] // self.size,) + y.shape[1:])
+        self._collective(dist.reduce_scatter_tensor, out, y)
+        return out.to(x.dtype).movedim(0, dim).contiguous()
 
     def sum_(self, x: torch.Tensor) -> torch.Tensor:
-        """x summed over the group, in place."""
-        dist.all_reduce(x, group=self.group)
-        return x
+        """x summed over the group, in place. A float type narrower than f32
+        (bf16) is summed in f32 and rounded once, as XLA's CPU and GPU
+        backends sum a bf16 all-reduce (gloo would round after every add:
+        at sp 4 a third of a sum's elements then differ)."""
+        y = _summand(x)
+        dist.all_reduce(y, group=self.group)
+        return x.copy_(y) if y is not x else x
 
     def broadcast_(self, x: torch.Tensor) -> torch.Tensor:
         """Sequence index 0's x on every rank, in place."""
@@ -118,9 +124,11 @@ class SeqSharding:
 
     def reduce_(self, x: torch.Tensor) -> torch.Tensor:
         """x summed over the group into sequence index 0's x, in place (the
-        adjoint of `broadcast_`); other ranks' x is left undefined."""
-        dist.reduce(x, dst=self.ranks[0], group=self.group)
-        return x
+        adjoint of `broadcast_`; a narrow type summed as `sum_` sums it);
+        other ranks' x is left undefined."""
+        y = _summand(x)
+        dist.reduce(y, dst=self.ranks[0], group=self.group)
+        return x.copy_(y) if y is not x else x
 
     def rotate(self, *xs: torch.Tensor) -> list:
         """Each of xs sent to the next rank of the ring, index + 1 mod sp;
@@ -161,6 +169,13 @@ class SeqSharding:
         """The `nn.core.dropout` shard of a tensor whose rows are this
         rank's block of the group's."""
         return (self.index, self.size)
+
+
+def _summand(x: torch.Tensor) -> torch.Tensor:
+    """x as a collective sums it: a float type narrower than f32 in f32."""
+    if x.is_floating_point() and x.dtype.itemsize < 4:
+        return x.float()
+    return x
 
 
 class _AllGather(torch.autograd.Function):
@@ -236,17 +251,27 @@ def seq_sharded_flash_attention(sharding: SeqSharding, q, k, v, lengths, *,
 
 # -------------------------------------------------------------------- ring
 
+def _fold_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the ring folds its partials in: f64 for f32 inputs, so that
+    the fold adds no rounding of its own to the kernels' (an f32 fold put
+    the flagship's ring step at the edge of its bar against one process),
+    and for bf16 JAX's types (an f32 carry, bf16 gradient accumulators)."""
+    return torch.float64 if dtype == torch.float32 else dtype
+
+
 def _combine(o1, lse1, o2, lse2):
     """Fold two attention partials over disjoint key sets into one: out =
     the average of the outs weighted by exp(lse), lse = logaddexp. An empty
-    partial carries lse about NEG_INF and weighs nothing. In f32 whatever
-    the input type (the ring's carry stays f32)."""
+    partial carries lse about NEG_INF and weighs nothing. In the carry's
+    type, lse1's: f32 at least (JAX's ring keeps an f32 carry), f64 for f32
+    and f64 inputs (`_fold_dtype`)."""
+    lse2 = lse2.to(lse1.dtype)
     m = torch.maximum(lse1, lse2)
     w1 = torch.exp(lse1 - m)
     w2 = torch.exp(lse2 - m)
     den = torch.clamp_min(w1 + w2, 1e-30)
-    out = (o1.float() * (w1 / den)[..., None]
-           + o2.float() * (w2 / den)[..., None])
+    out = (o1.to(lse1.dtype) * (w1 / den)[..., None]
+           + o2.to(lse1.dtype) * (w2 / den)[..., None])
     return out, m + torch.log(den)
 
 
@@ -261,8 +286,9 @@ class _RingAttention(torch.autograd.Function):
         q, k, v = (t.detach().contiguous() for t in (q, k, v))
         idx, sp, m = sharding.index, sharding.size, k.shape[2]
         b, h, nq, _ = q.shape
-        out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        lse = torch.full((b, h, nq), float("-inf"), dtype=torch.float32,
+        acc = torch.promote_types(_fold_dtype(q.dtype), torch.float32)
+        out = torch.zeros(q.shape, dtype=acc, device=q.device)
+        lse = torch.full((b, h, nq), float("-inf"), dtype=acc,
                          device=q.device)
         k_cur, v_cur = k, v
         for i in range(sp):
@@ -273,7 +299,7 @@ class _RingAttention(torch.autograd.Function):
             if i != sp - 1:
                 k_cur, v_cur = sharding.rotate(k_cur, v_cur)
         out = out.to(q.dtype)
-        lse = lse.contiguous()
+        lse = lse.to(torch.promote_types(q.dtype, torch.float32)).contiguous()
         ctx.sharding = sharding
         ctx.save_for_backward(q, k, v, lengths, out, lse)
         return out
@@ -285,8 +311,10 @@ class _RingAttention(torch.autograd.Function):
         s = ctx.sharding
         idx, sp, m = s.index, s.size, k.shape[2]
         out, dout = out.detach(), dout.contiguous()
-        dq = torch.zeros_like(q)
-        dk_cur, dv_cur = torch.zeros_like(k), torch.zeros_like(v)
+        fold = _fold_dtype(q.dtype)
+        dq = torch.zeros_like(q, dtype=fold)
+        dk_cur = torch.zeros_like(k, dtype=fold)
+        dv_cur = torch.zeros_like(v, dtype=fold)
         k_cur, v_cur = k, v
         for i in range(sp):
             src = (idx - i) % sp
@@ -299,7 +327,8 @@ class _RingAttention(torch.autograd.Function):
                     dk_cur + dk_i, dv_cur + dv_i, k_cur, v_cur)
             else:
                 dk_cur, dv_cur = s.rotate(dk_cur + dk_i, dv_cur + dv_i)
-        return dq, dk_cur, dv_cur, None, None, None
+        return (dq.to(q.dtype), dk_cur.to(k.dtype), dv_cur.to(v.dtype), None,
+                None, None)
 
 
 def ring_flash_attention(sharding: SeqSharding, q, k, v, lengths, *,

@@ -63,6 +63,7 @@ from paths_tpu_torch.engine.hierarchy import end2end_loss
 from paths_tpu_torch.engine.streaming import StreamingEngine
 from paths_tpu_torch.models.jax_init import fresh_model
 from paths_tpu_torch.models.recursive import RecursiveModel  # noqa: F401
+from paths_tpu_torch.models.recursive import narrow_params
 from paths_tpu_torch.parallel.mesh import (
     all_reduce_grads,
     barrier,
@@ -71,6 +72,7 @@ from paths_tpu_torch.parallel.mesh import (
     mesh_from_config,
     replicate,
     seq_axis_size,
+    world_size,
 )
 from paths_tpu_torch.parallel.seq_attention import SeqSharding
 from paths_tpu_torch.profiling import host_rss_mb
@@ -115,12 +117,15 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
 
 
 def optimizer_step(config: Config, optimizer: torch.optim.Optimizer,
-                   mesh=None) -> None:
-    """Apply the gradients in `.grad`: summed over the ranks of `mesh`, the
+                   mesh=None, model=None) -> None:
+    """Apply the gradients in `.grad`: summed over the ranks of `mesh` (the
+    sums of `model`'s `narrow_params` rounded to the compute type), the
     optional global-norm clip, then AdamW. Both engines' train steps end
     here."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    all_reduce_grads(mesh, params)
+    narrow = (narrow_params(model, config)
+              if model is not None and world_size(mesh) > 1 else ())
+    all_reduce_grads(mesh, params, narrow, getattr(torch, config.compute_dtype))
     if config.clip_grad_norm:
         clip_by_global_norm_([p.grad for p in params if p.grad is not None],
                              config.clip_grad_norm)
@@ -160,7 +165,7 @@ def make_step_fns(config: Config, optimizer: torch.optim.Optimizer,
                                  training=True, generator=generator,
                                  denom=denom, seq_mesh=seq_mesh)
         (loss * scale).backward()
-        optimizer_step(config, optimizer, mesh)
+        optimizer_step(config, optimizer, mesh, model)
         return loss.detach(), _detach(aux)
 
     @torch.no_grad()
@@ -503,7 +508,7 @@ def train_loop(config: Config, model_dir: str, train_ds: SlideDataset,
                 loss, pred, _ = eng.loss_and_grad(model, bag0, host_tables,
                                                   labels, generator=generator,
                                                   denom=float(w.sum()))
-                optimizer_step(config, optimizer, mesh)
+                optimizer_step(config, optimizer, mesh, model)
                 reg.push(labels, pred, loss, w)
                 unload(train_ds, slides)
         else:

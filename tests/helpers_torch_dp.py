@@ -21,8 +21,14 @@ Jobs (`kind`):
            block of an npz's q, k, v: outputs and gradients (f32), the ring
            in bf16
   level0   level 0 under a config's (data x model) mesh on this rank's block
-           of an npz's whole bag, on the routes and schedules asked: logits
-           and the gathered importance; with "tables" also `end2end_loss`
+           of an npz's whole bag (its features in the config's table type),
+           on the routes and schedules asked: logits and the gathered
+           importance; with "tables" also `end2end_loss`
+  affine   a bf16 affine map on this rank's rows of an npz's x and cotangent
+           g, its weight's gradient summed over the world by
+           `all_reduce_grads` (rounded to bf16 with "narrow")
+  sums     the sequence group's sums of this rank's row of an npz's bf16
+           parts over the world: `sum_`, `reduce_` and `scatter_sum`
 """
 import json
 import os
@@ -128,12 +134,15 @@ def _run(job: dict, rank: int, out: str, device):
     from paths_tpu_torch.train import loop as tloop
     from paths_tpu_torch.train import state as tstate
 
-    kind, d = job["kind"], job["dir"]
+    kind, d = job["kind"], job.get("dir")
     arrays = {}
     if kind == "step":
         cfg = Config.load(d)
         mesh = mesh_from_config(cfg)
-        model = RecursiveModel(cfg).to(device)
+        # parameters in the config's compute type when it is f64 (the f64
+        # yardstick of an f32 rounding gap), else f32
+        model = RecursiveModel(cfg).to(device, torch.promote_types(
+            getattr(torch, cfg.compute_dtype), torch.float32))
         opt = tloop.make_optimizer(cfg, model.parameters())
         model, opt, _ = tstate.load_state(d, model, opt)
         replicate(mesh, model, opt)
@@ -186,6 +195,10 @@ def _run(job: dict, rank: int, out: str, device):
         arrays, result = _seq_attn(job, device)
     elif kind == "level0":
         arrays, result = _level0(job, device)
+    elif kind == "affine":
+        arrays, result = _affine(job, device), {}
+    elif kind == "sums":
+        arrays, result = _sums(job, device), {}
     else:
         raise ValueError(kind)
     if arrays:
@@ -196,7 +209,8 @@ def _run(job: dict, rank: int, out: str, device):
 def _seq_attn(job: dict, device):
     """Each schedule over the whole world on this rank's blocks of q, k, v
     (B, H, N, D): the output block and the gradients of sum(out * w) (f32),
-    and the ring's output in bf16 (as f32)."""
+    each ring step's partial output, lse and dq, and the ring's output and
+    gradients in bf16 (as f32)."""
     import torch
 
     from paths_tpu_torch.parallel import seq_attention as sa
@@ -212,18 +226,87 @@ def _seq_attn(job: dict, device):
                  for k in ("q", "k", "v", "w")}
         lengths = torch.from_numpy(inp["lengths"]).to(device)
         q, k, v = (block[n].requires_grad_() for n in "qkv")
-        out = sharding.attend(q, k, v, lengths, block_k=job["block_k"])
-        (out * block["w"]).sum().backward()
+        parts = {"o": [], "lse": [], "dq": []}
+        fwd, bwd = sa.masked_flash_attention_fwd, sa.masked_flash_attention_bwd
+
+        def fwd_kept(*args):
+            o, lse = fwd(*args)
+            parts["o"].append(o)
+            parts["lse"].append(lse)
+            return o, lse
+
+        def bwd_kept(*args):
+            dq, dk, dv = bwd(*args)
+            parts["dq"].append(dq)
+            return dq, dk, dv
+
+        sa.masked_flash_attention_fwd = fwd_kept
+        sa.masked_flash_attention_bwd = bwd_kept
+        try:
+            out = sharding.attend(q, k, v, lengths, block_k=job["block_k"])
+            (out * block["w"]).sum().backward()
+        finally:
+            sa.masked_flash_attention_fwd = fwd
+            sa.masked_flash_attention_bwd = bwd
+        if impl == "ring":
+            # each step's partial, the step axis after the row axis (the
+            # test joins the ranks' blocks along the rows)
+            arrays.update({f"ring_part_{n}": torch.stack(t, 3).cpu().numpy()
+                           for n, t in parts.items()})
         arrays.update({f"{impl}_out": out.detach().cpu().numpy(),
                        f"{impl}_dq": q.grad.cpu().numpy(),
                        f"{impl}_dk": k.grad.cpu().numpy(),
                        f"{impl}_dv": v.grad.cpu().numpy()})
         if impl == "ring":
-            bf = [block[n].bfloat16() for n in "qkv"]
+            bf = [block[n].detach().bfloat16().requires_grad_() for n in "qkv"]
             out = sharding.attend(*bf, lengths, block_k=job["block_k"])
+            (out * block["w"].bfloat16()).sum().backward()
             arrays["ring_bf16_out"] = out.detach().float().cpu().numpy()
+            arrays.update({f"ring_bf16_d{n}": t.grad.float().cpu().numpy()
+                           for n, t in zip("qkv", bf)})
             result = {"bf16_dtype": str(out.dtype)}
     return arrays, result
+
+
+def _affine(job: dict, device):
+    """d(sum(affine(x, w, b) * g))/dw and /db on this rank's block of rows,
+    in bf16 from f32 parameters, summed over the world."""
+    import torch
+
+    from paths_tpu_torch.nn.core import affine
+    from paths_tpu_torch.parallel.mesh import ProcessMesh, all_reduce_grads
+
+    mesh = ProcessMesh.current()
+    with np.load(job["inputs"]) as f:
+        inp = dict(f)
+    rows = mesh.rows(inp["x"].shape[0])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    w = t(inp["w"]).requires_grad_()
+    b = t(inp["b"]).requires_grad_()
+    bf = torch.bfloat16
+    out = affine(t(inp["x"][rows]).to(bf), w.to(bf), b.to(bf))
+    out.backward(t(inp["g"][rows]).to(bf))
+    all_reduce_grads(mesh, [w, b], [w, b] if job["narrow"] else (), bf)
+    return {"w": w.grad.cpu().numpy(), "b": b.grad.cpu().numpy()}
+
+
+def _sums(job: dict, device):
+    """This rank's row of the npz's (world, n) parts in bf16, summed over
+    the world as a sequence group: in place (`sum_`), into rank 0
+    (`reduce_`) and this rank's block of the sum (`scatter_sum`)."""
+    import torch
+
+    from paths_tpu_torch.parallel.seq_attention import SeqSharding
+
+    sh = SeqSharding(None)
+    with np.load(job["inputs"]) as f:
+        part = torch.from_numpy(f["parts"][sh.index]).to(device).bfloat16()
+    arrays = {"sum": sh.sum_(part.clone()).float(),
+              "scatter": sh.scatter_sum(part.clone(), 0).float()}
+    reduced = sh.reduce_(part.clone()).float()
+    if sh.index == 0:
+        arrays["reduce"] = reduced
+    return {k: v.cpu().numpy() for k, v in arrays.items()}
 
 
 def _level0(job: dict, device):
@@ -250,10 +333,11 @@ def _level0(job: dict, device):
         inp = dict(f)
     rows = mesh.rows(inp["fts"].shape[0])
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)  # noqa: E731
-    whole = PatchBag(fts=t(inp["fts"]), locs=t(inp["locs"]).long(),
+    dt = getattr(torch, cfg.table_dtype)
+    whole = PatchBag(fts=t(inp["fts"]).to(dt), locs=t(inp["locs"]).long(),
                      mask=t(inp["mask"]), parent_inds=t(inp["parent"]).long(),
-                     ctx_slide=t(inp["ctx_slide"]),
-                     ctx_patch=t(inp["ctx_patch"]))
+                     ctx_slide=t(inp["ctx_slide"]).to(dt),
+                     ctx_patch=t(inp["ctx_patch"]).to(dt))
     bag = shard_bag_patches(whole, mesh.seq_index, mesh.seq)
     arrays, result = {}, {}
     for impl_attn, impl_seq in job["routes"]:
@@ -264,12 +348,14 @@ def _level0(job: dict, device):
         with torch.no_grad():
             out = th.gather_level0(
                 bag, recursive_apply(model, c, 0, bag, seq_mesh=seq), seq)
-        arrays[f"{name}_logits"] = out["logits"].cpu().numpy()
-        arrays[f"{name}_importance"] = out["importance"].cpu().numpy()
+        arrays[f"{name}_logits"] = out["logits"].float().cpu().numpy()
+        arrays[f"{name}_importance"] = out["importance"].float().cpu().numpy()
         if job.get("tables"):
             tables = [LevelTable(**{k[len(f"t{i}_"):]: t(v) for k, v in
                                     inp.items() if k.startswith(f"t{i}_")})
                       for i in range(cfg.num_levels - 1)]
+            tables = [dataclasses.replace(tb, fts=tb.fts.to(dt))
+                      for tb in tables]
             labels = {k: t(inp[f"label_{k}"]) for k in ("survival_bin",
                                                         "censored")}
             labels["weight"] = torch.ones(len(labels["censored"]))

@@ -1358,8 +1358,9 @@ def test_seq_attention_schedules_match_one_device(card, tmp_path, backend,
     ("nccl", [2, 2], "ring")])
 def test_seq_step_matches_one_process(card, tmp_path, backend, mesh_shape,
                                       schedule):
-    """One sequence-parallel AdamW step on the kernel route against one
-    process's step on the whole batch: the data indices' losses add up to
+    """One sequence-parallel AdamW step on the kernel route from JAX's seed-0
+    initial weights against one process's step on the whole batch: the data
+    indices' losses add up to
     its loss within 1e-6 relative, the world-summed gradients agree with its
     gradients within 1e-4 of each tensor's largest (a key bias, whose
     gradient is rounding noise, of the model's largest: AdamW's first step
@@ -1376,11 +1377,15 @@ def test_seq_step_matches_one_process(card, tmp_path, backend, mesh_shape,
     from paths_tpu_torch.train import loop as tloop
     from paths_tpu_torch.train import state as tstate
 
+    from paths_tpu_torch.models.jax_init import fresh_model
+
     world = mesh_shape[0] * mesh_shape[1]
     device, reason = _seq_layout(backend, world)
     if reason:
         pytest.skip(reason)
     d, cfg = _small_model_dir(str(tmp_path))
+    # JAX's seed-0 initial weights: what a new run trains from
+    tstate.save_state(d, fresh_model(cfg, 0))
     seq_cfg = Config.load(d)
     seq_cfg.mesh_shape, seq_cfg.seq_attention = mesh_shape, schedule
     seq_cfg.save(d)
@@ -1420,6 +1425,101 @@ def test_seq_step_matches_one_process(card, tmp_path, backend, mesh_shape,
             ref = largest
         np.testing.assert_allclose(got[0]["grad/" + n], want, rtol=0,
                                    atol=1e-4 * ref, err_msg=n)
+
+
+# The bf16 configuration across processes: one AdamW step under a data or
+# (data x model) mesh against one process's bf16 step on the same batch from
+# JAX's seed-0 weights. The losses to 4u relative (u = 2^-8), each gradient
+# tensor's distance from one process's to 5e-2 of its `_grad_norm_scale`
+# (chip_smoke.py's SEQ_BF16_STEP_NORM: elementwise, whole-model gradients
+# are no yardstick in bf16), and every rank's parameters and gradients equal
+# to the bit.
+def _grad_norm_scale(grads, name):
+    """What a gradient tensor's distance from another is a share of: its
+    norm; a key bias's (zero in exact arithmetic), the model's largest
+    gradient norm; a query or key projection's, its attention block's
+    largest (their cotangents pass through the softmax's centring, dS =
+    P (dP - delta), so they are small beside v's and out's while their
+    rounding is the block's: the ring at sp 4 rounds P against four blocks'
+    maxima, as JAX's does, and the q weights then part from one process's by
+    1.14 x 5e-2 of their own norm)."""
+    if name.endswith(".k.bias"):
+        return max(np.linalg.norm(g) for g in grads.values())
+    block, proj, _ = name.rsplit(".", 2)
+    if proj in ("q", "k") and block.endswith("attn"):
+        return max(np.linalg.norm(g) for n, g in grads.items()
+                   if n.startswith(block + "."))
+    return np.linalg.norm(grads[name])
+
+
+def _bf16_mesh_step(card, tmp_path, backend, mesh_shape, schedule):
+    from helpers_torch_dp import launch
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data import dataset as tdata
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.models.jax_init import fresh_model
+    from paths_tpu_torch.train import loop as tloop
+    from paths_tpu_torch.train import state as tstate
+
+    world = mesh_shape[0] * (mesh_shape[1] if len(mesh_shape) > 1 else 1)
+    device, reason = _seq_layout(backend, world)
+    if reason:
+        pytest.skip(reason)
+    d, cfg = _small_model_dir(str(tmp_path))
+    cfg.compute_dtype = cfg.table_dtype = "bfloat16"
+    tstate.save_state(d, fresh_model(cfg, 0))
+    mesh_cfg = Config.load(d)
+    mesh_cfg.compute_dtype = mesh_cfg.table_dtype = "bfloat16"
+    mesh_cfg.mesh_shape, mesh_cfg.seq_attention = mesh_shape, schedule
+    mesh_cfg.save(d)
+    job = dict(_dp_step_job(d, cfg), grads=True)
+    ranks = launch((world, [job], str(tmp_path / "out")), device=device,
+                   backend=backend)[0]
+    got = [dict(np.load(str(tmp_path / "out" / f"step_rank{r}.npz")))
+           for r in range(world)]
+    for r in range(1, world):
+        for k, v in got[0].items():
+            np.testing.assert_array_equal(got[r][k], v, err_msg=f"{r} {k}")
+
+    model = fresh_model(cfg, 0).to(card)
+    opt = tloop.make_optimizer(cfg, model.parameters())
+    ds = tdata.SlideDataset(job["ids"], cfg, FeatureStore(cfg.preprocess_dir))
+    bag, tables = tdata.collate_batch(ds, job["idx"], level0_bucket=32,
+                                      pads=ds.global_pads(), device=card)
+    assert bag.fts.dtype == torch.bfloat16
+    labels = {k: torch.tensor(v, device=card) for k, v in job["labels"].items()}
+    loss, _ = tloop.make_step_fns(cfg, opt)[0](model, bag, tables, labels,
+                                                epoch=1)
+    np.testing.assert_allclose(
+        sum(r["step"]["loss"] for r in ranks if r["step"]["seq_index"] == 0),
+        loss.item(), rtol=4 * BF16_U)
+    grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters()
+             if p.grad is not None}
+    assert sorted("grad/" + n for n in grads) == sorted(
+        k for k in got[0] if k.startswith("grad/"))
+    for n, want in grads.items():
+        dist = np.linalg.norm(got[0]["grad/" + n] - want)
+        assert dist <= 5e-2 * max(_grad_norm_scale(grads, n), 1e-30), n
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_dp_bf16_step_matches_one_process(card, tmp_path, backend):
+    """The bf16 step under [2] (`_bf16_mesh_step`)."""
+    _bf16_mesh_step(card, tmp_path, backend, [2], "gathered")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,mesh_shape,schedule", [
+    ("gloo", [1, 2], "gathered"), ("gloo", [1, 2], "ring"),
+    ("nccl", [1, 2], "ring"), ("nccl", [1, 4], "ring"),
+    ("nccl", [2, 2], "gathered"), ("nccl", [2, 2], "ring")])
+def test_seq_bf16_step_matches_one_process(card, tmp_path, backend,
+                                           mesh_shape, schedule):
+    """The bf16 step under [1, 2], [1, 4] and [2, 2] on both schedules
+    (`_bf16_mesh_step`)."""
+    _bf16_mesh_step(card, tmp_path, backend, mesh_shape, schedule)
 
 
 # The flagship in the JAX package's bf16 configuration (`compute_dtype` and

@@ -63,10 +63,17 @@ def _jax(sp: int, q, k, v, lengths, w):
             for name, g in zip("qkv", grads):
                 got[f"{impl}_d{name}"] = np.asarray(g)
         bf = [_shard(mesh, x.astype(jnp.bfloat16)) for x in (q, k, v)]
-        out = jax.jit(lambda q, k, v: ring_flash_attention(
-            mesh, q, k, v, lengths, **blocks))(*bf)
+
+        def ring_bf16(q, k, v, w):
+            out, vjp = jax.vjp(lambda q, k, v: ring_flash_attention(
+                mesh, q, k, v, lengths, **blocks), q, k, v)
+            return out, vjp(w.astype(jnp.bfloat16))
+
+        out, grads = jax.jit(ring_bf16)(*bf, w)
         got["ring_bf16_dtype"] = out.dtype
         got["ring_bf16_out"] = np.asarray(out.astype(jnp.float32))
+        for name, g in zip("qkv", grads):
+            got[f"ring_bf16_d{name}"] = np.asarray(g.astype(jnp.float32))
     finally:
         fa.INTERPRET = False
     return got
@@ -131,6 +138,25 @@ def test_gradients_match_jax(runs, sp, impl):
 
 
 @pytest.mark.parametrize("sp", SPS)
+def test_ring_fold_rounds_once(runs, sp):
+    """The f32 ring folds its steps' partials in f64 (`_fold_dtype`): its
+    output is the exact combination of the kernels' partial outputs by
+    their lse, rounded to f32 once, and its dq the exact sum of the steps'
+    dq, rounded once, both to the bit (an f32 fold rounds at every term: at
+    the flagship's widths that put the ring step at the edge of its bar
+    against one process on the card)."""
+    got = runs["got"][sp]
+    o = got["ring_part_o"].astype(np.float64)      # (B, H, N, steps, D)
+    lse = got["ring_part_lse"].astype(np.float64)  # (B, H, N, steps)
+    top = lse.max(axis=3, keepdims=True)
+    weight = np.exp(lse - top)
+    exact = (o * (weight / weight.sum(axis=3, keepdims=True))[..., None]).sum(3)
+    np.testing.assert_array_equal(got["ring_out"], exact.astype(np.float32))
+    dq = got["ring_part_dq"].astype(np.float64).sum(axis=3)
+    np.testing.assert_array_equal(got["ring_dq"], dq.astype(np.float32))
+
+
+@pytest.mark.parametrize("sp", SPS)
 def test_ring_bfloat16(runs, sp):
     """bf16 inputs: the f32 (out, lse) carry keeps the output finite and
     close to the f32 reference, and the output type is bf16, as JAX's."""
@@ -143,6 +169,18 @@ def test_ring_bfloat16(runs, sp):
             np.testing.assert_allclose(out[bi, :, :ln],
                                        runs["ref"][bi, :, :ln],
                                        atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("sp", SPS)
+def test_ring_bfloat16_gradients_match_jax(runs, sp):
+    """bf16 inputs: the ring's dq, dk, dv against JAX's bf16 ring (both
+    round P against each block's running max and keep bf16 accumulators):
+    within 2 bf16 ulps (4u, u = 2^-8) of each gradient's largest."""
+    for name in ("dq", "dk", "dv"):
+        got = runs["got"][sp][f"ring_bf16_{name}"]
+        want = runs["want"][sp][f"ring_bf16_{name}"]
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= 4 * 2.0 ** -8, f"{name}: {err:.3g} of its largest"
 
 
 def test_combine_matches_jax():

@@ -131,3 +131,24 @@ def test_collate_bag0_ships_at_wire_dtype(monkeypatch):
     assert bag.fts.dtype == torch.bfloat16
     want = torch.from_numpy(Data.slides[0].level0[0]).to(torch.bfloat16)
     assert torch.equal(bag.fts[0, :5], want)
+
+
+def test_f16_background_test_matches_jax():
+    """An f16 grid's background (rows with no nonzero entry, -0.0 counting
+    as zero) is found by an integer test on the bits in the port; the table
+    equals JAX's, built with its f16 compare, on rows of zeros, of -0.0, of
+    one subnormal entry and of one -0.0 beside a live entry."""
+    rng = np.random.default_rng(4)
+    g = _grid(rng, 6, 7, 16, np.float16)
+    g[0, 1] = -0.0
+    g[2, 3] = 0
+    g[2, 3, 5] = np.float16(6e-8)          # a subnormal half: live
+    g[4, 4, 0] = -0.0                      # beside live entries
+    g[5, 6] = 0
+    g[5, 6, 9] = -np.float16(6e-8)
+    got = ttables.build_level_table_numpy(g, min_rows=48)
+    want = jtables.build_level_table(g, min_rows=48)
+    assert int(got["count"]) == int(want["count"]) == int(
+        np.any(g.reshape(-1, 16) != 0, axis=1).sum())
+    for k in ("fts", "locs", "index", "grid_hw"):
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
