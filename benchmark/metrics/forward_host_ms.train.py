@@ -1,0 +1,8 @@
+"""Mean host time of `update`'s forward (`end2end_loss`): the program's
+`paths.forward` spans that start and end inside the traced segment, the
+forward's dispatch and any wait for the device inside it."""
+from benchmark.program_spans import mean_ms
+
+
+def read(layer):
+    return mean_ms(layer, "paths.forward")

@@ -37,6 +37,7 @@ from paths_tpu_torch.engine.tables import (
     wire_dtype,
 )
 from paths_tpu_torch.models.batch import PatchBag, seq_block_width
+from paths_tpu_torch.profiling import count, span
 
 MAX_WORKERS = 8
 
@@ -340,33 +341,34 @@ def collate_batch(dataset: SlideDataset, indices: Sequence[int],
     cfg = dataset.config
     if dtype is None:
         dtype = getattr(torch, cfg.table_dtype)
-    slides = [dataset.slides[i] for i in indices]
+    with span("paths.collate", slides=len(indices)):
+        slides = [dataset.slides[i] for i in indices]
 
-    bag0 = collate_bag0(dataset, indices, level0_bucket=level0_bucket,
-                        dtype=dtype, pads=pads, device=device, seq=seq)
-    n0 = bag0.patch_width or bag0.mask.shape[1]
+        bag0 = collate_bag0(dataset, indices, level0_bucket=level0_bucket,
+                            dtype=dtype, pads=pads, device=device, seq=seq)
+        n0 = bag0.patch_width or bag0.mask.shape[1]
 
-    widths = bag_widths(cfg.top_k_patches, cfg.num_levels, n0)
-    tables = []
-    for lvl in range(1, cfg.num_levels):
-        per = [s.tables[lvl - 1] for s in slides]
-        max_rows = max(t["fts"].shape[0] for t in per)
-        max_h = max(t["index"].shape[0] for t in per)
-        max_w = max(t["index"].shape[1] for t in per)
-        if pads is not None:
-            max_rows = max(max_rows, pads["rows"][lvl])
-            max_h = max(max_h, pads["grid_hw"][lvl][0])
-            max_w = max(max_w, pads["grid_hw"][lvl][1])
-        rows = _round_up(max(widths[lvl], max_rows), row_bucket)
-        h = _round_up(max_h, grid_bucket)
-        w = _round_up(max_w, grid_bucket)
-        tables.append(stack_tables(per, min_rows=widths[lvl],
-                                   pad_rows_to=rows, pad_grid_to=(h, w),
-                                   dtype=dtype, device=device))
+        widths = bag_widths(cfg.top_k_patches, cfg.num_levels, n0)
+        tables = []
+        for lvl in range(1, cfg.num_levels):
+            per = [s.tables[lvl - 1] for s in slides]
+            max_rows = max(t["fts"].shape[0] for t in per)
+            max_h = max(t["index"].shape[0] for t in per)
+            max_w = max(t["index"].shape[1] for t in per)
+            if pads is not None:
+                max_rows = max(max_rows, pads["rows"][lvl])
+                max_h = max(max_h, pads["grid_hw"][lvl][0])
+                max_w = max(max_w, pads["grid_hw"][lvl][1])
+            rows = _round_up(max(widths[lvl], max_rows), row_bucket)
+            h = _round_up(max_h, grid_bucket)
+            w = _round_up(max_w, grid_bucket)
+            tables.append(stack_tables(per, min_rows=widths[lvl],
+                                       pad_rows_to=rows, pad_grid_to=(h, w),
+                                       dtype=dtype, device=device))
 
-    if not dataset.cache_slides:
-        for s in slides:
-            s.unload()
+        if not dataset.cache_slides:
+            for s in slides:
+                s.unload()
     return bag0, tables
 
 
@@ -412,6 +414,7 @@ def collate_bag0(dataset: SlideDataset, indices: Sequence[int],
             mask0[i, lo - first: hi - first] = True
     patch = torch.arange(first, first + rows, device=device)
     patch = torch.where((patch >= 0) & (patch < n0), patch, 0)
+    count("h2d_bytes", fts0.nbytes + locs0.nbytes + mask0.nbytes)
 
     return PatchBag(
         fts=fts0.to(device, non_blocking=True).to(dtype),

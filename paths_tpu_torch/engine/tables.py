@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from paths_tpu_torch import native
+from paths_tpu_torch.profiling import count
 
 
 @dataclasses.dataclass
@@ -217,6 +218,7 @@ def stack_tables(tables: Sequence[dict], min_rows: int = 0,
     device = torch.device(device)
     host = stack_host(tables, min_rows, pad_rows_to, pad_grid_to, dtype,
                       pin=pin_staging(device))
+    count("h2d_bytes", sum(v.nbytes for v in host.values()))
     dev = {k: v.to(device, non_blocking=True) for k, v in host.items()}
     return LevelTable(fts=dev["fts"].to(dtype), locs=dev["locs"].long(),
                       count=dev["count"].long(), index=dev["index"].long(),

@@ -45,6 +45,7 @@ import torch
 from paths_tpu_torch.data.feature_store import FeatureStore
 from paths_tpu_torch.preprocess.masking import tissue_mask
 from paths_tpu_torch.preprocess.wsi import WSIReader, camelyon_map, open_wsi
+from paths_tpu_torch.profiling import count, record_span, span
 
 
 def next_multiple(n: int, m: int) -> int:
@@ -119,11 +120,13 @@ class _AsyncStager:
 
     def _run(self, arr):
         self.bytes_staged += arr.nbytes
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         try:
             return self._fn(arr)
         finally:
-            self.busy_s += time.perf_counter() - t0
+            t1 = time.time_ns()
+            self.busy_s += (t1 - t0) * 1e-9
+            record_span("paths.preprocess.stage", t0, t1, bytes=arr.nbytes)
 
     def __call__(self, arr) -> "Future":
         return self._pool.submit(self._run, arr)
@@ -277,12 +280,13 @@ def _read_batch(wsi: WSIReader, cand: np.ndarray, bi: int, power: float,
 
     s = bi * batch_size
     e = min(s + batch_size, len(cand))
-    imgs = list(pool.map(read_cell, cand[s:e]))
-    arr = np.zeros((_bucket(e - s, batch_size, bucket_mult), p, p, 3),
-                   np.uint8)
-    arr[: e - s] = np.stack(imgs)
-    if stage_fn is not None:
-        arr = stage_fn(arr)
+    with span("paths.preprocess.read", patches=e - s):
+        imgs = list(pool.map(read_cell, cand[s:e]))
+        arr = np.zeros((_bucket(e - s, batch_size, bucket_mult), p, p, 3),
+                       np.uint8)
+        arr[: e - s] = np.stack(imgs)
+        if stage_fn is not None:
+            arr = stage_fn(arr)
     return arr, s, e
 
 
@@ -293,20 +297,21 @@ def _drain_level(in_flight, cand, grid) -> None:
     padded width, shard after shard within a batch."""
     if not in_flight:
         return
-    host = []
-    for j in range(len(in_flight[0][0])):
-        embs = [shards[j] for shards, _, _ in in_flight]
-        host.append((embs[0] if len(embs) == 1 else torch.cat(embs))
-                    .cpu().numpy())
-    offs = [0] * len(host)
-    for shards, s, e in in_flight:
-        rows = []
-        for j, emb_dev in enumerate(shards):
-            rows.append(host[j][offs[j]: offs[j] + emb_dev.shape[0]])
-            offs[j] += emb_dev.shape[0]
-        emb = rows[0] if len(rows) == 1 else np.concatenate(rows)
-        rs, cs = cand[s:e, 0], cand[s:e, 1]
-        grid[rs, cs] = emb[: e - s]
+    with span("paths.preprocess.drain"):
+        host = []
+        for j in range(len(in_flight[0][0])):
+            embs = [shards[j] for shards, _, _ in in_flight]
+            host.append((embs[0] if len(embs) == 1 else torch.cat(embs))
+                        .cpu().numpy())
+        offs = [0] * len(host)
+        for shards, s, e in in_flight:
+            rows = []
+            for j, emb_dev in enumerate(shards):
+                rows.append(host[j][offs[j]: offs[j] + emb_dev.shape[0]])
+                offs[j] += emb_dev.shape[0]
+            emb = rows[0] if len(rows) == 1 else np.concatenate(rows)
+            rs, cs = cand[s:e, 0], cand[s:e, 1]
+            grid[rs, cs] = emb[: e - s]
 
 
 def process_level(wsi: WSIReader, encode_fn: Callable, dim: int, power: float,
@@ -319,43 +324,49 @@ def process_level(wsi: WSIReader, encode_fn: Callable, dim: int, power: float,
     `store_dtype`. `encode_fn` takes a (B, P, P, 3) uint8 tensor on `device`
     and returns (B, dim) float32 there; with a `mesh`, it is one such
     function per mesh device, each encoding that device's slice."""
-    n_rows, n_cols, cand = _level_plan(wsi, power, patch_size,
-                                       tissue_threshold, downscale, camelyon)
-    if verbose:
-        print(f"  power {power}: {len(cand)}/{n_rows * n_cols} cells pass "
-              f"tissue threshold")
+    with span("paths.preprocess.level", power=power):
+        with span("paths.preprocess.plan"):
+            n_rows, n_cols, cand = _level_plan(
+                wsi, power, patch_size, tissue_threshold, downscale, camelyon)
+        count("patches", len(cand))
+        if verbose:
+            print(f"  power {power}: {len(cand)}/{n_rows * n_cols} cells pass "
+                  f"tissue threshold")
 
-    grid = np.zeros((n_rows, n_cols, dim), _grid_dtype(store_dtype))
-    if len(cand) == 0:
+        grid = np.zeros((n_rows, n_cols, dim), _grid_dtype(store_dtype))
+        if len(cand) == 0:
+            return grid
+
+        encoders, devices = _shard_encoders(encode_fn, device, mesh)
+        stager = _AsyncStager(_make_stager(True, devices))
+        src = _patch_source(wsi, load_mode, power, n_rows, n_cols, patch_size)
+        pool = ThreadPoolExecutor(max_workers=threads)
+        try:
+            n_batches = math.ceil(len(cand) / batch_size)
+
+            # software pipeline: read batch k+1 while the card encodes k,
+            # and the copy of batch k overlaps the decode of k+1 (stager)
+            def read(bi):
+                return pool.submit(_read_batch, src, cand, bi, power,
+                                   patch_size, batch_size, pool, camelyon,
+                                   stager, len(devices))
+
+            pending = read(0)
+            in_flight = []  # (per-shard embeddings on their devices, s, e)
+            for bi in range(n_batches):
+                with span("paths.preprocess.read_wait"):
+                    arr, s, e = pending.result()
+                if bi + 1 < n_batches:
+                    pending = read(bi + 1)
+                with span("paths.preprocess.encode"):
+                    in_flight.append(
+                        (_encode_shards(encoders, devices, arr), s, e))
+
+            _drain_level(in_flight, cand, grid)
+        finally:
+            pool.shutdown(wait=False)
+            stager.shutdown()
         return grid
-
-    encoders, devices = _shard_encoders(encode_fn, device, mesh)
-    stager = _AsyncStager(_make_stager(True, devices))
-    src = _patch_source(wsi, load_mode, power, n_rows, n_cols, patch_size)
-    pool = ThreadPoolExecutor(max_workers=threads)
-    try:
-        n_batches = math.ceil(len(cand) / batch_size)
-
-        # software pipeline: read batch k+1 while the card encodes k, and
-        # the copy of batch k overlaps the decode of k+1 (stager)
-        def read(bi):
-            return pool.submit(_read_batch, src, cand, bi, power, patch_size,
-                               batch_size, pool, camelyon, stager,
-                               len(devices))
-
-        pending = read(0)
-        in_flight = []  # (per-shard embeddings on their devices, s, e)
-        for bi in range(n_batches):
-            arr, s, e = pending.result()
-            if bi + 1 < n_batches:
-                pending = read(bi + 1)
-            in_flight.append((_encode_shards(encoders, devices, arr), s, e))
-
-        _drain_level(in_flight, cand, grid)
-    finally:
-        pool.shutdown(wait=False)
-        stager.shutdown()
-    return grid
 
 
 def process_slide(path: str, slide_id: str, encode_fn: Callable, dim: int,

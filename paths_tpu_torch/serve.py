@@ -42,6 +42,7 @@ from paths_tpu_torch.export import (
 )
 from paths_tpu_torch.models.recursive import RecursiveModel
 from paths_tpu_torch.parallel.mesh import Mesh, data_axis_size, place_replicas
+from paths_tpu_torch.profiling import span
 from paths_tpu_torch.train.metrics import class_probs, survival_risk
 from paths_tpu_torch.train.state import load_model
 
@@ -229,8 +230,9 @@ class ServingSession:
             return assemble()
         key = tuple(padded)
         hit = self._batch_cache.pop(key, None)
-        if hit is None:
-            hit = assemble()
+        with span("paths.serve.batch", hit=int(hit is not None)):
+            if hit is None:
+                hit = assemble()
         self._batch_cache[key] = hit
         while len(self._batch_cache) > self._cache_batches:
             self._batch_cache.popitem(last=False)
@@ -253,7 +255,7 @@ class ServingSession:
             args = self._cached(padded, assemble)
             if not self._frozen:
                 args = (self._params,) + tuple(args)
-            with torch.inference_mode():
+            with torch.inference_mode(), span("paths.forward"):
                 pred = self._exp.call(*args)["pred"]
         elif self._streaming:
             bag0 = self._cached(padded, lambda: collate_bag0(
@@ -261,8 +263,9 @@ class ServingSession:
                 device=self.device))
             slides = [self._dataset.slides[i] for i in padded]
             with torch.inference_mode():
-                outs, _ = self._eng.forward(self.model, bag0,
-                                            [s.tables for s in slides])
+                with span("paths.forward"):
+                    outs, _ = self._eng.forward(self.model, bag0,
+                                                [s.tables for s in slides])
                 pred = prediction(self.config, outs[-1]["logits"])
             if not self._dataset.cache_slides:
                 for s in slides:
@@ -274,7 +277,7 @@ class ServingSession:
                 self._dataset, padded[i * share: (i + 1) * share],
                 level0_bucket=bucket, pads=self._pads, device=d)
                 for i, d in enumerate(devices)])
-            with torch.inference_mode():
+            with torch.inference_mode(), span("paths.forward"):
                 # the forward never waits for its card, so this loop queues
                 # every device's shard before the first copy back waits
                 preds = [serving_forward(model, self.config, bag, tables)["pred"]
@@ -291,7 +294,7 @@ class ServingSession:
             raise KeyError(f"unknown slide ids (not in store): {missing}")
         indices = [self._index[s] for s in slide_ids]
         preds = []
-        with self._lock:
+        with self._lock, span("paths.serve.request", slides=len(slide_ids)):
             for s in range(0, len(indices), self.batch_size):
                 preds.append(self._run(indices[s: s + self.batch_size]))
         pred = np.concatenate(preds) if preds else np.zeros((0,))

@@ -75,7 +75,7 @@ from paths_tpu_torch.parallel.mesh import (
     world_size,
 )
 from paths_tpu_torch.parallel.seq_attention import SeqSharding
-from paths_tpu_torch.profiling import host_rss_mb
+from paths_tpu_torch.profiling import host_rss_mb, span
 from paths_tpu_torch.train.evaluators import make_evaluator
 from paths_tpu_torch.train.logging import MetricsLogger
 from paths_tpu_torch.train.state import load_state, save_state
@@ -161,9 +161,10 @@ def make_step_fns(config: Config, optimizer: torch.optim.Optimizer,
         if epoch is not None:
             set_lr(optimizer, epoch_lr(config, epoch))
         optimizer.zero_grad(set_to_none=True)
-        loss, aux = end2end_loss(model, config, bag0, tables, labels,
-                                 training=True, generator=generator,
-                                 denom=denom, seq_mesh=seq_mesh)
+        with span("paths.forward"):
+            loss, aux = end2end_loss(model, config, bag0, tables, labels,
+                                     training=True, generator=generator,
+                                     denom=denom, seq_mesh=seq_mesh)
         (loss * scale).backward()
         optimizer_step(config, optimizer, mesh, model)
         return loss.detach(), _detach(aux)
