@@ -1753,35 +1753,42 @@ def cli_phase(torch, tfa, gpu, tr):
 
 
 def staging_probe(torch, gpu, sl):
-    """The 32-slide fused collation and copy to the card, stacked into
-    pageable memory and into page-locked memory (copied without blocking),
-    in turns."""
-    from paths_tpu_torch.data.dataset import collate_batch
-    from paths_tpu_torch.engine import tables
+    """The 32-slide fused collation and copy to the card, in turns: from
+    the session's held tables (copied from pageable memory at a slide's
+    first collation, from page-locked copies without blocking after its
+    second) and from a dataset that holds none (tables built from the store
+    each time, copied from pageable memory); the two batches equal to the
+    bit."""
+    from paths_tpu_torch.data.dataset import SlideDataset, collate_batch
 
     sess, idx = sl["sess"], list(range(len(sl["ids"])))
-    pinned = tables.PIN_STAGING
+    unheld = SlideDataset(sess.slide_ids, sess.config, sess.store,
+                          cache_slides=False)
+    out = {}
 
-    def collate(pin):
-        tables.PIN_STAGING = pin
+    def collate(ds):
         t0 = time.perf_counter()
-        collate_batch(sess._dataset, idx, level0_bucket=sess.config.level0_bucket,
-                      pads=sess._pads, device="cuda")
+        out[ds is unheld] = collate_batch(
+            ds, idx, level0_bucket=sess.config.level0_bucket, pads=sess._pads,
+            device="cuda")
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    try:
-        first = {pin: collate(pin) for pin in (False, True)}
-        turns = {False: [], True: []}
-        for pin in (False, True, True, False, False, True):
-            turns[pin].append(collate(pin))
-    finally:
-        tables.PIN_STAGING = pinned
-    print(f"[staging] 32-slide collate + copy to the card, in turns: pageable "
-          f"{', '.join(f'{t:.1f}' for t in turns[False])} ms (first "
-          f"{first[False]:.1f}); page-locked {', '.join(f'{t:.1f}' for t in turns[True])}"
-          f" ms (first {first[True]:.1f}, which allocates); the port stages in "
-          f"{'page-locked' if pinned else 'pageable'} memory | {gpu}", flush=True)
+    first = {held: collate(sess._dataset if held else unheld)
+             for held in (False, True)}
+    turns = {False: [], True: []}
+    for held in (False, True, True, False, False, True):
+        turns[held].append(collate(sess._dataset if held else unheld))
+    (bag_u, tab_u), (bag_h, tab_h) = out[True], out[False]
+    if not (torch.equal(bag_u.fts, bag_h.fts) and all(
+            torch.equal(getattr(a, k), getattr(b, k)) for a, b in zip(tab_u, tab_h)
+            for k in ("fts", "locs", "count", "index", "grid_hw"))):
+        raise AssertionError("held and unheld collations differ")
+    print(f"[staging] 32-slide collate + copy to the card, in turns: unheld "
+          f"(built from the store, pageable) {', '.join(f'{t:.1f}' for t in turns[False])}"
+          f" ms (first {first[False]:.1f}); held (page-locked once reused) "
+          f"{', '.join(f'{t:.1f}' for t in turns[True])} ms (first "
+          f"{first[True]:.1f}); batches equal | {gpu}", flush=True)
 
 
 # [remat]: one [train] batch with `remat` on and off. The recompute runs the

@@ -30,11 +30,10 @@ from paths_tpu_torch.data.feature_store import FeatureStore
 from paths_tpu_torch.data.slide import SlidePyramid
 from paths_tpu_torch.engine.tables import (
     bag_widths,
+    feature_source,
     fill_rows,
-    host_stack_dtype,
-    pin_staging,
+    small_host_array,
     stack_tables,
-    wire_dtype,
 )
 from paths_tpu_torch.models.batch import PatchBag, seq_block_width
 from paths_tpu_torch.profiling import count, span
@@ -216,8 +215,19 @@ def labelled_dataset(rows: Sequence[dict], bins: np.ndarray, config: Config,
 class SlideDataset:
     """The slides of a feature store, by id, with or without labels.
 
+    Collation for a card copies each slide's features straight into its
+    row of the batch there. A held slide is copied from pageable memory at
+    its first collation, and page-locked at its second (`SlidePyramid.pin`)
+    while `pin_bytes` (a quarter of the host's memory) allows, so that a
+    slide collated once (a one-pass sweep) never pays for the locking and a
+    reused one is copied at the link's rate. The locked host RAM is the
+    held slides' feature bytes at the wire dtype, each block rounded up to
+    a power of two by torch's page-locked allocator; it takes the place of
+    the held arrays where the wire dtype is the storage dtype.
+
     :param cache_slides: keep materialized tables after a batch is
-        collated (trade host RAM for repeat-request latency)
+        collated (trade host RAM for repeat-request latency); on a card the
+        reused ones are page-locked
     :param labels: per-slide label columns (name -> array aligned with
         `slide_ids`), or None for a label-free (serving) dataset
     :param preload: build every slide's tables up front, on a thread pool
@@ -230,6 +240,10 @@ class SlideDataset:
         self.config = config
         self.slide_ids = list(slide_ids)
         self.cache_slides = cache_slides
+        # page-locked host RAM the held slides may take; past it they stay
+        # pageable
+        self.pin_bytes = (os.sysconf("SC_PAGE_SIZE")
+                          * os.sysconf("SC_PHYS_PAGES") // 4)
         self.label_columns = labels
         mc = config.model_config
         # table row bounds for levels >= 1 do not depend on n0 when K != -1
@@ -326,6 +340,27 @@ def labels_on(dataset: "SlideDataset", indices: Sequence[int],
             for k, v in dataset.labels(indices).items()}
 
 
+def _pins(dataset: SlideDataset, device) -> bool:
+    """Whether collation page-locks reused slides' features: for a card,
+    where the dataset holds its slides' tables."""
+    return torch.device(device).type == "cuda" and dataset.cache_slides
+
+
+def _pin_reused(dataset: SlideDataset, slides, dtype) -> None:
+    """Count a collation of each distinct slide of a batch, and page-lock
+    the features of those at their second (`SlidePyramid.pin`), in batch
+    order, while the dataset's `pin_bytes` allows. A slide that does not
+    fit then, or cannot be locked, stays pageable."""
+    slides = list(dict.fromkeys(slides))
+    reused = [s for s in slides if s.collations == 1]
+    for s in slides:
+        s.collations += 1
+    if reused:
+        free = dataset.pin_bytes - sum(s.pinned_bytes for s in dataset.slides)
+        for s in reused:
+            free -= s.pin(dtype, free)
+
+
 def collate_batch(dataset: SlideDataset, indices: Sequence[int],
                   level0_bucket: int = 256, row_bucket: int = 256,
                   grid_bucket: int = 16, dtype: Optional[torch.dtype] = None,
@@ -379,12 +414,18 @@ def collate_bag0(dataset: SlideDataset, indices: Sequence[int],
     """Collate only the level-0 bag, on `device`. With `seq` = (index, sp),
     only the m rows of sequence rank `index`'s block
     (`models/batch.py::seq_block_width`) are collated; `patch_width` is the
-    whole bag's width."""
+    whole bag's width. Every collation passes here: one bound for a card
+    from held slides (`_pins`) is counted, and page-locks the slides it
+    reuses (`_pin_reused`)."""
     cfg = dataset.config
     mc = cfg.model_config
     if dtype is None:
         dtype = getattr(torch, cfg.table_dtype)
-    l0 = [dataset.slides[i].level0 for i in indices]
+    slides = [dataset.slides[i] for i in indices]
+    pin = _pins(dataset, device)
+    if pin:
+        _pin_reused(dataset, slides, dtype)
+    l0 = [s.level0 for s in slides]
     b = len(l0)
     ds_dim, dp_dim = mc.ctx_dim()
 
@@ -397,29 +438,30 @@ def collate_bag0(dataset: SlideDataset, indices: Sequence[int],
         index, sp = seq
         rows = seq_block_width(n0, sp)
         first, width = index * rows - 1, n0   # patch of the block's row 0
-    # the features cross at the narrower of storage and table dtype and are
-    # cast to the table dtype on the device, as in stack_tables
-    host_dt = host_stack_dtype([f.dtype for f, _, _ in l0])
+    # the features are made zero on the device at the table dtype and each
+    # slide's rows copied in, crossing at the narrower of storage and table
+    # dtype, as in stack_tables
     device = torch.device(device)
-    fts0 = torch.zeros((b, rows, mc.patch_embed_dim),
-                       dtype=wire_dtype(host_dt, dtype),
-                       pin_memory=pin_staging(device))
-    locs0 = np.zeros((b, rows, 2), np.int32)
-    mask0 = np.zeros((b, rows), bool)
+    fts0 = torch.zeros((b, rows, mc.patch_embed_dim), dtype=dtype,
+                       device=device)
+    locs0 = small_host_array((b, rows, 2), 0, device)
+    mask0 = small_host_array((b, rows), False, device, torch.bool)
+    locs_np, mask_np = locs0.numpy(), mask0.numpy()
     for i, (f, l, n) in enumerate(l0):
         lo, hi = max(first, 0), min(n, first + rows)
         if hi > lo:
-            fill_rows(fts0[:, lo - first:], i, f[lo:hi])
-            locs0[i, lo - first: hi - first] = l[lo:hi]
-            mask0[i, lo - first: hi - first] = True
+            src = feature_source(f, slides[i].level0_wire, dtype) if pin else f
+            fill_rows(fts0[:, lo - first:], i, src[lo:hi])
+            locs_np[i, lo - first: hi - first] = l[lo:hi]
+            mask_np[i, lo - first: hi - first] = True
     patch = torch.arange(first, first + rows, device=device)
     patch = torch.where((patch >= 0) & (patch < n0), patch, 0)
-    count("h2d_bytes", fts0.nbytes + locs0.nbytes + mask0.nbytes)
+    count("h2d_bytes", locs0.nbytes + mask0.nbytes)
 
     return PatchBag(
-        fts=fts0.to(device, non_blocking=True).to(dtype),
-        locs=torch.from_numpy(locs0).to(device).long(),
-        mask=torch.from_numpy(mask0).to(device),
+        fts=fts0,
+        locs=locs0.to(device, non_blocking=True).long(),
+        mask=mask0.to(device, non_blocking=True),
         parent_inds=patch.expand(b, rows),
         ctx_slide=torch.zeros((b, 0, ds_dim), dtype=dtype, device=device),
         ctx_patch=torch.zeros((b, rows, 0, dp_dim), dtype=dtype,

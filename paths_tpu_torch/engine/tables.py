@@ -85,11 +85,6 @@ def build_level_table_numpy(grid: np.ndarray, min_rows: int = 0) -> dict:
             "index": index, "grid_hw": np.array([h, w], np.int32)}
 
 
-# Stack batches bound for a card in page-locked memory: on the H100 a
-# 32-slide flagship batch (1.7 GiB of tables) collates and copies in about a
-# third of the pageable time (`chip_smoke.py`'s [staging] line times both).
-PIN_STAGING = True
-
 _warned_mixed_dtypes: set = set()
 
 
@@ -99,8 +94,9 @@ def host_stack_dtype(dtypes: Sequence[np.dtype]) -> np.dtype:
     --store-dtype can mix f16 and f32 grids).
 
     The mixed-dtype warning fires once per process per dtype pair and names
-    the collation or lookup call site (stacklevel=2): the streaming engine
-    calls this at every level of every batch."""
+    the lookup call site (stacklevel=2): the streaming engine calls this at
+    every level of every batch. Collation needs no common dtype: each
+    slide's rows cross at their own wire dtype."""
     uniq = {np.dtype(d) for d in dtypes}
     if len(uniq) > 1:
         key = tuple(sorted(map(str, uniq)))
@@ -136,21 +132,50 @@ def wire_dtype(host_dtype, target_dtype) -> torch.dtype:
     return target if target.itemsize < host.itemsize else host
 
 
-def pin_staging(device) -> bool:
-    """Whether batches bound for `device` are stacked straight into
-    page-locked host memory, from which the copy to the card runs at the
-    link's rate and without the CUDA runtime's own staging pass."""
-    return torch.device(device).type == "cuda" and PIN_STAGING
+def host_rows(rows: np.ndarray, dtype) -> torch.Tensor:
+    """A slide's feature rows as a CPU tensor at `dtype`: a view of the
+    array where it is writable and at `dtype`, else a copy (a read-only
+    memory-mapped grid is copied first; torch casts to bf16, which numpy
+    cannot hold, rounding to nearest even)."""
+    t = torch.from_numpy(rows if rows.flags.writeable else np.array(rows))
+    return t.to(as_torch_dtype(dtype))
 
 
-def fill_rows(dst: torch.Tensor, i: int, src: np.ndarray) -> None:
-    """dst[i, :len(src)] = src on the host, cast to dst's dtype (torch casts
-    to bf16, which numpy cannot hold, rounding to nearest even)."""
+def small_host_array(shape, fill, device, dtype=torch.int32) -> torch.Tensor:
+    """A host tensor of `fill` to stack a batch's small arrays in (indices,
+    a mask), page-locked where the batch is bound for a card: a copy from
+    pageable memory waits for all the work queued before it, the feature
+    copies included, where one from page-locked memory returns at once."""
+    return torch.full(shape, fill, dtype=dtype,
+                      pin_memory=torch.device(device).type == "cuda")
+
+
+def feature_source(rows: np.ndarray, wire: Optional[torch.Tensor], dtype):
+    """What a slide's feature rows are copied from into a batch at `dtype`:
+    their page-locked copy `wire` (`SlidePyramid.pin`) where there is one at
+    `wire_dtype(storage, dtype)`, else the held array."""
+    if wire is not None and wire.dtype == wire_dtype(rows.dtype, dtype):
+        return wire
+    return rows
+
+
+def fill_rows(dst: torch.Tensor, i: int, src) -> None:
+    """dst[i, :len(src)] = src: one slide's feature rows copied straight
+    into its row of a batch on dst's device, and cast to dst's dtype there.
+
+    `src` is the slide's array, which crosses at `wire_dtype(its dtype,
+    dst's)`, or a CPU tensor of the rows at that dtype (`feature_source`).
+    Counts the bytes that cross as `h2d_bytes`, and those copied to a card
+    from page-locked memory, which do not wait for the host, also as
+    `h2d_pinned_bytes`."""
+    if isinstance(src, np.ndarray):
+        src = host_rows(src, wire_dtype(src.dtype, dst.dtype))
     n = src.shape[0]
-    if dst.dtype == torch.bfloat16:
-        dst[i, :n] = torch.from_numpy(np.array(src, np.float32))
-    else:
-        dst.numpy()[i, :n] = src
+    if n:
+        dst[i, :n].copy_(src, non_blocking=True)
+    count("h2d_bytes", src.nbytes)
+    if dst.is_cuda and src.is_pinned():
+        count("h2d_pinned_bytes", src.nbytes)
 
 
 def ship_at_wire_dtype(lk: dict, table_dtype, put) -> dict:
@@ -170,13 +195,22 @@ def ship_at_wire_dtype(lk: dict, table_dtype, put) -> dict:
     return dev
 
 
-def stack_host(tables: Sequence[dict], min_rows: int = 0,
-               pad_rows_to: Optional[int] = None,
-               pad_grid_to: Optional[tuple] = None,
-               dtype=None, pin: bool = False) -> dict:
-    """Pad single-slide tables to common shapes and stack them on the host:
-    a dict of CPU tensors (fts at `wire_dtype(storage, dtype)`, the rest
-    int32), in page-locked memory when `pin`."""
+def stack_tables(tables: Sequence[dict], min_rows: int = 0,
+                 pad_rows_to: Optional[int] = None,
+                 pad_grid_to: Optional[tuple] = None,
+                 dtype: torch.dtype = torch.float32,
+                 device="cuda") -> LevelTable:
+    """Pad single-slide tables to common shapes, stack, and place them on
+    `device`.
+
+    The features are made zero on the device at `dtype`, and each slide's
+    rows are copied into its row there (`fill_rows`): they cross at
+    `wire_dtype(storage, dtype)` and are cast to `dtype` on arrival, and
+    padding never crosses the link. A table's rows are copied from its
+    page-locked "fts_wire" where it has one at the wire dtype
+    (`feature_source`). The index arrays are stacked on the host and arrive
+    as int64."""
+    device = torch.device(device)
     b = len(tables)
     m = max(max(t["fts"].shape[0] for t in tables), min_rows)
     if pad_rows_to is not None:
@@ -187,42 +221,22 @@ def stack_host(tables: Sequence[dict], min_rows: int = 0,
         h, w = max(h, pad_grid_to[0]), max(w, pad_grid_to[1])
     d = tables[0]["fts"].shape[1]
 
-    host_dt = host_stack_dtype([t["fts"].dtype for t in tables])
-    fts = torch.zeros((b, m, d), dtype=wire_dtype(host_dt, dtype),
-                      pin_memory=pin)
-    locs = np.zeros((b, m, 2), np.int32)
-    count = np.zeros((b,), np.int32)
-    index = np.full((b, h, w), -1, np.int32)
-    grid_hw = np.zeros((b, 2), np.int32)
+    feats = torch.zeros((b, m, d), dtype=dtype, device=device)
+    host = {k: small_host_array(shape, fill, device) for k, shape, fill in (
+        ("locs", (b, m, 2), 0), ("count", (b,), 0), ("index", (b, h, w), -1),
+        ("grid_hw", (b, 2), 0))}
+    arr = {k: v.numpy() for k, v in host.items()}
     for i, t in enumerate(tables):
         mi = t["fts"].shape[0]
         hi, wi = t["index"].shape
-        fill_rows(fts, i, t["fts"])
-        locs[i, :mi] = t["locs"]
-        count[i] = t["count"]
-        index[i, :hi, :wi] = t["index"]
-        grid_hw[i] = t["grid_hw"]
-    return {"fts": fts, "locs": torch.from_numpy(locs),
-            "count": torch.from_numpy(count), "index": torch.from_numpy(index),
-            "grid_hw": torch.from_numpy(grid_hw)}
-
-
-def stack_tables(tables: Sequence[dict], min_rows: int = 0,
-                 pad_rows_to: Optional[int] = None,
-                 pad_grid_to: Optional[tuple] = None,
-                 dtype: torch.dtype = torch.float32,
-                 device="cuda") -> LevelTable:
-    """Pad single-slide tables to common shapes, stack, and place them on
-    `device`: the features cross at `wire_dtype(storage, dtype)` and are
-    cast to `dtype` there; index arrays arrive as int64."""
-    device = torch.device(device)
-    host = stack_host(tables, min_rows, pad_rows_to, pad_grid_to, dtype,
-                      pin=pin_staging(device))
+        fill_rows(feats, i, feature_source(t["fts"], t.get("fts_wire"), dtype))
+        arr["locs"][i, :mi] = t["locs"]
+        arr["count"][i] = t["count"]
+        arr["index"][i, :hi, :wi] = t["index"]
+        arr["grid_hw"][i] = t["grid_hw"]
     count("h2d_bytes", sum(v.nbytes for v in host.values()))
-    dev = {k: v.to(device, non_blocking=True) for k, v in host.items()}
-    return LevelTable(fts=dev["fts"].to(dtype), locs=dev["locs"].long(),
-                      count=dev["count"].long(), index=dev["index"].long(),
-                      grid_hw=dev["grid_hw"].long())
+    dev = {k: v.to(device, non_blocking=True).long() for k, v in host.items()}
+    return LevelTable(fts=feats, **dev)
 
 
 def bag_widths(top_k_patches, num_levels: int, n0: int):

@@ -96,7 +96,13 @@ class ServingSession:
         `preprocess_dir`
     :param batch_size: serving batch width (default: the config's)
     :param cache_slides: keep materialized slide tables in host RAM across
-        requests
+        requests. A miss copies each slide's rows straight into its row of
+        the batch on the card, without a host stack: from pageable memory
+        at a slide's first request, and from page-locked memory, locked at
+        its second, after that (`SlideDataset`); the locked host RAM is the
+        reused slides' feature bytes at the wire dtype, each block rounded
+        up to a power of two by torch's page-locked allocator, up to a
+        quarter of the host's memory
     :param cache_batches: keep up to this many collated batches on the
         device, keyed by their padded slide indices: a repeated request then
         skips collation and the copy to the card, the dominant serving cost,

@@ -1653,3 +1653,231 @@ def test_bf16_model_step_launches_match_plain_versions(card, tmp_path,
             worst = max(worst, ((g.float() - w.float()).abs().max()
                                 / (4 * BF16_U * w.float().abs().max())).item())
     assert (worst > 1.0) == (fault is not None), worst
+
+
+# Collation without a host stack: each held slide's features are copied from
+# a page-locked copy straight into its row of the batch on the card. The
+# flagship's width (1024-d, 5 levels) on small synthetic slides.
+@pytest.fixture(scope="module")
+def collate_stores(tmp_path_factory):
+    """Flagship-width 6-slide stores: "f16", "f32", and "mixed" (f32, but
+    slides 1 and 4 f16)."""
+    import os
+
+    from paths_tpu_torch.config import Config
+    from paths_tpu_torch.data.feature_store import FeatureStore
+    from paths_tpu_torch.data.synthetic import make_synthetic_store
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.load(os.path.join(root, "models", "brca_paths_0"),
+                      test_mode=True)
+    stores = {}
+    for name in ("f16", "f32", "mixed"):
+        d = str(tmp_path_factory.mktemp(f"collate_{name}"))
+        ids = make_synthetic_store(
+            d, cfg, num_slides=6, base_hw=(2, 3), seed=7,
+            store_dtype=np.float16 if name == "f16" else np.float32)
+        if name == "mixed":
+            fs = FeatureStore(d)
+            for sid in (ids[1], ids[4]):
+                for power in cfg.power_levels():
+                    fs.save(sid, power,
+                            np.asarray(fs.load(sid, power)).astype(np.float16))
+        stores[name] = (d, ids)
+    return cfg, stores
+
+
+def _collate_dataset(collate_stores, store, table_dtype, held=True):
+    import copy
+
+    from paths_tpu_torch.data.dataset import SlideDataset
+    from paths_tpu_torch.data.feature_store import FeatureStore
+
+    cfg, stores = collate_stores
+    cfg = copy.deepcopy(cfg)
+    cfg.table_dtype = table_dtype
+    root, ids = stores[store]
+    return SlideDataset(ids, cfg, FeatureStore(root), cache_slides=held)
+
+
+def _wires(slide):
+    """A slide's page-locked feature copies, a level each (None: none)."""
+    return [slide.level0_wire] + [t.get("fts_wire") for t in slide.tables]
+
+
+def _batch_fields(bag, tables):
+    """Every tensor of a collated batch, by name, on the host."""
+    out = {f"bag.{k}": getattr(bag, k).cpu()
+           for k in ("fts", "locs", "mask", "parent_inds")}
+    for lvl, t in enumerate(tables, start=1):
+        out.update({f"{lvl}.{k}": getattr(t, k).cpu()
+                    for k in ("fts", "locs", "count", "index", "grid_hw")})
+    return out
+
+
+def _assert_same_batch(got, want):
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+
+
+COLLATE_IDX = [0, 1, 3, 4, 5, 5]       # padded by repeating the last slide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store,table_dtype,kw", [
+    ("f16", "float32", {}), ("f32", "bfloat16", {}), ("mixed", "float32", {}),
+    ("mixed", "bfloat16", {"pads": True}), ("f16", "float32", {"seq": (1, 2)}),
+    ("f16", "float32", {"level0_bucket": 1, "row_bucket": 1,
+                        "grid_bucket": 1})])
+@pytest.mark.parametrize("held", ["locked", "no_budget", "unheld"])
+def test_cuda_collation_equals_cpu_collation(card, collate_stores, store,
+                                             table_dtype, kw, held):
+    """Each of three batches collated for the card (held slides: from
+    pageable memory, then from the page-locked copies made at their second
+    collation, or from pageable memory throughout where `pin_bytes` is 0;
+    unheld: from pageable memory) equals, to the bit, the batch the CPU
+    collates from the same store."""
+    import warnings
+
+    from paths_tpu_torch.data.dataset import collate_batch
+
+    cpu = _collate_dataset(collate_stores, store, table_dtype)
+    dev = _collate_dataset(collate_stores, store, table_dtype,
+                           held=held != "unheld")
+    if held == "no_budget":
+        dev.pin_bytes = 0
+    kw = dict(kw)
+    if kw.pop("pads", False):
+        kw["pads"] = cpu.global_pads()
+    kw.setdefault("level0_bucket", cpu.config.level0_bucket)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # the mixed-dtype warning
+        want = _batch_fields(*collate_batch(cpu, COLLATE_IDX, device="cpu",
+                                            **kw))
+        for _ in range(3):
+            got = _batch_fields(*collate_batch(dev, COLLATE_IDX, device=card,
+                                               **kw))
+            _assert_same_batch(got, want)
+    wires = [w for i in set(COLLATE_IDX) for w in _wires(dev.slides[i])]
+    if held == "locked":
+        assert all(w is not None and w.is_pinned() for w in wires)
+    else:
+        assert all(w is None for w in wires)
+
+
+@pytest.mark.cuda
+def test_held_slides_pinned_once_and_counted(card, collate_stores,
+                                             monkeypatch):
+    """Over three batches each held slide's features are page-locked once,
+    at its second collation (none in the first or the third batch, the
+    same copies reused), and every feature byte copied from them is counted
+    as `h2d_pinned_bytes`, beside `h2d_bytes`; the first batch's, from
+    pageable memory, are not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paths_tpu_torch import profiling
+    from paths_tpu_torch.data.dataset import collate_batch
+
+    ds = _collate_dataset(collate_stores, "f16", "float32")
+    pins = []
+    real_empty = torch.empty
+
+    def empty(*a, **k):
+        pins.append(bool(k.get("pin_memory")))
+        return real_empty(*a, **k)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    slides = len(set(COLLATE_IDX))
+    levels = ds.config.num_levels
+    counted, ptrs, new_pins = [], [], []
+    for _ in range(3):
+        n, t0 = sum(pins), len(profiling.spans())
+        with profile(activities=[ProfilerActivity.CPU]):
+            bag, tables = collate_batch(ds, COLLATE_IDX, device=card,
+                                        level0_bucket=ds.config.level0_bucket)
+        torch.cuda.synchronize()
+        new_pins.append(sum(pins) - n)
+        (col,) = [s for s in profiling.spans()[t0:] if s.name == "paths.collate"]
+        counted.append(col.attrs)
+        ptrs.append([w.data_ptr() for s in ds.slides for w in _wires(s)
+                     if w is not None])
+    assert new_pins == [0, levels * slides, 0]
+    assert ptrs[0] == [] and ptrs[1] == ptrs[2]
+    assert len(ptrs[1]) == levels * slides
+    feature_bytes = sum(
+        s.level0[0].nbytes + sum(t["fts"].nbytes for t in s.tables)
+        for s in (ds.slides[i] for i in COLLATE_IDX))
+    small = sum(v.numel() * (1 if v.dtype == torch.bool else 4)   # int32
+                for k, v in _batch_fields(bag, tables).items()
+                if k.split(".")[1] in ("locs", "count", "index", "grid_hw",
+                                       "mask"))
+    assert [a.get("h2d_pinned_bytes", 0) for a in counted] == [
+        0, feature_bytes, feature_bytes]
+    assert all(a["h2d_bytes"] == feature_bytes + small for a in counted)
+
+
+@pytest.mark.cuda
+def test_second_batch_before_the_first_is_read(card, collate_stores):
+    """Two batches collated while the card is still busy (their copies
+    queued behind a long kernel) each equal their CPU collation: the
+    page-locked sources are never rewritten, so the second batch's copies
+    cannot disturb the first's."""
+    from paths_tpu_torch.data.dataset import collate_batch
+
+    ds = _collate_dataset(collate_stores, "f16", "float32")
+    cpu = _collate_dataset(collate_stores, "f16", "float32")
+    bucket = ds.config.level0_bucket
+    first, second = [0, 1, 2], [2, 3, 4, 5]
+    for _ in range(2):                            # every slide page-locked
+        collate_batch(ds, first + second, device=card, level0_bucket=bucket)
+    torch.cuda.synchronize()
+    assert all(w is not None for s in ds.slides for w in _wires(s))
+    torch.cuda._sleep(1_000_000_000)              # about half a second
+    a = collate_batch(ds, first, device=card, level0_bucket=bucket)
+    b = collate_batch(ds, second, device=card, level0_bucket=bucket)
+    torch.cuda.synchronize()
+    for got, idx in ((a, first), (b, second)):
+        _assert_same_batch(_batch_fields(*got), _batch_fields(*collate_batch(
+            cpu, idx, device="cpu", level0_bucket=bucket)))
+
+
+@pytest.mark.cuda
+def test_unload_during_an_inflight_copy(card, collate_stores):
+    """`unload()` right after the collation that page-locks the slides,
+    while its copies still wait behind a long kernel, and page-locked
+    blocks of the same sizes then taken and overwritten, leave the batch
+    equal to the CPU's: torch's page-locked allocator keeps a dropped block
+    until the copies that read it have run. Over three rounds the
+    allocator's page-locked bytes do not grow (the dropped blocks return to
+    it and are reused)."""
+    import gc
+
+    from paths_tpu_torch.data.dataset import collate_batch
+
+    ds = _collate_dataset(collate_stores, "f16", "float32")
+    cpu = _collate_dataset(collate_stores, "f16", "float32")
+    bucket = ds.config.level0_bucket
+    want = _batch_fields(*collate_batch(cpu, COLLATE_IDX, device="cpu",
+                                        level0_bucket=bucket))
+    held = []
+    for _ in range(3):
+        collate_batch(ds, COLLATE_IDX, device=card, level0_bucket=bucket)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000_000)
+        batch = collate_batch(ds, COLLATE_IDX, device=card,
+                              level0_bucket=bucket)
+        sizes = [w.shape for s in ds.slides for w in _wires(s)
+                 if w is not None]
+        assert sizes
+        for s in ds.slides:
+            s.unload()
+        gc.collect()
+        grabbed = [torch.full(shape, 7.0, dtype=torch.float16,
+                              pin_memory=True) for shape in sizes]
+        torch.cuda.synchronize()
+        _assert_same_batch(_batch_fields(*batch), want)
+        del grabbed, batch
+        gc.collect()
+        held.append(torch.cuda.host_memory_stats()["allocated_bytes.current"])
+    assert held[2] <= held[0], held

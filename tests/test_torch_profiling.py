@@ -251,13 +251,17 @@ def _small_config(tmp):
     return cfg, ids
 
 
-def _shipped_bytes(bag, tables) -> int:
-    """The host bytes of a collated batch: f32 features, int32 indices and
-    a bool mask."""
-    n = 4 * bag.fts.numel() + 4 * bag.locs.numel() + bag.mask.numel()
-    for t in tables:
-        n += 4 * (t.fts.numel() + t.locs.numel() + t.count.numel()
-                  + t.index.numel() + t.grid_hw.numel())
+def _shipped_bytes(ds, idx, bag, tables) -> int:
+    """The host bytes of a collated batch: each slide's own f32 feature
+    rows (padding is made on the device), the int32 indices and a bool
+    mask."""
+    slides = [ds.slides[i] for i in idx]
+    n = sum(s.level0[0].nbytes for s in slides)
+    n += 4 * bag.locs.numel() + bag.mask.numel()
+    for lvl, t in enumerate(tables):
+        n += sum(s.tables[lvl]["fts"].nbytes for s in slides)
+        n += 4 * (t.locs.numel() + t.count.numel() + t.index.numel()
+                  + t.grid_hw.numel())
     return n
 
 
@@ -282,7 +286,8 @@ def test_collate_and_update_spans(tmp_path):
     rec = _since(t0)
     (col,) = [s for s in rec if s.name == "paths.collate"]
     (fwd,) = [s for s in rec if s.name == "paths.forward"]
-    assert col.attrs == {"slides": 3, "h2d_bytes": _shipped_bytes(bag, tables)}
+    assert col.attrs == {"slides": 3,
+                         "h2d_bytes": _shipped_bytes(ds, [0, 1, 2], bag, tables)}
     assert fwd.parent is None and fwd.attrs == {} and col.end_ns <= fwd.start_ns
 
 
