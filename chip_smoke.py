@@ -145,8 +145,12 @@ Phases, each printing its own lines:
      Virchow2 at full width and depth (fused against plain), one UNI batch on
      the flash route, and one f32 UNI batch with LayerScale 1 (fused against
      plain, with a planted fault), and the encode's time, busy share, memory
-     and profile on every route, flash included. The `int8` and `fused1` routes go through the same CLI run,
-     the same Virchow2 batches and the same f32 batch. Last, one batch of
+     and profile on every route, flash included. The `int8` and `fused1` routes go through the same CLI run
+     and the same f32 batch, `fused1` also through the same Virchow2 batches
+     (the published 16 heads of 80 with LayerScale 1, which `int8` and `flash`
+     refuse), and `int8` through two batches of a Virchow2-sized SwiGLU ViT at
+     20 heads of 64 (its #8 and #10 launches, and its cosine against the plain
+     route). Last, one batch of
      Kaiko-B/8 (patch 8, 785 tokens) through `from_name` on the four routes;
   7. native (after heatmap): the native table builder equal to the numpy
      path on every (slide, level) of the [slice] store, and a cold 32-slide
@@ -257,7 +261,7 @@ VIT_BF16_ULPS = 2
 # cell, as |fused - plain|_2 / |plain|_2. The two routes round the branch at
 # different places (the plain route after every op, the kernels only where
 # the TPU kernels do), a bf16 rounding is 2^-8 = 4e-3, and a ViT without
-# LayerScale (Virchow2) passes such differences through 32 blocks.
+# LayerScale would pass such differences through all its blocks.
 FEATURE_RTOL_BF16 = 5e-2
 # One f32 UNI batch (TF32 off) with LayerScale 1, fused vs plain route:
 # max |diff| over features of size O(1) after 24 blocks, each adding a few
@@ -294,8 +298,8 @@ I8_LOOSE_QUANTA = 8.0
 I8_BF16_CHANGED = 0.01
 # Feature grids of the int8 route vs the plain route in bf16: the
 # quantisation error itself. The JAX package holds it to 5e-2 of the largest
-# feature and a cosine above 0.999 for a 12-block random encoder; Virchow2 has
-# 32 blocks and no LayerScale, and each block adds about 1e-2.
+# feature and a cosine above 0.999 for a 12-block random encoder; a 32-block
+# encoder without LayerScale would add about 1e-2 a block.
 FEATURE_RTOL_INT8 = 1e-1
 FEATURE_COS_INT8 = 0.99
 # One f32 UNI batch with LayerScale 1 on the int8 route, kernels vs plain
@@ -420,8 +424,9 @@ def kernel_phase(torch, tfa, gpu):
 
     # the ViT flash route's shapes: bf16, head_dim 64, every token valid,
     # JAX's key block min(256, 128 ceil(N / 128)); 64 images of UNI,
-    # Virchow2 and Kaiko-B/8
-    for name, b, h, n in (("uni", 64, 16, 197), ("virchow2", 64, 20, 261),
+    # Virchow2's 261 tokens (at 20 heads of 64: the kernel takes no 80) and
+    # Kaiko-B/8
+    for name, b, h, n in (("uni", 64, 16, 197), ("virchow2-20x64", 64, 20, 261),
                           ("kaiko-b8", 64, 12, 785)):
         block_k = min(256, 128 * -(-n // 128))
         q, k, v = (torch.randn(b, h, n, 64, generator=gen).cuda().bfloat16()
@@ -4110,7 +4115,7 @@ def vit_kernel_phase(torch, tvf, gpu):
     shapes = (("ragged", 3, 50, 128, 2, 512, ("attn", "mlp", "swiglu")),
               ("ragged-h160", 3, 131, 128, 2, 160, ("swiglu",)),
               ("uni", 64, 197, 1024, 16, 4096, ("attn", "mlp")),
-              ("virchow2", 64, 261, 1280, 20, 6912, ("attn", "swiglu")),
+              ("virchow2", 64, 261, 1280, 16, 3456, ("attn", "swiglu")),
               ("kaiko-b8", 64, 785, 768, 12, 3072, ("attn", "mlp")))
     for case, b, n, d, heads, hidden, kinds in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -4394,7 +4399,9 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
 
     main_rows = {}
     shapes = (("uni", 64, 197, 1024, 16, 4096, ("block", "attn_i8", "mlp_i8")),
-              ("virchow2", 64, 261, 1280, 20, 6912, ("attn_i8", "swiglu_i8")),
+              # #8 takes head_dim 64 only: the shape before Virchow2's
+              # published 16 heads of 80 and 2 x 3416
+              ("virchow2-20x64", 64, 261, 1280, 20, 6912, ("attn_i8", "swiglu_i8")),
               ("kaiko-b8", 64, 785, 768, 12, 3072, ("block", "attn_i8", "mlp_i8")))
     for case, b, n, d, heads, hidden, kinds in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -4614,7 +4621,7 @@ def vit_new_kernel_phase(torch, tvf, tvi, gpu):
                       f"{bound_ms:.4f} (operations {flop_ms:.4f}, bytes "
                       f"{byte_ms:.4f}), share of the bound "
                       f"{bound_ms / dev['ms']:.4f}{piece_note} | {gpu}", flush=True)
-                main_case = "virchow2" if kind == "swiglu_i8" else "uni"
+                main_case = "virchow2-20x64" if kind == "swiglu_i8" else "uni"
                 if case == main_case and dtype == torch.bfloat16:
                     main_rows[kind] = dict(err=worst, flop_ms=flop_ms,
                                            byte_ms=byte_ms, **dev)
@@ -4666,6 +4673,7 @@ def feature_cosine(got, want):
 
 def preprocess_phase(torch, tfa, tvf, gpu):
     import copy
+    import dataclasses
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -4675,7 +4683,8 @@ def preprocess_phase(torch, tfa, tvf, gpu):
     from paths_tpu_torch.data.feature_store import FeatureStore
     from paths_tpu_torch.encoders import vit
     from paths_tpu_torch.encoders.registry import from_name
-    from paths_tpu_torch.encoders.transforms import UNI_TRANSFORM, apply_transform
+    from paths_tpu_torch.encoders.transforms import (UNI_TRANSFORM, VIRCHOW2_TRANSFORM,
+                                                     apply_transform)
     from paths_tpu_torch.kernels import vit_int8 as tvi
     from paths_tpu_torch.preprocess.pipeline import _read_batch
     from paths_tpu_torch.preprocess.wsi import open_wsi
@@ -4939,6 +4948,14 @@ def preprocess_phase(torch, tfa, tvf, gpu):
         def init_once(seed, spec):
             if name not in inits:
                 inits[name] = real(seed, spec)
+                if name == "virchow2":
+                    # LayerScale 1, as the f32 UNI batch above: at the
+                    # published 1e-5 the 32 blocks would add about 1e-5 to
+                    # the features, and a wrong kernel would pass this check
+                    with torch.no_grad():
+                        for blk in inits[name].blocks:
+                            blk.ls1.fill_(1.0)
+                            blk.ls2.fill_(1.0)
             return copy.deepcopy(inits[name])
 
         vit.vit_init = init_once
@@ -4947,9 +4964,27 @@ def preprocess_phase(torch, tfa, tvf, gpu):
         finally:
             vit.vit_init = real
 
-    # -- Virchow2, full width and depth, bf16, through from_name on every route
+    # -- Virchow2 (published: 16 heads of 80), full width and depth, bf16,
+    # LayerScale 1, through from_name on every route that takes head_dim 80;
+    # #8 (int8) and #1 (flash) refuse it
+    for refused, call in (
+            ("int8", lambda: tvi.fused_attn_block_i8(
+                torch.zeros(1, 5, 1280, device="cuda", dtype=torch.bfloat16),
+                None, None, None, None, None, None, num_heads=16)),
+            ("flash", lambda: tfa.masked_flash_attention_fwd(
+                *(torch.zeros(1, 16, 261, 80, device="cuda", dtype=torch.bfloat16)
+                  for _ in range(3)),
+                torch.full((1,), 261, dtype=torch.int32, device="cuda")))):
+        try:
+            call()
+        except ValueError as e:
+            if "head_dim 80" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"the {refused} route took head_dim 80")
+    v_impls = tuple(i for i in kernel_impls if i != "int8")
     feats, ms, vcounts, vpeak = {}, {}, {}, {}
-    for impl in kernel_impls + ("xla",):
+    for impl in v_impls + ("xla",):
         enc, dim, _ = route_encoder("virchow2", impl)
         if dim != 2560:
             raise AssertionError(f"virchow2 out dim {dim}")
@@ -4964,32 +4999,72 @@ def preprocess_phase(torch, tfa, tvf, gpu):
     vdepth = vit.VIRCHOW2.depth
     pair = vit_expect(tvf, fused_attn_block=2 * vdepth,
                       fused_swiglu_mlp_block=2 * vdepth)
-    wants = {"fused": pair, "fused1": pair, "xla": vit_expect(tvf),
-             "int8": vit_expect(tvf, fused_attn_block_i8=2 * vdepth,
-                                fused_swiglu_mlp_block_i8=2 * vdepth)}
-    rels = {impl: feature_mismatch(feats[impl], feats["xla"]) for impl in kernel_impls}
-    vcos = feature_cosine(feats["int8"], feats["xla"])
-    for impl in kernel_impls:
+    wants = {"fused": pair, "fused1": pair, "xla": vit_expect(tvf)}
+    rels = {impl: feature_mismatch(feats[impl], feats["xla"]) for impl in v_impls}
+    for impl in v_impls:
         if vcounts[impl] != wants[impl] or feats[impl].shape != (128, 2560) or \
                 not np.isfinite(feats[impl]).all() or not rels[impl] <= bars[impl]:
             raise AssertionError(f"virchow2 {impl}: launches {vcounts[impl]} (want "
                                  f"{wants[impl]}), shape {feats[impl].shape}, "
                                  f"mismatch {rels[impl]:.3g} (rtol {bars[impl]})")
-    if any(vcounts["xla"].values()) or not vcos >= FEATURE_COS_INT8:
-        raise AssertionError(f"virchow2: plain route launched {vcounts['xla']}, "
-                             f"int8 cosine {vcos:.5f}")
-    for impl in kernel_impls:
+    if any(vcounts["xla"].values()):
+        raise AssertionError(f"virchow2: plain route launched {vcounts['xla']}")
+    for impl in v_impls:
         launched = {k: v for k, v in vcounts[impl].items() if v}
-        print(f"[preprocess] Virchow2 (32 blocks, D 1280, packed SwiGLU 6912, 261 "
-              f"tokens, bf16), 2 batches of 64 through from_name(block_impl="
-              f"{impl!r}): launches {launched}; (128, 2560) features, worst "
-              f"|diff|/|feature| vs the plain route {rels[impl]:.3g} (rtol "
-              f"{bars[impl]})"
-              + (f", lowest cosine {vcos:.6f}" if impl == "int8" else "")
+        print(f"[preprocess] Virchow2 (32 blocks, D 1280, 16 heads of 80, packed "
+              f"SwiGLU 2 x 3416 held as 3456, 261 tokens, bf16, LayerScale 1), "
+              f"2 batches of 64 "
+              f"through from_name(block_impl={impl!r}): launches {launched}; "
+              f"(128, 2560) features, worst |diff|/|feature| vs the plain route "
+              f"{rels[impl]:.3g} (rtol {bars[impl]}); int8 and flash refuse "
+              f"head_dim 80"
               + f"; encode of one batch {ms[impl]:.1f} ms, plain route "
               f"{ms['xla']:.1f} ms; peak memory over the timed batches "
               f"{vpeak[impl]:.0f} MiB (encoder resident; plain route "
               f"{vpeak['xla']:.0f} MiB) | {gpu}", flush=True)
+    del inits["virchow2"]
+
+    # -- the int8 route (#8, #10) on the SwiGLU ViT that #8 takes: Virchow2's
+    # depth, width and 261 tokens at 20 heads of 64, packed SwiGLU 2 x 6912,
+    # no LayerScale (the port's Virchow2 before it took its published
+    # widths), quantised as from_name quantises, through vit_apply
+    v64 = dataclasses.replace(vit.VIRCHOW2, num_heads=20, glu_width=0,
+                              layer_scale=False)
+    m64 = vit.vit_init(0, v64)
+    q64 = tvi.quantize_vit_blocks(copy.deepcopy(m64)).cuda()
+    m64 = m64.cuda()
+    xs = [apply_transform(b.float() / 255.0, VIRCHOW2_TRANSFORM) for b in two_batches]
+    plain64 = torch.cat([vit.vit_apply(m64, x, torch.bfloat16, "xla") for x in xs])
+    del m64
+    reset_vit_counts(tvf)
+    got64 = torch.cat([vit.vit_apply(q64, x, torch.bfloat16, "int8") for x in xs])
+    torch.cuda.synchronize()
+    i8counts = vit_counts(tvf)
+    torch.cuda.reset_peak_memory_stats()
+    i8ms = cuda_ms(lambda: vit.vit_apply(q64, xs[0], torch.bfloat16, "int8"),
+                   iters=2, warmup=0)
+    i8peak = torch.cuda.max_memory_allocated() / 2**20
+    got64, plain64 = got64.cpu().numpy(), plain64.cpu().numpy()
+    i8rel = feature_mismatch(got64, plain64)
+    i8cos = feature_cosine(got64, plain64)
+    want = vit_expect(tvf, fused_attn_block_i8=2 * v64.depth,
+                      fused_swiglu_mlp_block_i8=2 * v64.depth)
+    if i8counts != want or got64.shape != (128, 2560) or \
+            not np.isfinite(got64).all() or not i8rel <= bars["int8"] \
+            or not i8cos >= FEATURE_COS_INT8:
+        raise AssertionError(f"virchow2-20x64 int8: launches {i8counts} (want "
+                             f"{want}), shape {got64.shape}, mismatch {i8rel:.3g} "
+                             f"(rtol {bars['int8']}), cosine {i8cos:.5f}")
+    print(f"[preprocess] virchow2-20x64 (32 blocks, D 1280, 20 heads of 64, packed "
+          f"SwiGLU 2 x 6912, 261 tokens, bf16, no LayerScale), 2 batches of 64 "
+          f"through vit_apply(block_impl='int8'): launches "
+          f"{ {k: v for k, v in i8counts.items() if v} }; (128, 2560) features, "
+          f"worst |diff|/|feature| vs the plain route {i8rel:.3g} (rtol "
+          f"{bars['int8']}), lowest cosine {i8cos:.6f} (at least "
+          f"{FEATURE_COS_INT8}); encode of one batch {i8ms:.1f} ms; peak memory "
+          f"over the timed batch {i8peak:.0f} MiB | {gpu}", flush=True)
+    del q64
+
     # -- Kaiko-B/8 (patch 8: 785 tokens), full width and depth, bf16, one
     # batch through from_name on every route: the kernels' streamed key tiles
     # (#4, #7, #8)
@@ -5039,7 +5114,7 @@ def preprocess_phase(torch, tfa, tvf, gpu):
             "vit_block": uni_counts["fused1"]["fused_block"],
             "vit_attn_i8": uni_counts["int8"]["fused_attn_block_i8"],
             "vit_mlp_i8": uni_counts["int8"]["fused_mlp_block_i8"],
-            "vit_swiglu_mlp_i8": vcounts["int8"]["fused_swiglu_mlp_block_i8"]}
+            "vit_swiglu_mlp_i8": i8counts["fused_swiglu_mlp_block_i8"]}
 
 
 def native_build(gpu):

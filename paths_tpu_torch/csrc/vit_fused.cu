@@ -61,7 +61,10 @@
 //    products. In bf16 both products are tensor-core `mma.sync`s with S kept
 //    in registers, whose accumulator layout is the A operand of P V; a block
 //    takes 128 query rows, so each K and V tile read from L2 serves 128
-//    rows.
+//    rows. The attention block takes head_dim 64 and 80 (Virchow2's 16
+//    heads of 80: q k^T over 5 k-slabs of 16, P V over 10 n-tiles of 8, in
+//    `vit_attn_hd80_*_kernel`, so that the head_dim-64 kernels keep their
+//    code and names); the whole block takes 64.
 //  * Each wrapper call is a fixed sequence of launches on the caller's
 //    stream (`attn_half`, `mlp_half`): the whole block writes x after the
 //    attention half (x1, rounded to T) to device memory and runs the MLP
@@ -75,8 +78,9 @@
 // weights, so the operation rate bounds it: the bf16 tensor-core rate for
 // bf16, the f32 CUDA-core rate for f32.
 //
-// Requirements (checked by the Python wrapper): head_dim 64, D % 64 == 0,
-// hidden % 32 == 0, 16-byte aligned contiguous tensors.
+// Requirements (checked by the Python wrapper): head_dim 64 (80 also for the
+// attention block), D % 64 == 0, hidden % 32 == 0, 16-byte aligned
+// contiguous tensors.
 //
 // C interface (loaded through ctypes): the launch entries return the
 // cudaError_t of the first launch that failed (0 on success).
@@ -109,7 +113,7 @@ vit_gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
                         blockIdx.x * tiles::kTileN<Epi>, out, epi, smem_raw);
 }
 
-// blockIdx = (query tile, head, image)
+// blockIdx = (query tile, head, image); head_dim 64
 template <bool NORM_FIRST>
 __global__ void __launch_bounds__(tiles::kAttnThreadsBf16)
 vit_attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -127,6 +131,45 @@ vit_attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ ctx,
   tiles::attn_tile_f32<NORM_FIRST>(qkv, ctx, blockIdx.z, blockIdx.y,
                                    blockIdx.x * tiles::kQT, N, D, smem_raw);
 }
+
+// the same at head_dim 80
+template <bool NORM_FIRST>
+__global__ void __launch_bounds__(tiles::kAttnThreadsBf16)
+vit_attn_hd80_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
+                          __nv_bfloat16* __restrict__ ctx, int N, int D) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  tiles::attn_tile_bf16<NORM_FIRST, __nv_bfloat16, kHD80>(
+      qkv, ctx, blockIdx.z, blockIdx.y, blockIdx.x * tiles::kQTBf16, N, D, smem_raw);
+}
+
+template <bool NORM_FIRST>
+__global__ void __launch_bounds__(tiles::kAttnThreadsF32)
+vit_attn_hd80_f32_kernel(const float* __restrict__ qkv, float* __restrict__ ctx,
+                         int N, int D) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  tiles::attn_tile_f32<NORM_FIRST, kHD80>(qkv, ctx, blockIdx.z, blockIdx.y,
+                                          blockIdx.x * tiles::kQT, N, D, smem_raw);
+}
+
+// The attention kernel of a head_dim and type, with its shared memory
+template <typename T, bool NORM_FIRST, int HD>
+struct AttnKernel {
+  static constexpr bool kBf16 = tiles::kTensor<T>;
+  static constexpr int kThreads =
+      kBf16 ? tiles::kAttnThreadsBf16 : tiles::kAttnThreadsF32;
+  static constexpr size_t kSmem = kBf16 ? tiles::kAttnSmemBf16Of<HD>
+                                        : tiles::kAttnSmemF32Of<HD>;
+  static auto get() {
+    if constexpr (kBf16 && HD == kHD)
+      return vit_attn_bf16_kernel<NORM_FIRST>;
+    else if constexpr (kBf16)
+      return vit_attn_hd80_bf16_kernel<NORM_FIRST>;
+    else if constexpr (HD == kHD)
+      return vit_attn_f32_kernel<NORM_FIRST>;
+    else
+      return vit_attn_hd80_f32_kernel<NORM_FIRST>;
+  }
+};
 
 // ------------------------------------------------------------------ launch
 template <typename T>
@@ -155,24 +198,17 @@ cudaError_t gemm(const T* a, const T* w, T* out, int M, int N, int K, Epi epi,
   }
 }
 
-// ctx (B, N, D) from qkv (B, N, 3D), every head
-template <typename T, bool NORM_FIRST>
+// ctx (B, N, D) from qkv (B, N, 3D), every head of width HD
+template <typename T, bool NORM_FIRST, int HD>
 cudaError_t attention(const T* qkv, T* ctx, int B, int N, int D, int heads,
                       cudaStream_t s) {
+  using K = AttnKernel<T, NORM_FIRST, HD>;
   constexpr int QT = tiles::kTensor<T> ? tiles::kQTBf16 : tiles::kQT;
   const dim3 grid((N + QT - 1) / QT, heads, B);
-  cudaError_t rc;
-  if constexpr (tiles::kTensor<T>) {
-    rc = allow_smem(vit_attn_bf16_kernel<NORM_FIRST>, tiles::kAttnSmemBf16);
-    if (rc != cudaSuccess) return rc;
-    vit_attn_bf16_kernel<NORM_FIRST>
-        <<<grid, tiles::kAttnThreadsBf16, tiles::kAttnSmemBf16, s>>>(qkv, ctx, N, D);
-  } else {
-    rc = allow_smem(vit_attn_f32_kernel<NORM_FIRST>, tiles::kAttnSmemF32);
-    if (rc != cudaSuccess) return rc;
-    vit_attn_f32_kernel<NORM_FIRST>
-        <<<grid, tiles::kAttnThreadsF32, tiles::kAttnSmemF32, s>>>(qkv, ctx, N, D);
-  }
+  const auto kernel = K::get();
+  const cudaError_t rc = allow_smem(kernel, K::kSmem);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<grid, K::kThreads, K::kSmem, s>>>(qkv, ctx, N, D);
   return cudaGetLastError();
 }
 
@@ -197,8 +233,8 @@ struct BlockArgs {
 };
 
 // The attention half: out = x + ls1 (attn(LN1(x)) Wp^T + bp), NORM_FIRST as
-// in `attn_tile_bf16`.
-template <typename T, bool NORM_FIRST>
+// in `attn_tile_bf16`, heads of width HD.
+template <typename T, bool NORM_FIRST, int HD>
 cudaError_t attn_half(const BlockArgs& a, T* out, cudaStream_t s) {
   const int R = a.B * a.N, D = a.D;
   const T* x = static_cast<const T*>(a.x);
@@ -209,7 +245,8 @@ cudaError_t attn_half(const BlockArgs& a, T* out, cudaStream_t s) {
   if ((rc = gemm<T>(act, static_cast<const T*>(a.wqkv), qkv, R, 3 * D, D,
                     tiles::EpiBias{a.bqkv}, s)) != cudaSuccess)
     return rc;
-  if ((rc = attention<T, NORM_FIRST>(qkv, act, a.B, a.N, D, a.heads, s)) != cudaSuccess)
+  if ((rc = attention<T, NORM_FIRST, HD>(qkv, act, a.B, a.N, D, a.heads, s)) !=
+      cudaSuccess)
     return rc;
   return gemm<T>(act, static_cast<const T*>(a.wp), out, R, D, D,
                  tiles::EpiResidual<T>{x, a.bp, a.ls1, D}, s);
@@ -217,8 +254,12 @@ cudaError_t attn_half(const BlockArgs& a, T* out, cudaStream_t s) {
 
 template <typename T>
 int launch_attn(const BlockArgs& a, cudaStream_t s) {
-  if (a.heads * kHD != a.D) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(attn_half<T, false>(a, static_cast<T*>(a.out), s));
+  T* out = static_cast<T*>(a.out);
+  if (a.heads * kHD == a.D)
+    return static_cast<int>(attn_half<T, false, kHD>(a, out, s));
+  if (a.heads * kHD80 == a.D)
+    return static_cast<int>(attn_half<T, false, kHD80>(a, out, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The MLP half: out = x + ls2 (act(LN2(x) W1^T + b1) W2^T + b2) as a
@@ -265,7 +306,7 @@ int launch_block(const BlockArgs& a, cudaStream_t s) {
   if (a.heads * kHD != a.D || a.H % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   T* x1 = static_cast<T*>(a.x1);
-  const cudaError_t rc = attn_half<T, true>(a, x1, s);
+  const cudaError_t rc = attn_half<T, true, kHD>(a, x1, s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(mlp_half<T, ACT>(a, x1, static_cast<T*>(a.out), s));
 }

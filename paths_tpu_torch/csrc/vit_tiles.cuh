@@ -29,7 +29,8 @@
 namespace paths_cuda {
 namespace vit {
 
-constexpr int kHD = 64;         // head_dim
+constexpr int kHD = 64;         // head_dim of the block kernels
+constexpr int kHD80 = 80;       // the attention tiles' other head_dim (Virchow2)
 constexpr float kLnEps = 1e-6f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -65,6 +66,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 namespace tiles {
 
 using vit::kHD;
+using vit::kHD80;
 
 template <typename T>
 constexpr bool kTensor = std::is_same<T, __nv_bfloat16>::value;
@@ -771,29 +773,47 @@ __device__ __forceinline__ void gemm_f32_block(const float* __restrict__ A,
 // row sum a multiply by its reciprocal: the accurate forms cost more than the
 // products. Keys past N get a score of
 // -1e30 (P = 0) and zero rows of V; rows past N are computed and not stored.
+//
+// Head dims: HD 64 (every encoder but Virchow2) and 80 (Virchow2: q k^T over
+// k = 5 x 16, P V over n = 10 x 8). A row of a tile is HD + 8 bf16 or HD + 4
+// f32 wide (64: 144 / 272 bytes; 80: 176 / 336): 16-byte aligned, and the 8
+// rows of an `ldmatrix` or a quarter warp's float4 reads fall on 8 distinct
+// groups of 4 banks.
 constexpr int kQT = 64;    // query rows per block (f32)
 constexpr int kQTBf16 = 128;   // query rows per block (bf16)
 constexpr int kKT = 64;    // keys per streamed tile
 constexpr int kAttnThreadsBf16 = 128;   // 4 warps of 32 query rows
 constexpr int kAttnThreadsF32 = 256;    // 16 x 16 threads
-constexpr int kAP = kHD + 8;            // row pitch of a bf16 tile (144 bytes)
-constexpr int kAPF = kHD + 4;           // row pitch of an f32 tile (272 bytes)
-constexpr size_t kAttnSmemBf16 = 4 * kKT * kAP * sizeof(__nv_bfloat16);   // 2 K, 2 V
-constexpr size_t kAttnSmemF32 = 4 * kQT * kAPF * sizeof(float);           // Q, K, V, P
+template <int HD>
+constexpr int kAPOf = HD + 8;           // row pitch of a bf16 tile
+template <int HD>
+constexpr int kAPFOf = HD + 4;          // row pitch of an f32 tile
+template <int HD>   // 2 K, 2 V
+constexpr size_t kAttnSmemBf16Of = 4 * kKT * kAPOf<HD> * sizeof(__nv_bfloat16);
+template <int HD>   // Q, K, V, P
+constexpr size_t kAttnSmemF32Of = 4 * kQT * kAPFOf<HD> * sizeof(float);
+constexpr size_t kAttnSmemBf16 = kAttnSmemBf16Of<kHD>;
+constexpr size_t kAttnSmemF32 = kAttnSmemF32Of<kHD>;
+// 1 / sqrt(HD), the scale of the scores
+template <int HD>
+constexpr float kScoreScale = HD == kHD ? 0.125f : 0.111803398874989485f;
+template <int HD>
+constexpr bool kAttnHeadDim = HD == kHD || HD == kHD80;
 
-// 64 rows x 64 columns of T from qkv rows row0.. of image b, column col, into
+// 64 rows x HD columns of T from qkv rows row0.. of image b, column col, into
 // dst (row pitch `pitch` elements); rows past N are zeros.
-template <typename T, int THREADS>
+template <typename T, int THREADS, int HD = kHD>
 __device__ __forceinline__ void load_head_tile(T* dst, int pitch,
                                                const T* __restrict__ qkv,
                                                int b, int N, int ld, int row0,
                                                int col) {
   constexpr int PE = 16 / static_cast<int>(sizeof(T));
-  constexpr int PIECES = kKT * kHD / PE;
+  constexpr int PIECES = kKT * HD / PE;
+  static_assert(PIECES % THREADS == 0, "whole pieces per thread");
 #pragma unroll
   for (int i = 0; i < PIECES / THREADS; ++i) {
     const int c = threadIdx.x + i * THREADS;
-    const int r = c / (kHD / PE), p = c % (kHD / PE);
+    const int r = c / (HD / PE), p = c % (HD / PE);
     const int row = row0 + r;
     cp_async16(dst + r * pitch + p * PE,
                qkv + (static_cast<size_t>(b) * N + (row < N ? row : 0)) * ld +
@@ -810,26 +830,30 @@ __device__ __forceinline__ void load_head_tile(T* dst, int pitch,
 // of P V once packed to bf16 pairs. Shared memory: K tiles 0 and 1, V tiles
 // 0 and 1; Q passes through the V tiles before the first pass. The context
 // is stored as CT: rounded to bf16, or unrounded in f32 (the int8 block
-// quantises the f32 context).
-template <bool NORM_FIRST, typename CT = __nv_bfloat16>
+// quantises the f32 context). A head is HD wide: q fragments over HD / 16
+// slabs of k, context fragments over HD / 8 tiles of n.
+template <bool NORM_FIRST, typename CT = __nv_bfloat16, int HD = kHD>
 __device__ __forceinline__ void attn_tile_bf16(
     const __nv_bfloat16* __restrict__ qkv, CT* __restrict__ ctx,
     int b, int h, int q0, int N, int D, unsigned char* smem) {
+  static_assert(kAttnHeadDim<HD>, "head_dim 64 or 80");
   using bf16 = __nv_bfloat16;
   constexpr int TH = kAttnThreadsBf16;
+  constexpr int AP = kAPOf<HD>;
+  constexpr int KC = HD / 16, DT = HD / 8;
   bf16* base = reinterpret_cast<bf16*>(smem);
-  auto Ks = [&](int j) { return base + (j & 1) * kKT * kAP; };
-  auto Vs = [&](int j) { return base + (2 + (j & 1)) * kKT * kAP; };
+  auto Ks = [&](int j) { return base + (j & 1) * kKT * AP; };
+  auto Vs = [&](int j) { return base + (2 + (j & 1)) * kKT * AP; };
   bf16* Qs = Vs(0);   // 128 rows: V tiles 0 and 1
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int ld = 3 * D, kcol = D + h * kHD, vcol = 2 * D + h * kHD;
+  const int ld = 3 * D, kcol = D + h * HD, vcol = 2 * D + h * HD;
   const int KT = (N + kKT - 1) / kKT;
   constexpr unsigned kAll = 0xffffffffu;
 
   // s[mi][nt][e]: rows 32 warp + 16 mi + g (e 0, 1) or + 8 (e 2, 3), keys
   // key0 + 8 nt + 2 tq + e % 2
-  auto scores = [&](float (&s)[2][8][4], const unsigned (&qf)[2][4][4],
+  auto scores = [&](float (&s)[2][8][4], const unsigned (&qf)[2][KC][4],
                     const bf16* K, int key0) {
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -838,11 +862,11 @@ __device__ __forceinline__ void attn_tile_bf16(
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mi][nt][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < kHD / 16; ++kc) {
+    for (int kc = 0; kc < KC; ++kc) {
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         unsigned kf[4];
-        ldmatrix_x4(kf, K + (np * 16 + lane % 8 + (lane / 16) * 8) * kAP + kc * 16 +
+        ldmatrix_x4(kf, K + (np * 16 + lane % 8 + (lane / 16) * 8) * AP + kc * 16 +
                             ((lane / 8) % 2) * 8);
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
@@ -856,7 +880,7 @@ __device__ __forceinline__ void attn_tile_bf16(
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[mi][nt][e] *= 0.125f;   // 1 / sqrt(64)
+        for (int e = 0; e < 4; ++e) s[mi][nt][e] *= kScoreScale<HD>;
     if (key0 + kKT > N) {   // the ragged last tile
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -869,7 +893,7 @@ __device__ __forceinline__ void attn_tile_bf16(
   };
 
   // ---- pass 1: row max (and row sum)
-  unsigned qf[2][4][4];
+  unsigned qf[2][KC][4];
   float m[2][2], l[2][2];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -878,13 +902,13 @@ __device__ __forceinline__ void attn_tile_bf16(
       m[mi][r] = kNegInf;
       l[mi][r] = 0.f;
     }
-  load_head_tile<bf16, TH>(Qs, kAP, qkv, b, N, ld, q0, h * kHD);
-  load_head_tile<bf16, TH>(Qs + kKT * kAP, kAP, qkv, b, N, ld, q0 + kKT, h * kHD);
-  load_head_tile<bf16, TH>(Ks(0), kAP, qkv, b, N, ld, 0, kcol);
+  load_head_tile<bf16, TH, HD>(Qs, AP, qkv, b, N, ld, q0, h * HD);
+  load_head_tile<bf16, TH, HD>(Qs + kKT * AP, AP, qkv, b, N, ld, q0 + kKT, h * HD);
+  load_head_tile<bf16, TH, HD>(Ks(0), AP, qkv, b, N, ld, 0, kcol);
   cp_async_commit();
   for (int j = 0; j < KT; ++j) {
     if (j + 1 < KT)
-      load_head_tile<bf16, TH>(Ks(j + 1), kAP, qkv, b, N, ld, (j + 1) * kKT, kcol);
+      load_head_tile<bf16, TH, HD>(Ks(j + 1), AP, qkv, b, N, ld, (j + 1) * kKT, kcol);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -892,8 +916,8 @@ __device__ __forceinline__ void attn_tile_bf16(
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int kc = 0; kc < kHD / 16; ++kc)
-          ldmatrix_x4(qf[mi][kc], Qs + (warp * 32 + mi * 16 + lane % 16) * kAP +
+        for (int kc = 0; kc < KC; ++kc)
+          ldmatrix_x4(qf[mi][kc], Qs + (warp * 32 + mi * 16 + lane % 16) * AP +
                                       kc * 16 + (lane / 16) * 8);
     }
     float s[2][8][4];
@@ -937,21 +961,21 @@ __device__ __forceinline__ void attn_tile_bf16(
   }
 
   // ---- pass 2: P against the final max, P V
-  float o[2][8][4];
+  float o[2][DT][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
+    for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[mi][dt][e] = 0.f;
   float lsum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  load_head_tile<bf16, TH>(Ks(0), kAP, qkv, b, N, ld, 0, kcol);
-  load_head_tile<bf16, TH>(Vs(0), kAP, qkv, b, N, ld, 0, vcol);
+  load_head_tile<bf16, TH, HD>(Ks(0), AP, qkv, b, N, ld, 0, kcol);
+  load_head_tile<bf16, TH, HD>(Vs(0), AP, qkv, b, N, ld, 0, vcol);
   cp_async_commit();
   for (int j = 0; j < KT; ++j) {
     if (j + 1 < KT) {
-      load_head_tile<bf16, TH>(Ks(j + 1), kAP, qkv, b, N, ld, (j + 1) * kKT, kcol);
-      load_head_tile<bf16, TH>(Vs(j + 1), kAP, qkv, b, N, ld, (j + 1) * kKT, vcol);
+      load_head_tile<bf16, TH, HD>(Ks(j + 1), AP, qkv, b, N, ld, (j + 1) * kKT, kcol);
+      load_head_tile<bf16, TH, HD>(Vs(j + 1), AP, qkv, b, N, ld, (j + 1) * kKT, vcol);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -981,9 +1005,9 @@ __device__ __forceinline__ void attn_tile_bf16(
           pf[mi][half * 2 + 1] = pack_bf16(p[2], p[3]);
         }
 #pragma unroll
-      for (int dp = 0; dp < kHD / 16; ++dp) {
+      for (int dp = 0; dp < KC; ++dp) {
         unsigned vf[4];
-        ldmatrix_x4_trans(vf, V + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kAP +
+        ldmatrix_x4_trans(vf, V + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * AP +
                                   dp * 16 + (lane / 16) * 8);
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
@@ -1005,9 +1029,9 @@ __device__ __forceinline__ void attn_tile_bf16(
       }
       const int row = q0 + warp * 32 + mi * 16 + g + r * 8;
       if (row >= N) continue;
-      CT* dst = ctx + (static_cast<size_t>(b) * N + row) * D + h * kHD + tq * 2;
+      CT* dst = ctx + (static_cast<size_t>(b) * N + row) * D + h * HD + tq * 2;
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
+      for (int dt = 0; dt < DT; ++dt) {
         float v0 = o[mi][dt][2 * r], v1 = o[mi][dt][2 * r + 1];
         if (!NORM_FIRST) {
           v0 = v0 / lsum[mi][r];
@@ -1019,21 +1043,26 @@ __device__ __forceinline__ void attn_tile_bf16(
 }
 
 // f32 on the CUDA cores: 16 x 16 threads; thread (ty, tx) owns query rows
-// 4 ty .. 4 ty + 3 and, of each 64-key tile, keys tx + 16 j (scores) or, of
-// the head, columns tx + 16 j (context), j < 4. P passes through shared
-// memory. Same two passes as the bf16 version; rounding to f32 is no
-// rounding, so the two NORM_FIRST orders differ only in where the divide is.
-template <bool NORM_FIRST>
+// 4 ty .. 4 ty + 3 and, of each 64-key tile, keys tx + 16 j, j < 4 (scores)
+// or, of the head, columns tx + 16 j, j < HD / 16 (context). P passes
+// through shared memory. Same two passes as the bf16 version; rounding to f32
+// is no rounding, so the two NORM_FIRST orders differ only in where the
+// divide is.
+template <bool NORM_FIRST, int HD = kHD>
 __device__ __forceinline__ void attn_tile_f32(const float* __restrict__ qkv,
                                               float* __restrict__ ctx, int b,
                                               int h, int q0, int N, int D,
                                               unsigned char* smem) {
+  static_assert(kAttnHeadDim<HD>, "head_dim 64 or 80");
+  constexpr int APF = kAPFOf<HD>;
+  constexpr int CJ = HD / 16;
+  constexpr int TH = kAttnThreadsF32;
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + kQT * kAPF;
-  float* Vs = Ks + kKT * kAPF;
-  float* Ps = Vs + kKT * kAPF;
+  float* Ks = Qs + kQT * APF;
+  float* Vs = Ks + kKT * APF;
+  float* Ps = Vs + kKT * APF;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int ld = 3 * D, kcol = D + h * kHD, vcol = 2 * D + h * kHD;
+  const int ld = 3 * D, kcol = D + h * HD, vcol = 2 * D + h * HD;
   const int KT = (N + kKT - 1) / kKT;
   constexpr unsigned kAll = 0xffffffffu;
 
@@ -1043,14 +1072,14 @@ __device__ __forceinline__ void attn_tile_f32(const float* __restrict__ qkv,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < kHD; d += 4) {
+    for (int d = 0; d < HD; d += 4) {
       float4 k[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        k[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * kAPF + d);
+        k[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * APF + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float4 q = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * kAPF + d);
+        const float4 q = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * APF + d);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(q.x, k[j].x, s[i][j]);
@@ -1064,7 +1093,7 @@ __device__ __forceinline__ void attn_tile_f32(const float* __restrict__ qkv,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        s[i][j] = key0 + tx + 16 * j < N ? s[i][j] * 0.125f : kNegInf;
+        s[i][j] = key0 + tx + 16 * j < N ? s[i][j] * kScoreScale<HD> : kNegInf;
   };
   // max or sum over the 16 threads of a row group (one half warp)
   auto row_max = [&](float v) {
@@ -1085,9 +1114,9 @@ __device__ __forceinline__ void attn_tile_f32(const float* __restrict__ qkv,
     m[i] = kNegInf;
     l[i] = 0.f;
   }
-  load_head_tile<float, kAttnThreadsF32>(Qs, kAPF, qkv, b, N, ld, q0, h * kHD);
+  load_head_tile<float, TH, HD>(Qs, APF, qkv, b, N, ld, q0, h * HD);
   for (int j = 0; j < KT; ++j) {
-    load_head_tile<float, kAttnThreadsF32>(Ks, kAPF, qkv, b, N, ld, j * kKT, kcol);
+    load_head_tile<float, TH, HD>(Ks, APF, qkv, b, N, ld, j * kKT, kcol);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -1112,16 +1141,16 @@ __device__ __forceinline__ void attn_tile_f32(const float* __restrict__ qkv,
   }
 
   // ---- pass 2
-  float o[4][4], lsum[4];
+  float o[4][CJ], lsum[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     lsum[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < CJ; ++j) o[i][j] = 0.f;
   }
   for (int j = 0; j < KT; ++j) {
-    load_head_tile<float, kAttnThreadsF32>(Ks, kAPF, qkv, b, N, ld, j * kKT, kcol);
-    load_head_tile<float, kAttnThreadsF32>(Vs, kAPF, qkv, b, N, ld, j * kKT, vcol);
+    load_head_tile<float, TH, HD>(Ks, APF, qkv, b, N, ld, j * kKT, kcol);
+    load_head_tile<float, TH, HD>(Vs, APF, qkv, b, N, ld, j * kKT, vcol);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -1136,7 +1165,7 @@ __device__ __forceinline__ void attn_tile_f32(const float* __restrict__ qkv,
           p *= l[i];
         else
           lsum[i] += p;
-        Ps[(ty * 4 + i) * kAPF + tx + 16 * jj] = p;
+        Ps[(ty * 4 + i) * APF + tx + 16 * jj] = p;
       }
     __syncthreads();   // P is complete
 #pragma unroll 4
@@ -1144,12 +1173,12 @@ __device__ __forceinline__ void attn_tile_f32(const float* __restrict__ qkv,
       float4 p[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        p[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * kAPF + kk);
+        p[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * APF + kk);
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < CJ; ++jj) {
         const int c = tx + 16 * jj;
-        const float v0 = Vs[kk * kAPF + c], v1 = Vs[(kk + 1) * kAPF + c];
-        const float v2 = Vs[(kk + 2) * kAPF + c], v3 = Vs[(kk + 3) * kAPF + c];
+        const float v0 = Vs[kk * APF + c], v1 = Vs[(kk + 1) * APF + c];
+        const float v2 = Vs[(kk + 2) * APF + c], v3 = Vs[(kk + 3) * APF + c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           o[i][jj] = fmaf(p[i].x, v0, o[i][jj]);
@@ -1166,9 +1195,9 @@ __device__ __forceinline__ void attn_tile_f32(const float* __restrict__ qkv,
     const int row = q0 + ty * 4 + i;
     const float sum = NORM_FIRST ? 1.f : row_sum(lsum[i]);
     if (row >= N) continue;
-    float* dst = ctx + (static_cast<size_t>(b) * N + row) * D + h * kHD;
+    float* dst = ctx + (static_cast<size_t>(b) * N + row) * D + h * HD;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
+    for (int jj = 0; jj < CJ; ++jj)
       dst[tx + 16 * jj] = NORM_FIRST ? o[i][jj] : o[i][jj] / sum;
   }
 }

@@ -14,6 +14,9 @@ Kaiko ViTs); Linear weights keep timm's (out, in) layout:
     blocks.i.ls{1,2}.gamma            -> blocks[i].ls{1,2}
     blocks.i.mlp.fc{1,2}.*            -> blocks[i].fc{1,2}.*
     norm.{weight,bias}                -> norm.{weight,bias}
+
+Virchow2's packed SwiGLU (`GluMlp`): fc1 (6832, 1280), gate rows first, and
+fc2 (1280, 3416), each branch zero-padded to the spec's 3456.
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ def _convert_mlp(g, p: str, spec: ViTSpec):
     fc1_w, fc1_b = g(f"{p}.mlp.fc1.weight"), g(f"{p}.mlp.fc1.bias")
     fc2_w, fc2_b = g(f"{p}.mlp.fc2.weight"), g(f"{p}.mlp.fc2.bias")
     h, hp = spec.mlp_hidden, spec.mlp_hidden_padded
+    want = ((2 * h if spec.swiglu else h, spec.embed_dim), (spec.embed_dim, h))
+    if (fc1_w.shape, fc2_w.shape) != want:
+        raise ValueError(f"{p}.mlp: fc1 {fc1_w.shape}, fc2 {fc2_w.shape}; the "
+                         f"spec wants {want[0]} and {want[1]}")
     if spec.swiglu and hp != h:
         w1 = np.zeros((2 * hp, fc1_w.shape[1]), fc1_w.dtype)
         w1[:h], w1[hp:hp + h] = fc1_w[:h], fc1_w[h:]
@@ -48,6 +55,9 @@ def vit_from_timm(sd: Mapping[str, np.ndarray], spec: ViTSpec) -> ViT:
     """A new CPU `ViT` from a timm state dict of numpy arrays."""
     g = lambda k: np.asarray(sd[k], dtype=np.float32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    if not spec.layer_scale and "blocks.0.ls1.gamma" in sd:
+        raise ValueError("the state dict has LayerScale (ls1.gamma) and the "
+                         "spec has none")
     model = ViT(spec, pos_embed_rows=g("pos_embed").shape[1])
     d = spec.embed_dim
     with torch.no_grad():

@@ -9,6 +9,14 @@ file.
 
     encode, dim, transform = from_name("UNI", weights_path="uni.pt")
     fts = encode(images_bhwc)      # uint8 or [0, 1] float -> (B, dim) float32
+
+"virchow2" is the published Virchow2 (`encoders.vit.VIRCHOW2`): ViT-H/14 at
+224 px, width 1280, 32 blocks of 16 heads of 80, LayerScale, 4 register
+tokens, timm's packed SwiGLU (fc1 1280 -> 6832 = 2 x 3416, fc2 3416 -> 1280,
+held zero-padded to 3456), 2560-d features (cls token and patch-token
+mean). Its weights file is timm's state dict as published. On a card its
+head_dim 80 runs on "fused" and "fused1" (#4 and #6); "int8" (#8) and
+"flash" (#1) take head_dim 64 only and raise.
 """
 from __future__ import annotations
 

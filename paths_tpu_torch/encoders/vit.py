@@ -2,9 +2,14 @@
 `paths_tpu.encoders.vit`).
 
 Covers the encoder zoo's architectures: UNI (timm ViT-L/16 with LayerScale),
-Virchow2 (ViT-H/14 with a packed SwiGLU MLP and 4 register tokens) and the
-Kaiko DINO ViTs. All follow timm's `VisionTransformer` graph: patch embedding,
-prepended class (+ register) tokens, learned position embedding, pre-norm
+Virchow2 and the Kaiko DINO ViTs. `VIRCHOW2` is the published model
+(paige-ai/Virchow2: timm `vit_huge_patch14_224`, 224 px, width 1280, 32
+blocks of 16 heads of 80, LayerScale, 4 register tokens, 261 tokens, timm's
+packed SwiGLU `GluMlp`: fc1 1280 -> 6832 = 2 x 3416, gate half first, fc2
+3416 -> 1280; cls token joined with the mean of the patch tokens, 2560 out),
+whose 3416-wide branches the port holds zero-padded to 3456. All follow
+timm's `VisionTransformer` graph: patch embedding, prepended class
+(+ register) tokens, learned position embedding, pre-norm
 blocks (attention -> LayerScale -> residual; MLP -> LayerScale -> residual),
 final LayerNorm. The encoders are frozen: parameters do not require grad and
 the forward is inference only.
@@ -22,6 +27,8 @@ the forward is inference only.
            attention in the compute dtype); the model's block matrices must
            have been quantised (`kernels.vit_int8.quantize_vit_blocks`;
            `encoders.registry.from_name(block_impl="int8")` does it).
+On a card, "fused" and "fused1" take head_dim 64 and 80 (Virchow2); "int8"
+(#8) and "flash" (#1) take head_dim 64 only and refuse Virchow2's 80.
 """
 from __future__ import annotations
 
@@ -53,21 +60,40 @@ class ViTSpec:
     num_reg_tokens: int = 0            # Virchow2: 4 register tokens
     pool: str = "token"                # token | token+mean (Virchow2 concat)
     gelu: str = "exact"                # "exact" (erf, as timm) or "tanh"
+    # timm's packed `GluMlp` (Virchow2): the width of each SwiGLU branch, so
+    # fc1 has 2 x glu_width rows and fc2 glu_width columns, with
+    # 2 x glu_width = embed_dim x mlp_ratio. 0: the JAX package's SwiGLU,
+    # whose branches are each int(embed_dim x mlp_ratio) wide.
+    glu_width: int = 0
+
+    def __post_init__(self):
+        if self.glu_width and not (
+                self.swiglu
+                and 2 * self.glu_width == round(self.embed_dim * self.mlp_ratio)):
+            raise ValueError(
+                f"glu_width {self.glu_width} needs swiglu and 2 x glu_width = "
+                f"embed_dim x mlp_ratio ({self.embed_dim * self.mlp_ratio})")
 
     @property
     def num_patches(self) -> int:
         return (self.img_size // self.patch_size) ** 2
 
     @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
     def mlp_hidden(self) -> int:
-        return int(self.embed_dim * self.mlp_ratio)
+        """The MLP's hidden width as published: a SwiGLU branch's width
+        (fc2's input), GELU's fc1 output."""
+        return self.glu_width or int(self.embed_dim * self.mlp_ratio)
 
     @property
     def mlp_hidden_padded(self) -> int:
-        """Hidden width stored in the weights: a SwiGLU hidden rounds up to
-        a multiple of 128 (Virchow2's 6832 -> 6912), as in the JAX package,
-        so both packages hold the same arrays. Zero padding is exact:
-        silu(0) * 0 = 0 and zero fc2 columns contribute nothing."""
+        """Hidden width stored in the weights: a SwiGLU branch rounds up to
+        a multiple of 128 (Virchow2's 3416 -> 3456; the JAX package's
+        6832 -> 6912), so the fused kernel #6 takes it. Zero padding is
+        exact: silu(0) * 0 = 0 and zero fc2 columns contribute nothing."""
         if self.swiglu:
             return -(-self.mlp_hidden // 128) * 128
         return self.mlp_hidden
@@ -79,9 +105,12 @@ class ViTSpec:
 
 # canonical specs of the zoo
 UNI = ViTSpec(embed_dim=1024, depth=24, num_heads=16, layer_scale=True)
-VIRCHOW2 = ViTSpec(patch_size=14, embed_dim=1280, depth=32, num_heads=20,
-                   mlp_ratio=5.3375, swiglu=True, num_reg_tokens=4,
-                   pool="token+mean")
+VIRCHOW2 = ViTSpec(patch_size=14, embed_dim=1280, depth=32, num_heads=16,
+                   mlp_ratio=5.3375, layer_scale=True, swiglu=True,
+                   glu_width=3416, num_reg_tokens=4, pool="token+mean")
+assert (VIRCHOW2.head_dim, VIRCHOW2.mlp_hidden, VIRCHOW2.mlp_hidden_padded,
+        VIRCHOW2.num_patches + 1 + VIRCHOW2.num_reg_tokens,
+        VIRCHOW2.out_dim) == (80, 3416, 3456, 261, 2560)
 KAIKO_VITS16 = ViTSpec(embed_dim=384, depth=12, num_heads=6)
 KAIKO_VITS8 = ViTSpec(patch_size=8, embed_dim=384, depth=12, num_heads=6)
 KAIKO_VITB16 = ViTSpec(embed_dim=768, depth=12, num_heads=12)
@@ -196,7 +225,22 @@ def vit_init(seed: int, spec: ViTSpec) -> ViT:
             if spec.layer_scale:
                 blk.ls1.fill_(1e-5)
                 blk.ls2.fill_(1e-5)
+            if spec.glu_width:
+                _zero_glu_padding(blk, spec)
     return model
+
+
+def _zero_glu_padding(blk: ViTBlock, spec: ViTSpec) -> None:
+    """Zero the rows of fc1 and the columns of fc2 past each SwiGLU branch's
+    published width (`spec.mlp_hidden`), so the padded block computes the
+    published one. The JAX package's `vit_init` draws them, so specs without
+    `glu_width` keep them drawn, bit-equal to it."""
+    h, hp = spec.mlp_hidden, spec.mlp_hidden_padded
+    with torch.no_grad():
+        for lo in (h, hp + h):
+            blk.fc1.weight[lo: lo + hp - h].zero_()
+            blk.fc1.bias[lo: lo + hp - h].zero_()
+        blk.fc2.weight[:, h:].zero_()
 
 
 def _ln(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:

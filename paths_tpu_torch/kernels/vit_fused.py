@@ -26,8 +26,9 @@ head's P V is rounded, and x after the attention half is rounded to the
 compute dtype before the second LayerNorm.
 
 A CUDA tensor goes to the kernels or the call raises; a CPU tensor goes to
-the plain versions. The kernels take head_dim 64, D a multiple of 64, a hidden
-width that is a multiple of 32, and any number of tokens: the attention of
+the plain versions. The kernels take head_dim 64 (`fused_attn_block` also 80,
+Virchow2's), D a multiple of 64, a hidden width that is a multiple of 32,
+and any number of tokens: the attention of
 `fused_attn_block` and `fused_block` streams K and V in tiles of 64 keys, so
 the patch-8 Kaiko models (785 tokens) run as the others do. Each wrapper
 allocates the scratch its launches pass through device memory: the LN output
@@ -47,6 +48,7 @@ from paths_tpu_torch.kernels import build
 
 LN_EPS = 1e-6
 HEAD_DIM = 64
+ATTN_HEAD_DIMS = (64, 80)      # fused_attn_block's; the other kernels take 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTS = {"gelu": 0, "gelu_tanh": 1, "swiglu": 2}
 
@@ -219,9 +221,9 @@ def fused_attn_block(x, norm_scale, norm_bias, qkv_w, qkv_b, proj_w, proj_b,
     b, n, d = x.shape
     if num_heads < 1 or d % num_heads:
         raise ValueError(f"num_heads {num_heads} must divide D {d}")
-    if d // num_heads != HEAD_DIM:
+    if d // num_heads not in ATTN_HEAD_DIMS:
         raise ValueError(f"head_dim {d // num_heads} not supported (the "
-                         f"kernel takes {HEAD_DIM})")
+                         f"kernel takes {ATTN_HEAD_DIMS})")
     _check_weight(x, "qkv_w", qkv_w, (3 * d, d))
     _check_weight(x, "proj_w", proj_w, (d, d))
     vecs = [_vector(x, name, v, length) for name, v, length in (

@@ -86,8 +86,8 @@ from paths_tpu_torch.kernels.vit_fused import (
 
 _INV_127 = 1.0 / 127.0
 # Rows of one slab of kernels #9 and #10: their f32 hidden activation goes
-# through device memory a slab at a time (113 MB at Virchow2's hidden width
-# 6912, 67 MB at UNI's 4096).
+# through device memory a slab at a time (113 MB at a hidden width of 6912,
+# 67 MB at UNI's 4096).
 MLP_SLAB_ROWS = 4096
 
 

@@ -203,10 +203,21 @@ def _shard_encoders(encode_fn, device, mesh):
     return encoders, mesh.devices
 
 
-def _encode_shards(encoders, devices, staged) -> list:
-    """Each shard's embeddings, encoded on its own device."""
-    return [enc(x.to(d)) for enc, d, x in
-            zip(encoders, devices, _staged(staged, len(devices)))]
+def _encode_shards(encoders, devices, staged, valid: int) -> list:
+    """Each shard's embeddings, encoded on its own device, under the span
+    `paths.preprocess.encode`; while it records, its attribute `rows` is the
+    batch's `valid` patches and its counters `vit_rows` the rows the
+    dispatch sends through the encoder, bucket padding included, and
+    `vit_pad_rows` that padding (with the recorder off, nothing is
+    counted)."""
+    with span("paths.preprocess.encode") as recorded:
+        parts = _staged(staged, len(devices))
+        if recorded is not None:
+            sent = sum(x.shape[0] for x in parts)
+            count("rows", valid)
+            count("vit_rows", sent)
+            count("vit_pad_rows", sent - valid)
+        return [enc(x.to(d)) for enc, d, x in zip(encoders, devices, parts)]
 
 
 def _level_plan(wsi: WSIReader, power: float, patch_size: int,
@@ -358,9 +369,8 @@ def process_level(wsi: WSIReader, encode_fn: Callable, dim: int, power: float,
                     arr, s, e = pending.result()
                 if bi + 1 < n_batches:
                     pending = read(bi + 1)
-                with span("paths.preprocess.encode"):
-                    in_flight.append(
-                        (_encode_shards(encoders, devices, arr), s, e))
+                in_flight.append(
+                    (_encode_shards(encoders, devices, arr, e - s), s, e))
 
             _drain_level(in_flight, cand, grid)
         finally:
@@ -491,7 +501,7 @@ def _consume_decode_queue(q, procs, *, encode, stage_fn, dim, store,
             key, arr, s, e = payload
             staged = stage_fn(arr) if stage_fn is not None else arr
             open_levels[key][2].append(
-                (_encode_shards(encoders, devices, staged), s, e))
+                (_encode_shards(encoders, devices, staged, e - s), s, e))
         elif kind == "flush" and payload in open_levels:
             cand, grid, in_flight = open_levels.pop(payload)
             slide_id, power = payload
@@ -706,7 +716,8 @@ def process_slides(items: Sequence, encode_fn: Callable, dim: int,
                           f"{n_rows * n_cols} cells pass tissue threshold")
             elif kind == "batch" and cur is not None:
                 arr, s, e = payload
-                cur[4].append((_encode_shards(encoders, devices, arr), s, e))
+                cur[4].append((_encode_shards(encoders, devices, arr, e - s),
+                               s, e))
             elif kind == "flush" and cur is not None:
                 slide_id, power, cand, grid, in_flight = cur
                 try:

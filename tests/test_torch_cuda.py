@@ -478,6 +478,71 @@ def test_vit_kernels_refuse_what_they_do_not_take(card):
                             p["fc2_b"], p["ls"])
 
 
+# ------------------------------------------------- head_dim 80 (Virchow2)
+# (B, N, D, heads, hidden): Virchow2 as published (16 heads of 80, each
+# SwiGLU branch 3416 held as 3456, 261 tokens), and a ragged small case
+VIT_HD80_SHAPES = [(2, 261, 1280, 16, 3456), (3, 131, 320, 4, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", VIT_HD80_SHAPES)
+def test_vit_head_dim_80_kernels_match_plain(card, shape, dtype):
+    """#4 at head_dim 80 and #6 at Virchow2's held width against their plain
+    versions, one launch each, bitwise repeatable; the kernels that take
+    head_dim 64 only (#7, #8, #1) refuse it."""
+    b, n, d, heads, hidden = shape
+    assert d // heads == 80
+    p = _vit_args(b, n, d, hidden, 2, dtype, card)
+    attn = (p["x"], p["ns"], p["nb"], p["qkv_w"], p["qkv_b"], p["proj_w"],
+            p["proj_b"], p["ls"])
+    mlp = (p["x"], p["ns"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+           p["fc2_b"], p["ls"])
+    for kernel, plain, args, kw in (
+            (tvf.fused_attn_block, tvf.fused_attn_block_reference, attn,
+             dict(num_heads=heads)),
+            (tvf.fused_swiglu_mlp_block, tvf.fused_swiglu_mlp_block_reference,
+             mlp, {})):
+        before = kernel.launches
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        _vit_close(got, plain(*args, **kw), dtype)
+        assert torch.equal(got, kernel(*args, **kw))
+    with pytest.raises(ValueError, match="head_dim 80"):
+        tvf.fused_block(p["x"], {"attn": {}, "mlp": {}}, num_heads=heads)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        tvi.fused_attn_block_i8(p["x"], None, None, None, None, None, None,
+                                num_heads=heads)
+    q = p["x"].view(b, n, heads, 80).transpose(1, 2).contiguous()
+    with pytest.raises(ValueError, match="head_dim 80"):
+        tfa.masked_flash_attention_fwd(
+            q, q, q, torch.full((b,), n, dtype=torch.int32, device=card))
+
+
+# sha256 of kernel #4's output at UNI's shape (2 images, 197 tokens, 16
+# heads of 64) on `_vit_args`' inputs, as the kernel gave it before it took
+# head_dim 80 (an H100 with CUDA 12.8): the head-dim-64 instantiation is
+# bitwise the earlier kernel
+VIT_ATTN_HD64_SHA256 = {
+    "float32": "f2ddb5cbf74d8997ba2b40405f293ed3e5e18508f41d79becde11eb138b2ff39",
+    "bfloat16": "ce0f9faa5c654aceada3643f257eea9f7d2006640dc1646b852267005d2150a8"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_attn_head_dim_64_bitwise_as_before(card, dtype):
+    import hashlib
+
+    p = _vit_args(2, 197, 1024, 4096, 1, dtype, card)
+    got = tvf.fused_attn_block(p["x"], p["ns"], p["nb"], p["qkv_w"],
+                               p["qkv_b"], p["proj_w"], p["proj_b"], p["ls"],
+                               num_heads=16)
+    raw = got.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    assert hashlib.sha256(raw).hexdigest() == \
+        VIT_ATTN_HD64_SHA256[str(dtype).split(".")[1]]
+
+
 # ------------------------------------------------- the whole block, one launch
 def _block_tree(p, ls=True):
     tree = {"norm1": {"scale": p["ns"], "bias": p["nb"]},

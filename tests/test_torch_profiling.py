@@ -237,6 +237,34 @@ def test_process_level_spans():
     assert all(s.tid != level.tid for s in reads + stages)
 
 
+def test_encode_span_counts_rows_and_padding():
+    """Each encode dispatch's span carries its valid patches (`rows`) and
+    counts the rows it sends through the encoder (`vit_rows`, the bucket)
+    and the bucket's padding among them (`vit_pad_rows`)."""
+    from paths_tpu_torch.preprocess import pipeline
+    from paths_tpu_torch.preprocess.wsi import ArrayWSI
+
+    sent = []
+
+    def encode(imgs):
+        sent.append(imgs.shape[0])
+        return imgs[:, ::4, ::4, :].reshape(imgs.shape[0], -1)[:, :8].float()
+
+    t0 = time.time_ns()
+    with profile(activities=CPU):
+        grid = pipeline.process_level(ArrayWSI(_fake_slide(), 10.0), encode, 8,
+                                      10.0, patch_size=64, batch_size=6,
+                                      threads=2, device="cpu")
+    enc = [s for s in _since(t0, "paths.preprocess.encode")]
+    patches = int((grid != 0).any(-1).sum())
+    assert patches % 6, "the tail batch must be padded"
+    assert [s.attrs["vit_rows"] for s in enc] == sent == [6] * len(enc)
+    assert sum(s.attrs["rows"] for s in enc) == patches
+    assert [s.attrs["vit_pad_rows"] for s in enc] == \
+        [6 - s.attrs["rows"] for s in enc]
+    assert sum(s.attrs["vit_pad_rows"] for s in enc) == 6 - patches % 6
+
+
 def _small_config(tmp):
     from paths_tpu_torch.config import Config, PATHSProcessorConfig
     from paths_tpu_torch.data.synthetic import make_synthetic_store
